@@ -49,6 +49,7 @@ struct DpArgs {
   int ke;               // band half-width computed: min(k, m_max)
   int64_t wf;
   int64_t bound;
+  const int64_t* dbound;  // optional device-side bound (overrides bound)
   int64_t start;
   int32_t* out;         // (n_pat,) counts, accumulated with atomics
   int32_t* scratch;     // wide bands only: (gridDim.x, 2ke + 1, kTile)
@@ -146,6 +147,9 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
   apm::zero_counts(s_cnt, a.n_pat);
   __syncthreads();
 
+  // Phase-2 verification passes its bound in device memory; blocks whose
+  // tiles lie past it skip them at once.
+  const int64_t bound = a.dbound != nullptr ? *a.dbound : a.bound;
   const int64_t tiles_per_row = (a.wf + kTile - 1) / kTile;
   const int64_t n_tiles = a.n_rows * tiles_per_row;
   int32_t* cell = nullptr;
@@ -157,7 +161,7 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
     const int64_t r = t / tiles_per_row;
     const int64_t lane0 = (t - r * tiles_per_row) * kTile;
     const int64_t limit =
-        apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+        apm::owned_limit(r, a.n_rows, a.wf, bound, a.start);
     if (lane0 >= limit) continue;  // uniform over the block
     const int64_t lane = lane0 + threadIdx.x;
     const bool own = lane < limit;
@@ -200,17 +204,21 @@ cudaError_t dispatch(const DpArgs& a, int grid, cudaStream_t stream) {
 }  // namespace
 
 // Adds each pattern's window count to out[p] (the caller zeroes out).
-// Returns the launch's cudaError_t (0 on success). Wide bands
-// (ke > kRegMax) need `scratch` with room for grid * (2ke + 1) * 256 int32.
+// `dbound`, when not null, points at an int64 window bound in device memory
+// that replaces `bound`. Returns the launch's cudaError_t (0 on success).
+// Wide bands (ke > kRegMax) need `scratch` with room for
+// grid * (2ke + 1) * 256 int32.
 extern "C" int apm_dp_band_count(const uint8_t* rows, int64_t n_rows,
                                  int64_t row_stride, const uint8_t* pat,
                                  int n_pat, int64_t pat_stride,
                                  const int32_t* plens, int k, int ke,
-                                 int64_t wf, int64_t bound, int64_t start,
+                                 int64_t wf, int64_t bound,
+                                 const int64_t* dbound, int64_t start,
                                  int32_t* out, int32_t* scratch, int grid,
                                  void* stream) {
-  DpArgs a{rows, n_rows, row_stride, pat, n_pat, pat_stride, plens, k, ke,
-           wf,   bound,  start,      out, scratch};
+  DpArgs a{rows, n_rows, row_stride, pat,    n_pat, pat_stride, plens,
+           k,    ke,     wf,         bound,  dbound, start,     out,
+           scratch};
   if (grid <= 0 || n_pat <= 0 || ke < 0 || ke > k) {
     return (int)cudaErrorInvalidValue;
   }

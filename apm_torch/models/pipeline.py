@@ -1,17 +1,29 @@
-"""Scan planning (port of ``apm/models/pipeline.py::ScanPlan``/``make_plan``).
+"""Scan planning and the filtration decision tree (port of
+``apm/models/pipeline.py``).
 
-One place computes every derived layout quantity of a scan — block width,
-staging-row width and halo, the device-owned window bound, and the engine
-gating — exactly as ``apm``'s ``make_plan(scanner, n, "pallas")`` does, so
-both packages stage byte-identical rows and route the same patterns.
-``ScanPlan`` keeps ``apm``'s fields; which kernel serves each group of
-patterns in the port is decided in :class:`apm_torch.models.scanner.Scanner`.
+* :class:`ScanPlan` / :func:`make_plan`: every derived layout quantity of a
+  scan — block width, staging-row width and halo, the device-owned window
+  bound, and the engine gating — exactly as ``apm``'s ``make_plan(scanner,
+  n, "pallas")`` computes them, so both packages stage byte-identical rows
+  and route the same patterns. Which kernel serves each group of patterns
+  is decided in :class:`apm_torch.models.scanner.Scanner`.
+* :func:`finalize_filtration`: the phase-2 decision tree over the fetched
+  per-chunk results of :mod:`apm_torch.ops.fused` (zero candidates,
+  density rescan, on-device verified counts, overflow recovery, clipped
+  rows), with :func:`verify_rows_host` for overflow past the device
+  compaction cap.
+
+Corpus access is a ``reader(j0, length) -> np.ndarray`` (zero-padded past
+EOF), as in ``apm``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING
+from typing import TYPE_CHECKING, Callable, List, Sequence
+
+import numpy as np
+import torch
 
 from ..ops.common import round_up
 
@@ -21,6 +33,22 @@ if TYPE_CHECKING:  # pragma: no cover
 # apm's DP fold for int32 cells (rows per Pallas block); the block width is
 # rounded to fold x 128 windows, as in apm.
 _FOLD = 8
+
+Reader = Callable[[int, int], np.ndarray]
+
+
+def buf_reader(buf: np.ndarray) -> Reader:
+    """Reader over an in-memory corpus; zero-pads past EOF."""
+
+    def read(j0: int, length: int) -> np.ndarray:
+        seg = buf[j0 : j0 + length]
+        if len(seg) == length:
+            return np.asarray(seg)
+        out = np.zeros(length, dtype=np.uint8)
+        out[: len(seg)] = seg
+        return out
+
+    return read
 
 
 @dataclass(frozen=True)
@@ -129,3 +157,162 @@ def make_plan(scanner: "Scanner", n: int) -> ScanPlan:
         plens_dp=plens_dp,
         fp1_conv=fp1_conv,
     )
+
+
+@dataclass
+class FilterChunk:
+    """One chunk's fetched phase-2 results, and how to recover it on the
+    device if it overflowed its hot-row bucket."""
+
+    c0: int  # global window start of the chunk
+    fcnt: np.ndarray  # (P,) candidate totals
+    vcnt: np.ndarray  # (P,) counts verified on the device
+    n_hot: int  # full hot rows of the chunk
+    clip_starts: np.ndarray  # (MAX_CLIP,) global starts of clipped hot rows
+    rowmap: object = None  # (R, P) device row map
+    # callable(n_hot) -> list of (P,) device count tensors over ALL the
+    # chunk's full hot rows (fused.count_hot_batch), or None past the
+    # compaction cap
+    verify_dev: object = None
+
+
+def candidate_density_dense(hot_rows: int, wf: int, dev_bound: int) -> bool:
+    """Verification would touch more windows than ~5 % of the corpus (or
+    64 rows): rescanning the filtration patterns with the banded DP is the
+    cheaper route (``apm``'s threshold)."""
+    return hot_rows * wf > max(64 * wf, dev_bound // 20)
+
+
+def finalize_filtration(
+    scanner: "Scanner",
+    reader: Reader,
+    plan: ScanPlan,
+    n: int,
+    chunks: Sequence[FilterChunk],
+    rescan: Callable[[], np.ndarray],
+    *,
+    max_hot: int,
+) -> np.ndarray:
+    """Phase-2 decision tree over fetched per-chunk results (k >= 1),
+    ``apm``'s branch for branch. Returns ``(p_pad,)`` int64 counts of the
+    filtration patterns; ``rescan()`` must return banded-DP counts of
+    ``plan.plens_filter`` over the whole device-owned range."""
+    p_pad = scanner._pat.shape[0]
+    out = np.zeros((p_pad,), dtype=np.int64)
+    if scanner.k < 1:
+        raise ValueError("finalize_filtration is for k >= 1")
+
+    fcnt = np.zeros((p_pad,), dtype=np.int64)
+    vcnt = np.zeros((p_pad,), dtype=np.int64)
+    n_hots: List[int] = []
+    clips: List[int] = []
+    for ch in chunks:
+        fcnt += np.asarray(ch.fcnt, dtype=np.int64)
+        vcnt += np.asarray(ch.vcnt, dtype=np.int64)
+        n_hots.append(int(ch.n_hot))
+        clips.extend(int(j0) for j0 in np.asarray(ch.clip_starts).ravel() if j0 >= 0)
+    clips = sorted(set(clips))
+    # The outcome, for callers that report the route taken.
+    info = {"route": "zero-candidates", "n_hot": sum(n_hots), "max_hot": max_hot}
+    scanner.last_filtration = info
+
+    if int(fcnt.sum()) == 0:
+        return out  # zero candidates: nothing to verify
+
+    hot_total = sum(n_hots) + len(clips)
+    if candidate_density_dense(hot_total, plan.wf, plan.dev_bound):
+        info["route"] = "rescan"
+        return rescan().astype(np.int64)
+
+    overflow = [(ch, h) for ch, h in zip(chunks, n_hots) if h > max_hot]
+    if overflow:
+        batches = [(ch, ch.verify_dev(h)) for ch, h in overflow]
+        if all(b is not None for _, b in batches):
+            # Re-verify each overflowed chunk's hot rows on the device; the
+            # other chunks keep their on-device counts. One fetch.
+            info["route"] = "count_hot_batch"
+            handles = [h for _, hs in batches for h in hs]
+            fetched = torch.stack(handles).cpu().numpy().astype(np.int64)
+            redone = {id(ch) for ch, _ in overflow}
+            for ch in chunks:
+                if id(ch) not in redone:
+                    out += np.asarray(ch.vcnt, dtype=np.int64)
+            bi = 0
+            for _, hs in batches:
+                out += fetched[bi : bi + len(hs)].sum(axis=0)
+                bi += len(hs)
+        else:
+            # A chunk exceeded the compaction cap: verify ALL full hot rows
+            # from host-staged copies.
+            info["route"] = "verify_rows_host"
+            rows: List[int] = []
+            for ch in chunks:
+                rm = ch.rowmap.cpu().numpy()
+                for r in np.nonzero(rm.any(axis=1))[0]:
+                    j0 = ch.c0 + int(r) * plan.wf
+                    if j0 + plan.wf <= plan.dev_bound:
+                        rows.append(j0)
+            out += verify_rows_host(scanner, reader, n, sorted(set(rows)), plan)
+    else:
+        info["route"] = "device-verify"
+        out += vcnt
+
+    # Clipped rows (at most one per chunk): verified on the host.
+    for j0 in clips:
+        out += _verify_clipped_row(scanner, reader, plan, n, j0, fcnt)
+    return out
+
+
+def verify_rows_host(
+    scanner: "Scanner",
+    reader: Reader,
+    n: int,
+    rows: Sequence[int],
+    plan: ScanPlan,
+) -> np.ndarray:
+    """Verify full hot rows staged from the host: one ``(bucket, wf +
+    halo)`` array, one banded-DP call over the filtration patterns."""
+    from ..ops.filter_kernel import FOLD
+
+    p_pad = scanner._pat.shape[0]
+    out = np.zeros((p_pad,), dtype=np.int64)
+    if not rows:
+        return out
+    wf, halo = plan.wf, plan.halo
+    n_hot = len(rows)
+    bucket = max(FOLD, round_up(n_hot, 4 * FOLD))
+    stage = np.zeros((bucket, wf + halo), dtype=np.uint8)
+    for i, j0 in enumerate(rows):
+        stage[i] = reader(j0, wf + halo)
+    drows = torch.from_numpy(stage).to(scanner.device)
+    counts = scanner._scan_dp(drows, n_hot * wf, 0, plan.plens_filter, wf=wf, halo=halo)
+    out += counts.cpu().numpy().astype(np.int64)
+    return out
+
+
+def _verify_clipped_row(
+    scanner: "Scanner",
+    reader: Reader,
+    plan: ScanPlan,
+    n: int,
+    j0: int,
+    fcnt: np.ndarray,
+) -> np.ndarray:
+    """Verify the window-bound-clipped hot row ``[j0, dev_bound)`` on the
+    host (NumPy banded distances, where ``apm`` may use its native
+    verifier: the same counts)."""
+    from ..utils.oracle import banded_distances
+
+    k = scanner.k
+    out = np.zeros((scanner._pat.shape[0],), dtype=np.int64)
+    j1 = min(j0 + plan.wf, plan.dev_bound)
+    if j0 >= j1:
+        return out
+    for pi, is_f in enumerate(plan.fmask):
+        if not is_f or fcnt[pi] == 0:
+            continue
+        pat = scanner.scan_patterns.raw[pi]
+        seg = reader(j0, min(n - j0, j1 - j0 + len(pat) - 1 + k))
+        d = banded_distances(seg, pat, k)
+        out[pi] += int(np.sum(d[: j1 - j0] <= k))
+    return out

@@ -19,6 +19,7 @@ from ..ops.common import fold_corpus, round_up
 from ..utils.config import ApmConfig
 from ..utils.io import PatternSet
 from ..utils.oracle import Bytes, as_u8
+from ..utils.profiling import OFF, Spans
 
 _ROADMAP = "not ported yet (ROADMAP.md, 'Queue 1')"
 
@@ -88,12 +89,17 @@ class Scanner:
         )
         self._alph = build_alphabet(self.scan_patterns.raw)
         self._fused_np = None  # (km, thr) NumPy tables, built on demand
+        self._fp1_np = None  # (plens_filter, (kern, thr, owner, stride))
+        self._peq_np = None  # Myers-mode PEQ table, built on demand
         self._dev_tables: Dict[str, object] = {}  # device copies
 
         from ..utils.profiling import Meter
 
         self.last_duration: Optional[float] = None
         self.last_strategy: Optional[str] = None
+        # The last scan's filtration outcome (pipeline.finalize_filtration):
+        # route taken, full hot rows, hot-row bucket; None without phase 2.
+        self.last_filtration: Optional[dict] = None
         self.meter = Meter()
 
     # -- configuration --------------------------------------------------------
@@ -101,15 +107,6 @@ class Scanner:
     def _check_config(self) -> None:
         """Refuse, up front, the options whose engine the port lacks."""
         cfg = self.config
-        if cfg.engine == "filter":
-            raise NotImplementedError(
-                f"engine='filter' (shift-OR filtration kernel) is {_ROADMAP} #8"
-            )
-        if cfg.dp_impl == "myers":
-            raise NotImplementedError(
-                f"dp_impl='myers' (bit-parallel band) is {_ROADMAP} #7; "
-                "'auto' and 'band' run the classic band with the same counts"
-            )
         if cfg.strategy in ("database_over_devices", "patterns_over_devices"):
             raise NotImplementedError(
                 f"strategy={cfg.strategy!r} (more than one device) is "
@@ -137,6 +134,12 @@ class Scanner:
         """Distinct pattern bytes, sorted — the correlation tables' codes."""
         return self._alph
 
+    def _dp_alphabet(self) -> tuple:
+        """Distinct pattern bytes as a tuple: the alphabet of the
+        bit-parallel (Myers) band, whose gate is
+        :func:`apm_torch.ops.dp_kernel._myers_mode`."""
+        return tuple(int(b) for b in self._corr_alphabet())
+
     def _corr_fused_tables(self):
         """``(km, thr)`` phase-folded ±1 tables over the real patterns
         (``apm``'s ``Scanner._corr_fused_tables``), built on demand."""
@@ -151,10 +154,60 @@ class Scanner:
             )
         return self._fused_np
 
+    def _fp1_kernel(self, plens_filter: tuple):
+        """Piece-correlation tables for conv phase 1, ``(kern, thr, owner,
+        stride)`` (``apm``'s ``Scanner._fp1_kernel``), cached per split."""
+        if self._fp1_np is not None and self._fp1_np[0] == plens_filter:
+            return self._fp1_np[1]
+        from ..ops.corr_engine import build_piece_kernel, pick_stride
+        from ..ops.filter_kernel import tier_of
+
+        n_pieces = sum(tier_of(m, self.k)[0] for m in plens_filter if m > 0)
+        stride = pick_stride(n_pieces)
+        tables = build_piece_kernel(
+            self._pat_raw, plens_filter, self.k, self._corr_alphabet(),
+            stride=stride,
+        ) + (stride,)
+        self._fp1_np = (plens_filter, tables)
+        return tables
+
+    def _fp1_plens(self) -> Optional[tuple]:
+        """The filtration lengths of an ``engine="auto"`` scan when it runs
+        conv phase 1, else None."""
+        from ..ops.corr_engine import fp1_conv_eligible
+        from ..ops.filter_kernel import partition_plens
+
+        plens = partition_plens(self._plens_static, self.k, "auto")[1]
+        if any(plens) and fp1_conv_eligible(plens, self.k, len(self._alph)):
+            return plens
+        return None
+
+    def _myers_table_ok(self) -> bool:
+        """Can the bit-parallel band represent this pattern table?"""
+        from ..ops.dp_kernel import _myers_mode
+
+        return _myers_mode(
+            self.k, self._dp_alphabet(), "int32", "myers",
+            len(self._plens_static), self.m_max,
+        )
+
+    def _peq(self) -> np.ndarray:
+        """The Myers-mode PEQ table of the pattern table, built on demand."""
+        if self._peq_np is None:
+            from ..ops.dp_kernel import build_peq
+
+            self._peq_np = build_peq(
+                self._pat, self.k, self.m_max, self._dp_alphabet()
+            )
+        return self._peq_np
+
     def tables(self) -> Dict[str, np.ndarray]:
         """The scanner's tables as NumPy arrays — the keys
         :meth:`load_tables` takes. ``km``/``thr`` only when the pattern set
-        fits the fused correlation tables (m_max <= 97)."""
+        fits the fused correlation tables (m_max <= 97); ``pkern``,
+        ``pthr``, ``owner`` and ``stride`` only when an ``engine="auto"``
+        scan runs conv phase 1; ``peq`` only when the bit-parallel band can
+        represent the table."""
         from ..ops.corr_fused import M_MAX_FUSED
 
         out = {
@@ -166,6 +219,13 @@ class Scanner:
         if self.m_max <= M_MAX_FUSED:
             km, thr = self._corr_fused_tables()
             out["km"], out["thr"] = km, thr
+        plens = self._fp1_plens()
+        if plens is not None:
+            kern, thr, owner, stride = self._fp1_kernel(plens)
+            out["pkern"], out["pthr"], out["owner"] = kern, thr, owner
+            out["stride"] = np.asarray(stride, dtype=np.int64)
+        if self._myers_table_ok():
+            out["peq"] = self._peq()
         return out
 
     def load_tables(self, arrays: Dict[str, np.ndarray]) -> None:
@@ -173,23 +233,27 @@ class Scanner:
 
         ``arrays`` holds ``pat`` (k-padded table), ``plen``, ``pat_raw``,
         ``alphabet`` and optionally ``km`` (bf16 cast to float32, or int8)
-        and ``thr`` — NumPy arrays, as :meth:`tables` returns them. They
-        replace this scanner's own tables and are moved to its device; a
-        table whose shape or dtype does not fit this pattern set raises.
+        and ``thr``, the piece tables ``pkern`` (bf16 cast to float32),
+        ``pthr``, ``owner`` and ``stride``, and ``peq`` — NumPy arrays, as
+        :meth:`tables` returns them. They replace this scanner's own tables
+        and are moved to its device; a table whose shape or dtype does not
+        fit this pattern set raises.
         """
-        def take(name, like):
+        own = self.tables()
+
+        def take(name, like=None):
             a = np.asarray(arrays[name])
+            like = own[name] if like is None else like
             if a.shape != like.shape or a.dtype != like.dtype:
                 raise ValueError(
                     f"table {name!r}: {a.dtype} {a.shape}, expected "
                     f"{like.dtype} {like.shape}"
                 )
-            return np.ascontiguousarray(a)
+            return np.array(a)  # a writable copy, whatever the caller passed
 
-        pat = take("pat", self._pat)
-        plen = take("plen", self._plen)
-        pat_raw = take("pat_raw", self._pat_raw)
-        alph = take("alphabet", self._alph)
+        pat, plen, pat_raw, alph = (
+            take(name) for name in ("pat", "plen", "pat_raw", "alphabet")
+        )
         fused = None
         if "km" in arrays or "thr" in arrays:
             km = np.asarray(arrays["km"])
@@ -197,17 +261,31 @@ class Scanner:
                 km = km.astype(np.float32)
             thr = np.asarray(arrays["thr"])
             fused = (np.ascontiguousarray(km), np.ascontiguousarray(thr))
+        fp1 = None
+        if "pkern" in arrays:
+            plens = self._fp1_plens()
+            if plens is None:
+                raise ValueError("piece tables given, but no conv phase 1 runs")
+            kern = np.ascontiguousarray(np.asarray(arrays["pkern"]), dtype=np.float32)
+            if kern.shape != own["pkern"].shape:
+                raise ValueError(
+                    f"table 'pkern': shape {kern.shape}, expected {own['pkern'].shape}"
+                )
+            fp1 = (plens, (kern, take("pthr"), take("owner"), take("stride").item()))
+        peq = take("peq") if "peq" in arrays else None
         self._pat, self._plen, self._pat_raw, self._alph = pat, plen, pat_raw, alph
         self._plens_static = tuple(int(x) for x in plen)
-        self._fused_np = fused
+        self._fused_np, self._fp1_np, self._peq_np = fused, fp1, peq
         self._dev_tables = {}
         self._device_tables(fused_needed=fused is not None)
 
     def _device_tables(self, fused_needed: bool) -> Dict[str, object]:
-        """Device copies of the tables (made once)."""
+        """Device copies of the tables (made once each)."""
         t = self._dev_tables
         if "pat" not in t:
             t["pat"] = torch.from_numpy(self._pat).to(self.device)
+            t["pat_raw"] = torch.from_numpy(self._pat_raw).to(self.device)
+            t["alph"] = torch.from_numpy(self._alph).to(self.device)
         if fused_needed and "fused" not in t:
             from ..ops.corr_fused import FusedTables, pick_s
 
@@ -216,6 +294,25 @@ class Scanner:
                 km, thr, self._alph, pick_s(self.m_max), self.device
             )
         return t
+
+    def _device_peq(self) -> torch.Tensor:
+        t = self._dev_tables
+        if "peq" not in t:
+            t["peq"] = torch.from_numpy(self._peq()).to(self.device)
+        return t["peq"]
+
+    def _device_fp1(self, plens_filter: tuple):
+        """Conv phase 1 tables on the device: ``(kern, thr, owner,
+        stride)``."""
+        t = self._dev_tables
+        if t.get("fp1_key") != plens_filter:
+            kern, thr, owner, stride = self._fp1_kernel(plens_filter)
+            t["fp1"] = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                for a in (kern, thr, owner)
+            ) + (stride,)
+            t["fp1_key"] = plens_filter
+        return t["fp1"]
 
     # -- single-device scan ---------------------------------------------------
 
@@ -256,15 +353,15 @@ class Scanner:
     def _routes(self, plan):
         """Which kernel scans which patterns: ``(fused_corr, plens_dp)``.
 
-        Decided once per scan from apm's plan. The correlation kernel takes
-        the plan's correlation set when apm's fused gate admits it. Every
-        other pattern goes to the banded-DP kernel, which counts exactly at
-        every k — including, until their kernels are ported, the patterns
-        apm sends to its filtration kernels (``plan.plens_filter``) and the
-        k = 0 sets apm sends to its XLA conv (97 < m_max <= 512 under
-        ``engine='auto'``). These are routes, not fallbacks on failure.
+        Decided once per scan from apm's plan, as apm's ``_count_pallas``
+        decides. The correlation kernel takes the plan's correlation set
+        when apm's fused gate admits it; ``plan.plens_dp`` goes to the
+        banded DP; ``plan.plens_filter`` to filtration (:meth:`_count_device`).
+        One temporary route remains: the k = 0 sets apm sends to its XLA
+        conv (97 < m_max <= 512 under ``engine='auto'``) go to the banded
+        DP, which counts them exactly. Routes, not fallbacks on failure.
         """
-        from ..ops.corr_fused import fused_eligible
+        from ..ops.corr_fused import fused_eligible, fused_pieces_ok
 
         if plan.use_corr:
             impl = self.config.corr_impl
@@ -285,33 +382,92 @@ class Scanner:
                     f"correlation conv, which is {_ROADMAP} #5"
                 )
             return False, plan.plens_corr
-        plens_dp = tuple(
-            max(a, b) for a, b in zip(plan.plens_dp, plan.plens_filter)
-        )
-        return False, plens_dp
+        if (
+            plan.fp1_conv
+            and self.config.corr_impl == "fused"
+            and fused_pieces_ok(self.m_max, plan.wf, plan.halo)
+        ):
+            raise NotImplementedError(
+                "corr_impl='fused' at k >= 1 runs apm's fused piece scan "
+                "(scan_pieces_fused, TPU kernel #7), which is not ported yet "
+                "(ROADMAP.md, 'Queue 2' #7); corr_impl='auto' runs the piece conv"
+            )
+        return False, plan.plens_dp
 
-    def _stage(self, buf: np.ndarray, c0: int, n_rows: int, wf: int, halo: int):
+    def _peq_for(self, plens: tuple) -> Optional[torch.Tensor]:
+        """The device PEQ table when a DP scan of ``plens`` runs in Myers
+        mode, else None."""
+        from ..ops.dp_kernel import _myers_mode
+
+        on = _myers_mode(
+            self.k, self._dp_alphabet(), "int32", self.config.dp_impl,
+            len(plens), self.m_max,
+        )
+        return self._device_peq() if on else None
+
+    def _scan_dp(
+        self, rows: torch.Tensor, bound, start: int, plens: tuple, *, wf: int, halo: int
+    ) -> torch.Tensor:
+        """``(p_pad,)`` int32 banded-DP counts of ``plens`` over staged
+        rows: kernel C (Myers mode) or kernel A as ``apm``'s mode dispatch
+        decides, or their plain versions under ``backend="torch"``."""
+        from ..ops import dp_kernel
+
+        return dp_kernel.scan_folded_dp(
+            rows, self._dev_tables["pat"], bound, start,
+            k=self.k, m_max=self.m_max, wf=wf, halo=halo,
+            plens=plens, alphabet=self._dp_alphabet(),
+            dp_impl=self.config.dp_impl, peq=self._peq_for(plens),
+            plain=self.backend == "torch",
+        )
+
+    def _stage(
+        self, buf: np.ndarray, c0: int, n_rows: int, wf: int, halo: int,
+        spans=OFF, tag: str = "",
+    ):
         """Fold one chunk on the host and copy it to the device. On a CUDA
         device the rows go through page-locked memory and an asynchronous
         copy on the current stream (the caching host allocator keeps the
-        buffer until the copy has run)."""
-        if self.device.type == "cuda":
-            host = torch.empty((n_rows, wf + halo), dtype=torch.uint8, pin_memory=True)
-            fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
-            return host.to(self.device, non_blocking=True)
-        rows = torch.from_numpy(fold_corpus(buf, c0, n_rows, wf, halo))
-        return rows.to(self.device)
+        buffer until the copy has run). ``spans`` times the two steps as
+        ``tag + "fold"`` and ``tag + "copy"``."""
+        with spans.host(tag + "fold"):
+            if self.device.type == "cuda":
+                host = torch.empty((n_rows, wf + halo), dtype=torch.uint8, pin_memory=True)
+                fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
+            else:
+                host = torch.from_numpy(fold_corpus(buf, c0, n_rows, wf, halo))
+        with spans.device(tag + "copy"):
+            return host.to(self.device, non_blocking=self.device.type == "cuda")
 
     def _count_device(self, buf: np.ndarray, n: int) -> np.ndarray:
-        """Chunked single-device scan; ``(p_pad,)`` int64 counts per scan
-        pattern slot, EOF tail included."""
-        from ..ops import corr_fused, dp_kernel
-        from .pipeline import make_plan
+        """Chunked single-device scan (port of ``apm``'s ``_count_pallas``);
+        ``(p_pad,)`` int64 counts per scan pattern slot, EOF tail included.
+
+        Per chunk, every kernel is launched without synchronising: the
+        correlation kernel (``plan.use_corr``), the banded DP
+        (``plan.plens_dp``) and filtration (``plan.plens_filter``: kernel
+        D's exact counts at k = 0; at k >= 1 phase 1 through the piece conv
+        (``plan.fp1_conv``) or kernel D, then phase 2 on the device). All
+        per-chunk vectors come back in one fetch; then the filtration
+        decision tree (:func:`apm_torch.models.pipeline.finalize_filtration`)
+        and the EOF tail run on the host.
+
+        With ``self.meter.trace`` on, the scan leaves its per-phase times
+        in ``self.meter.last_spans`` (:class:`Spans`): host ``fold``,
+        device ``copy``, ``corr``, ``dp``, ``phase 1``, ``phase 2``,
+        host ``fetch``, ``finalize`` (which holds the device
+        ``count_hot_batch`` and the ``rescan `` fold, copy and dp) and
+        host ``EOF tail``.
+        """
+        from ..ops import corr_fused, filter_kernel, fused
+        from ..ops.corr_engine import _group_rows
+        from .pipeline import FilterChunk, buf_reader, finalize_filtration, make_plan
 
         k = self.k
         plan = make_plan(self, n)
         use_fused, plens_dp = self._routes(plan)
         wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
+        self.last_filtration = None
         p_pad = self._pat.shape[0]
         counts = np.zeros((p_pad,), dtype=np.int64)
         n_scan = self.scan_patterns.num_patterns
@@ -319,40 +475,126 @@ class Scanner:
             counts[:n_scan] += self.tail_counts(buf, dev_bound)
             return counts
 
-        if self.backend == "cuda":
-            corr_fn, dp_fn = corr_fused.scan_corr_fused, dp_kernel.scan_folded_dp
-        else:
-            corr_fn = corr_fused.scan_corr_fused_ref
-            dp_fn = dp_kernel.scan_folded_dp_ref
+        plain = self.backend == "torch"
+        spans = Spans(self.device, self.meter.trace)
+        corr_fn = corr_fused.scan_corr_fused_ref if plain else corr_fused.scan_corr_fused
         tabs = self._device_tables(fused_needed=use_fused)
         chunk_win = max(
             plan.w,
             round_up(min(self.config.chunk_bytes, dev_bound), plan.w),
         )
         n_rows = chunk_win // wf
+        max_hot = fused.pick_max_hot(n_rows, wf, plan.plens_filter, k)
+        common = dict(
+            k=k, m_max=self.m_max, wf=wf, halo=halo, plens=plan.plens_filter,
+            max_hot=max_hot, alphabet=self._dp_alphabet(),
+            dp_impl=self.config.dp_impl, plain=plain,
+        )
+        if plan.any_filter and k >= 1:
+            common["peq"] = self._peq_for(plan.plens_filter)
         handles = []  # (p_pad,) int32 device counts, fetched after the loop
+        raw_chunks = []  # (c0, packed, rowmap, rows) of filtration chunks
         for c0 in range(0, dev_bound, chunk_win):
-            drows = self._stage(buf, c0, n_rows, wf, halo)
+            drows = self._stage(buf, c0, n_rows, wf, halo, spans)
             if use_fused:
-                handles.append(
-                    corr_fn(
-                        drows, tabs["fused"], dev_bound, c0,
-                        wf=wf, halo=halo, n_rows=n_rows, p_out=p_pad,
+                with spans.device("corr"):
+                    handles.append(
+                        corr_fn(
+                            drows, tabs["fused"], dev_bound, c0,
+                            wf=wf, halo=halo, n_rows=n_rows, p_out=p_pad,
+                        )
                     )
-                )
             if any(plens_dp):
-                handles.append(
-                    dp_fn(
-                        drows, tabs["pat"], dev_bound, c0,
-                        k=k, m_max=self.m_max, wf=wf, halo=halo,
-                        plens=plens_dp,
+                with spans.device("dp"):
+                    handles.append(
+                        self._scan_dp(drows, dev_bound, c0, plens_dp, wf=wf, halo=halo)
                     )
+            if not plan.any_filter:
+                continue
+            if k == 0:  # candidates are exact matches
+                with spans.device("phase 1"):
+                    fcnt, _ = filter_kernel.scan_filter(
+                        drows, tabs["pat_raw"], dev_bound, c0, k=0, m_max=self.m_max,
+                        wf=wf, halo=halo, plens=plan.plens_filter, plain=plain,
+                    )
+                handles.append(fcnt)
+                continue
+            if plan.fp1_conv:
+                pkern, pthr, owner, stride = self._device_fp1(plan.plens_filter)
+                packed, rowmap = fused.filter_verify_chunk_conv(
+                    drows, pkern, pthr, owner, tabs["alph"], tabs["pat"],
+                    dev_bound, c0, w_kern=pkern.shape[0], n_rows=n_rows,
+                    g_rows=_group_rows(wf + halo, len(self._alph), n_rows),
+                    fp1_stride=stride, spans=spans, **common,
                 )
+            else:
+                packed, rowmap = fused.filter_verify_chunk(
+                    drows, tabs["pat_raw"], tabs["pat"], dev_bound, c0,
+                    spans=spans, **common,
+                )
+            raw_chunks.append((c0, packed, rowmap, drows))
+
         # ONE device-to-host fetch for all per-chunk vectors.
-        if handles:
-            fetched = torch.stack(handles).cpu().numpy().astype(np.int64)
-            counts += fetched.sum(axis=0)
-        counts[:n_scan] += self.tail_counts(buf, dev_bound)
+        small = handles + [pk for _, pk, _, _ in raw_chunks]
+        with spans.host("fetch"):
+            fetched = (
+                torch.cat([s.reshape(-1) for s in small]).cpu().numpy().astype(np.int64)
+                if small else np.zeros((0,), np.int64)
+            )
+        off = 0
+        for _ in handles:
+            counts += fetched[off : off + p_pad]
+            off += p_pad
+
+        def make_verify_dev(drows, rowmap, c0):
+            """Overflow recovery of one chunk on the device: count_hot_batch
+            handles over all its full hot rows, or None past the cap."""
+
+            def verify(n_hot: int):
+                n_batch, cap = fused.OVERFLOW_BATCH, fused.OVERFLOW_CAP
+                if n_hot > cap:
+                    return None
+                with spans.device("count_hot_batch"):
+                    return [
+                        fused.count_hot_batch(
+                            drows, rowmap, tabs["pat"], dev_bound, c0, b,
+                            n_batch=n_batch, cap=cap,
+                            **{key: common[key] for key in common if key != "max_hot"},
+                        )
+                        for b in range(-(-n_hot // n_batch))
+                    ]
+
+            return verify
+
+        fchunks = []
+        for c0, pk, rowmap, drows in raw_chunks:
+            fcnt, vcnt, n_hot, clip = fused.unpack_chunk(fetched[off : off + pk.numel()], p_pad)
+            off += pk.numel()
+            fchunks.append(
+                FilterChunk(c0, fcnt, vcnt, n_hot, clip, rowmap,
+                            verify_dev=make_verify_dev(drows, rowmap, c0))
+            )
+
+        if fchunks:
+
+            def rescan() -> np.ndarray:
+                parts = []
+                for c0 in range(0, dev_bound, chunk_win):
+                    drows = self._stage(buf, c0, n_rows, wf, halo, spans, "rescan ")
+                    with spans.device("rescan dp"):
+                        parts.append(self._scan_dp(
+                            drows, dev_bound, c0, plan.plens_filter, wf=wf, halo=halo,
+                        ))
+                return torch.stack(parts).cpu().numpy().astype(np.int64).sum(axis=0)
+
+            with spans.host("finalize"):
+                counts += finalize_filtration(
+                    self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=max_hot
+                )
+        with spans.host("EOF tail"):
+            counts[:n_scan] += self.tail_counts(buf, dev_bound)
+        if spans.enabled:
+            self.meter.last_spans = spans.totals()
         return counts
 
     # -- public API -----------------------------------------------------------

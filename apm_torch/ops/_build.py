@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-Every ``apm_torch/csrc/*.cu`` file is compiled by ``nvcc`` into one shared
-library with a plain C interface, for Hopper (``sm_90a``), and loaded with
-``ctypes``. The library is keyed by a hash of the sources and flags and
+Every ``apm_torch/csrc/*.cu`` file is compiled by its own ``nvcc``, all in
+parallel, for Hopper (``sm_90a``), and linked into one shared library with
+a plain C interface, loaded with ``ctypes``. The library is keyed by a hash of the sources and flags and
 kept under ``apm_torch/_build/`` (listed in ``.gitignore``), so a second
 process reuses it. The build runs at first use, never at import: importing
 the package needs no compiler.
@@ -28,7 +28,7 @@ BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -69,27 +69,43 @@ def find_nvcc() -> str:
 def build() -> Path:
     """Compile the kernels if no library for the current sources exists.
 
-    Returns the library path. The compiler's output (``-Xptxas -v``:
-    registers, shared memory and spills per kernel) is kept beside it as
-    ``<name>.log``.
+    Every source is compiled to an object by its own ``nvcc``, all started
+    together, then linked into one shared library. Returns the library
+    path. The compilers' output (``-Xptxas -v``: registers, shared memory
+    and spills per kernel) is kept beside it as ``<name>.log``.
     """
     lib = BUILD_DIR / f"libapm_torch_{_digest()}.so"
     if lib.exists():
         return lib
     nvcc = find_nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        jobs = []
+        for src in _sources():
+            obj = os.path.join(tmpdir, src.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs.append((cmd, obj, proc))
+        log, failed = [], []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            log.append(out)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = os.path.join(tmpdir, lib.name)
+        cmd = [nvcc, "-shared", "-o", tmp, *(obj for _, obj, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc link failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        lib.with_suffix(".log").write_text("".join(log) + proc.stdout + proc.stderr)
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
     return lib
 
 
@@ -109,7 +125,7 @@ def library() -> ctypes.CDLL:
         p, i64, i64,  # rows, n_rows, row_stride
         p, i32, i64, p,  # pat, n_pat, pat_stride, plens
         i32, i32,  # k, ke
-        i64, i64, i64,  # wf, bound, start
+        i64, i64, p, i64,  # wf, bound, dbound, start
         p, p, i32, p,  # out, scratch, grid, stream
     ]
     lib.apm_dp_band_count.restype = i32
@@ -122,6 +138,22 @@ def library() -> ctypes.CDLL:
         p, i32, p,  # out, grid, stream
     ]
     lib.apm_corr_fused_count.restype = i32
+    lib.apm_dp_myers_count.argtypes = [
+        p, i64, i64,  # rows, n_rows, row_stride
+        p, i32, i32, i32, p, p,  # peq, n_pat, m_max, n_chan, alph, plens
+        i32, i64, i64, p, i64,  # k, wf, bound, dbound, start
+        p, i32, p,  # out, grid, stream
+    ]
+    lib.apm_dp_myers_count.restype = i32
+    lib.apm_filter_pieces_count.argtypes = [
+        p, i64, i64,  # rows, n_rows, row_stride
+        p, i32, i64, i32,  # pchar, n_pat, pchar_stride, pad
+        p, p, i32,  # pieces, pstart, span_max
+        i64, i64, i64,  # wf, bound, start
+        p, p, i64,  # fcnt, rowmap, rowmap_stride
+        i32, p,  # grid, stream
+    ]
+    lib.apm_filter_pieces_count.restype = i32
     return lib
 
 

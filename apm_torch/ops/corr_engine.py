@@ -1,19 +1,28 @@
-"""k = 0 correlation-engine planning helpers (port of the host half of
-``apm/ops/corr_engine.py``).
+"""Bit-plane correlation engine (port of ``apm/ops/corr_engine.py``).
 
 At k = 0 approximate matching is exact matching. ``apm`` scores it as a
 ±1 bit-plane correlation: each text byte's code (its rank in the sorted
 pattern alphabet) is written as ``B = max(1, ceil(log2 C))`` planes of ±1
 (bytes outside the alphabet: all zero), and window ``j`` matches pattern
-``p`` iff ``corr[j, p] == B * m_p``. The port keeps the gate and the
-table constructors so its plan and tables equal ``apm``'s; the scan itself
-is the fused kernel in :mod:`apm_torch.ops.corr_fused`. The XLA conv
-(``scan_corr_mxu``, 97 < m_max <= 512) is not ported yet (``ROADMAP.md``).
+``p`` iff ``corr[j, p] == B * m_p``. The port keeps the gates and the
+table constructors so its plan and tables equal ``apm``'s; the k = 0 scan
+itself is the fused kernel in :mod:`apm_torch.ops.corr_fused`. The XLA
+conv of whole patterns (``scan_corr_mxu``, 97 < m_max <= 512) is not
+ported yet (``ROADMAP.md``).
+
+Conv phase 1 of filtration (k >= 1, :func:`scan_pieces_conv`) is the same
+correlation over exact-tier pieces: a piece hits where its correlation
+reaches ``B * length``, and a row is a candidate row of pattern ``p`` when
+any piece of ``p`` hits anywhere in it. ``apm`` computes it in XLA outside
+any Pallas kernel; the port computes it with ``conv1d`` in float32 (±1
+operands and integer sums below 2**24: exact in float32, and in TF32 on
+the card).
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 # Channels beyond this dilute the contraction; larger pattern alphabets go
 # to the banded engine.
@@ -29,6 +38,15 @@ AUTO_MIN_MMAX = 48
 
 # Minimum piece length for apm's conv phase 1 (k >= 1); part of the plan.
 FP1_LMIN = 10
+
+# Target bytes of bf16 bit-plane text per row group (apm's GROUP_BYTES; it
+# sizes the groups, so the port's groups equal apm's).
+GROUP_BYTES = 64 << 20
+
+# Bound on one conv call's float32 output in scan_pieces_conv: a group
+# is scanned in as many row slices as keep (rows, pieces, positions)
+# under it.
+_CONV_OUT_BYTES = 256 << 20
 
 
 def build_alphabet(raw_patterns) -> np.ndarray:
@@ -87,3 +105,152 @@ def fp1_conv_eligible(plens, k: int, alphabet_size: int) -> bool:
         if max(length for _, length in pieces_of_j(m, j)) > M_MAX_CORR:
             return False
     return sum(ms) >= AUTO_MIN_WORK or max(ms) >= AUTO_MIN_MMAX
+
+
+def pick_stride(n0: int) -> int:
+    """``apm``'s shift-fold stride for a conv with ``n0`` base channels:
+    powers of two up to 32 with ``n0 * S <= 128``, and 1 past 24
+    channels. The stride folds ``S`` shifted kernel copies into the
+    channel axis (a TPU matrix-unit utilization trick); the port keeps it
+    because the stride decides which row positions the conv covers."""
+    if n0 > 24:
+        return 1
+    s = 1
+    while s < 32 and n0 * s * 2 <= 128:
+        s *= 2
+    return s
+
+
+def _fold_shifts(kern: np.ndarray, thr: np.ndarray, stride: int):
+    """Fold ``stride`` shifted copies of a base kernel ``(wk, B, n0)`` into
+    the channel axis: channel ``s*n0 + c`` holds base channel ``c`` at
+    offset ``s``."""
+    if stride == 1:
+        return kern, thr
+    wk, c, n0 = kern.shape
+    ks = np.zeros((wk + stride - 1, c, n0 * stride), dtype=kern.dtype)
+    for s in range(stride):
+        ks[s : s + wk, :, s * n0 : (s + 1) * n0] = kern
+    return ks, np.tile(thr, stride)
+
+
+def _group_rows(L: int, C: int, n_rows: int) -> int:
+    """Rows per group: ~GROUP_BYTES of bf16 bit-plane text, >= 8, <=
+    ``n_rows`` (``apm``'s grouping)."""
+    per_row = L * n_bitplanes(C) * 2
+    g = max(8, GROUP_BYTES // max(per_row, 1))
+    return int(min(g, n_rows))
+
+
+def plane_table(alph: torch.Tensor, b_planes: int) -> torch.Tensor:
+    """``(256, B)`` float32 bit-plane code of every byte value: plane ``b``
+    of an alphabet byte is +1 if bit ``b`` of its code (its index in the
+    sorted ``alph``) is set, else -1; bytes outside the alphabet are 0."""
+    lut = torch.zeros((256, b_planes), dtype=torch.float32, device=alph.device)
+    codes = torch.arange(len(alph), device=alph.device)
+    bits = (codes[:, None] >> torch.arange(b_planes, device=alph.device)) & 1
+    lut[alph.long()] = (2 * bits - 1).to(torch.float32)
+    return lut
+
+
+def _encode_planes(rg: torch.Tensor, alph: torch.Tensor, cbits: int) -> torch.Tensor:
+    """±1 bit-plane text encode ``(g, L) uint8 -> (g, cbits, L)`` float32,
+    planes first as ``conv1d`` takes them (``apm``'s ``_encode_planes``,
+    through a 256-entry table)."""
+    return plane_table(alph, cbits)[rg.long()].permute(0, 2, 1)
+
+
+def build_piece_kernel(pat_raw: np.ndarray, plens, k: int, alphabet, stride: int = 1):
+    """Piece-correlation tables for conv phase 1 (``apm``'s, in float32):
+    ``(kern (w_kern + stride - 1, B, N*stride), thr (N*stride,),
+    owner (N, P))``, N the exact-tier pieces of every pattern, ``thr`` each
+    piece's ``B * length``, ``owner`` the piece -> pattern one-hot."""
+    from .filter_kernel import pieces_of_j, tier_of
+
+    P, _ = pat_raw.shape
+    B = n_bitplanes(len(alphabet))
+    pieces = []  # (pattern index, offset, length)
+    for pi in range(P):
+        m = plens[pi]
+        if m == 0:
+            continue
+        j, kp = tier_of(m, k)
+        if kp != 0:
+            raise ValueError("conv phase 1 is exact-tier only")
+        pieces.extend((pi, off, length) for off, length in pieces_of_j(m, j))
+    n = len(pieces)
+    w_kern = max(length for _, _, length in pieces)
+    kern = np.zeros((w_kern, B, n), dtype=np.float32)
+    thr = np.zeros((n,), dtype=np.float32)
+    owner = np.zeros((n, P), dtype=np.float32)
+    for ni, (pi, off, length) in enumerate(pieces):
+        thr[ni] = B * length
+        owner[ni, pi] = 1.0
+        for i in range(length):
+            ci = int(np.searchsorted(alphabet, pat_raw[pi, off + i]))
+            for b in range(B):
+                kern[i, b, ni] = 1.0 if (ci >> b) & 1 else -1.0
+    kern, thr = _fold_shifts(kern, thr, stride)
+    return kern, thr, owner
+
+
+def scan_pieces_conv(
+    rows: torch.Tensor,
+    kern: torch.Tensor,
+    thr: torch.Tensor,
+    owner: torch.Tensor,
+    alph: torch.Tensor,
+    bound,
+    start: int,
+    *,
+    wf: int,
+    w_kern: int,
+    n_rows: int,
+    g_rows: int,
+    stride: int = 1,
+):
+    """Conv phase 1: ``(fcnt (P,) int32, rowmap (R, P) int32)``, ``apm``'s
+    contract. ``kern``/``thr`` are :func:`build_piece_kernel`'s tables (on
+    the rows' device, any float dtype), ``owner`` its piece -> pattern
+    one-hot, ``w_kern`` the full folded kernel width.
+
+    ``fcnt[p]`` counts the hits of ``p``'s pieces over every row that owns
+    a valid window (``r < n_rows`` and ``start + r*wf < bound``);
+    ``rowmap[r, p]`` is 1 when that count is nonzero in row ``r``. ``apm``
+    covers piece positions ``[0, T)`` with ``T = nb * S``, ``nb = (L + S -
+    1 - w_kern) // S + 1`` blocks of its ``S``-strided conv over text
+    zero-padded by ``S - 1`` bytes. The port unfolds the strided kernel
+    into its base piece kernel (channel copy 0) and runs one stride-1
+    ``conv1d`` over the same padded text, keeping positions ``[0, T)``:
+    the same scores at 1/S of the multiplies.
+    """
+    R, L = rows.shape
+    dev = rows.device
+    S = stride
+    n_pat = owner.shape[1]
+    n0 = kern.shape[2] // S
+    w_base = w_kern - S + 1
+    base = kern[:w_base, :, :n0].to(torch.float32)  # (w_base, B, n0)
+    weight = base.permute(2, 1, 0).contiguous()  # (n0, B, w_base)
+    thr0 = thr[:n0].to(torch.float32)
+    piece_owner = owner.argmax(dim=1).to(dev)  # (n0,) pattern of each piece
+    b_planes = base.shape[1]
+    alph = alph.to(dev)
+    T = ((L + S - 1 - w_kern) // S + 1) * S
+    # float32 scores and planes, int64 byte indices, per staged row
+    per_row = (4 * (n0 + b_planes) + 8) * (L + S)
+    step = max(1, min(g_rows, _CONV_OUT_BYTES // per_row))
+    rowpat = torch.zeros((R, n_pat), dtype=torch.int64, device=dev)
+    for r0 in range(0, R, step):
+        rg = rows[r0 : r0 + step]
+        if S > 1:
+            rg = torch.nn.functional.pad(rg, (0, S - 1))
+        t = _encode_planes(rg, alph, b_planes)  # (g, B, L + S - 1)
+        corr = torch.nn.functional.conv1d(t, weight)[:, :, :T]  # (g, n0, T)
+        hits = (corr >= thr0[None, :, None]).sum(dim=2)  # (g, n0)
+        rowpat[r0 : r0 + step].index_add_(1, piece_owner, hits)
+    r_abs = torch.arange(R, device=dev, dtype=torch.int64)
+    live = (r_abs < n_rows) & (start + r_abs * wf < bound)
+    rowpat *= live[:, None]
+    fcnt = rowpat.sum(dim=0).to(torch.int32)
+    return fcnt, (rowpat > 0).to(torch.int32)

@@ -27,13 +27,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .corr_engine import n_bitplanes
+from .corr_engine import _encode_planes, n_bitplanes
 
 # Kernel launches made by scan_corr_fused.
 LAUNCHES = 0
 
 S_FUSED = 64
 M_MAX_FUSED = 97  # m + 32 - 1 <= 128: one 128-byte K-tile per phase
+M_MAX_PIECES = 65  # apm's fused piece scan (kernel #7, not ported)
 _SINGLE_MAX = 1536  # apm's column-chunking threshold (pads P when above)
 _INT8_MIN_SLOTS = 32  # apm's int8-operand threshold
 _SENTINEL = 2**30  # threshold of padding slots: never reached
@@ -60,6 +61,13 @@ def fused_eligible(m_max: int, wf: int, halo: int) -> bool:
         and halo % 128 == 0
         and halo >= 128
     )
+
+
+def fused_pieces_ok(m_max: int, wf: int, halo: int) -> bool:
+    """``apm``'s gate of its fused piece scan (``scan_pieces_fused``),
+    which ``corr_impl="fused"`` selects for conv phase 1; the port
+    refuses that route until the kernel is ported."""
+    return fused_eligible(m_max, wf, halo) and m_max <= M_MAX_PIECES
 
 
 def build_fused_tables(pat_raw: np.ndarray, plens, alphabet: np.ndarray):
@@ -247,18 +255,6 @@ def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
         check(err, "apm_corr_fused_count")
         LAUNCHES += 1
     return out
-
-
-def _encode_planes(rg: torch.Tensor, alph: torch.Tensor, b_planes: int):
-    """±1 bit-plane encode ``(g, L) uint8 -> (g, B, L) float32``: plane b is
-    +1 where bit b of the byte's alphabet code is set, -1 where clear, 0 for
-    bytes outside the alphabet (``apm/ops/corr_engine.py::_encode_planes``)."""
-    eq = rg[:, :, None] == alph[None, None, :]  # (g, L, C)
-    valid = eq.any(dim=-1)
-    code = (rg[:, :, None] > alph[None, None, :]).sum(dim=-1)  # rank = code
-    bits = (code[:, None, :] >> torch.arange(b_planes, device=rg.device)[None, :, None]) & 1
-    pm = (2 * bits - 1).to(torch.float32)
-    return torch.where(valid[:, None, :], pm, torch.zeros((), device=rg.device))
 
 
 def scan_corr_fused_ref(

@@ -1,30 +1,48 @@
-"""Banded-DP window count: kernel A and its plain PyTorch version.
+"""Banded-DP window count: kernels A (band) and C (Myers) and their plain
+PyTorch versions.
 
-Port of ``apm/ops/pallas_kernel.py::scan_folded_pallas_unrolled`` in its
-classic band mode (``_scan_folded_pallas_unrolled`` -> ``_scan_kernel_unrolled``
--> ``_band_phases``). Contract, shared by both functions here: staged rows
-``(R, wf + halo)`` uint8 from :func:`apm_torch.ops.common.fold_corpus`, the
-k-padded pattern table ``(P, m_max + 2k)`` uint8 and a static length tuple;
-window ``j = start + r*wf + lane`` (``lane < wf``) counts for pattern ``p``
-iff ``j < bound`` and its banded (``|d| <= k``) Levenshtein distance is
+Port of ``apm/ops/pallas_kernel.py::scan_folded_pallas_unrolled`` in both of
+its modes (``_scan_folded_pallas_unrolled`` -> ``_scan_kernel_unrolled`` ->
+``_band_phases`` or ``_myers_phases``). Contract, shared by every function
+here: staged rows ``(R, wf + halo)`` uint8 from
+:func:`apm_torch.ops.common.fold_corpus`, the k-padded pattern table
+``(P, m_max + 2k)`` uint8 and a static length tuple; window
+``j = start + r*wf + lane`` (``lane < wf``) counts for pattern ``p`` iff
+``j < bound`` and its banded (``|d| <= k``) Levenshtein distance is
 ``<= k``. Returns ``(P,)`` int32 counts; padding patterns (length 0) count
-nothing.
+nothing. ``bound`` is an int, or a 0-d integer tensor on the rows' device
+(phase-2 verification, whose bound is only known on the device).
 
-:func:`scan_folded_dp` launches the CUDA kernel (``csrc/dp_band.cu``) for a
-CUDA tensor and uses :func:`scan_folded_dp_ref` only for a CPU tensor.
-``apm``'s bit-parallel (Myers) mode gives the same counts and is not ported
-yet (``ROADMAP.md``).
+The mode is ``apm``'s static dispatch (:func:`_myers_mode`): the
+bit-parallel band for 1 <= k <= 14 with a pattern alphabet of at most 8
+bytes and a PEQ table of at most 64 KB, under ``dp_impl="auto"`` only from
+``k >= MYERS_KMIN_AUTO``. Both modes give the same counts.
+
+:func:`scan_folded_dp` launches kernel C (``csrc/dp_myers.cu``) or kernel A
+(``csrc/dp_band.cu``) for a CUDA tensor, as that dispatch decides, and
+runs the plain version of the chosen mode for a CPU tensor, or on any
+device when the caller asks for it (``plain=True``, the Scanner's
+``backend="torch"``).
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Sequence, Union
 
+import numpy as np
 import torch
 
-# Kernel launches made by scan_folded_dp (the count a run reads to show
-# that its scans went through the kernel).
+# Kernel launches made by scan_folded_dp (the counts a run reads to show
+# that its scans went through the kernels): kernel A, kernel C.
 LAUNCHES = 0
+MYERS_LAUNCHES = 0
+
+# apm's Myers-mode constants (measured on its TPU; copied so both packages
+# pick the same mode — re-measuring them on the H100 is open work).
+MYERS_KMIN_AUTO = 3
+MYERS_KMAX = 14  # band width 2k + 1 <= 29 bits
+MYERS_CMAX = 8  # alphabet channels
+MYERS_SMEM_MAX = 64 * 1024  # PEQ table budget (bytes)
 
 # Patterns per launch: bounds the kernel's shared per-pattern counters to
 # 32 KB, under the default dynamic shared-memory limit.
@@ -35,8 +53,53 @@ _BLOCKS_PER_SM = 8
 _SCRATCH_BYTES = 256 << 20
 _TILE = 256  # threads (= windows) per block, apm::kTile
 
+Bound = Union[int, torch.Tensor]
 
-def _check_args(rows, pat, k, m_max, wf, halo, plens) -> None:
+
+def _myers_mode(
+    k: int, alphabet: tuple, dp_dtype: str, dp_impl: str, p: int, m_max: int
+) -> bool:
+    """Run the bit-parallel band instead of the classic band?
+    ``dp_impl``: "auto" (``k >= MYERS_KMIN_AUTO``), "band" (never),
+    "myers" (whenever representable)."""
+    if dp_impl == "band" or not alphabet or dp_dtype != "int32":
+        return False
+    if not (1 <= k <= MYERS_KMAX) or len(alphabet) > MYERS_CMAX:
+        return False
+    if k >= m_max:  # the static phase reads PEQ row k
+        return False
+    if p * m_max * len(alphabet) * 4 > MYERS_SMEM_MAX:
+        return False
+    return True if dp_impl == "myers" else k >= MYERS_KMIN_AUTO
+
+
+def resolve_dp_mode(
+    k: int, alphabet: tuple, dp_dtype: str, dp_impl: str, p: int, m_max: int
+) -> tuple:
+    """``(alphabet, "myers")`` when the bit-parallel mode is on, else
+    ``((), "band")`` — ``apm``'s normalisation of the mode keys."""
+    if _myers_mode(k, alphabet, dp_dtype, dp_impl, p, m_max):
+        return tuple(alphabet), "myers"
+    return (), "band"
+
+
+def build_peq(pat: np.ndarray, k: int, m_max: int, alphabet) -> np.ndarray:
+    """Match-bit table of the bit-parallel band, ``(P*m_max, C)`` int32:
+    ``peq[p*m_max + X, c]`` bit ``b`` is set iff ``pat[p, X + b] ==
+    alphabet[c]`` (``pat`` is the k-padded table, so ``X`` indexes DP
+    steps: the moving band at step x reads row ``x - 1``, the static phase
+    row ``k``)."""
+    pat = np.asarray(pat)
+    B = 2 * k + 1
+    p = pat.shape[0]
+    p64 = pat.astype(np.int64)
+    wins = np.stack([p64[:, X : X + B] for X in range(m_max)], axis=1)
+    eq = wins[..., None] == np.asarray(alphabet, np.int64)  # (P, m, B, C)
+    bits = eq.astype(np.int64) << np.arange(B, dtype=np.int64).reshape(1, 1, B, 1)
+    return bits.sum(axis=2).reshape(p * m_max, len(alphabet)).astype(np.int32)
+
+
+def _check_args(rows, pat, bound, k, m_max, wf, halo, plens) -> None:
     if rows.dtype != torch.uint8 or rows.dim() != 2:
         raise ValueError(f"rows must be 2-D uint8, got {rows.dtype} {tuple(rows.shape)}")
     if rows.shape[1] != wf + halo or rows.shape[0] <= 0:
@@ -54,12 +117,35 @@ def _check_args(rows, pat, k, m_max, wf, halo, plens) -> None:
         raise ValueError(f"pattern lengths must lie in [0, {m_max}]: {plens}")
     if pat.device != rows.device:
         raise ValueError(f"rows on {rows.device}, pat on {pat.device}")
+    if isinstance(bound, torch.Tensor) and (
+        bound.numel() != 1 or bound.device != rows.device
+        or bound.dtype not in (torch.int32, torch.int64)
+    ):
+        raise ValueError(
+            f"a tensor bound must be one int32/int64 value on {rows.device}, "
+            f"got {bound.dtype} {tuple(bound.shape)} on {bound.device}"
+        )
+
+
+def _is_myers(k, m_max, plens, alphabet, dp_impl) -> bool:
+    return _myers_mode(k, tuple(alphabet), "int32", dp_impl, len(plens), m_max)
+
+
+def _peq_tensor(pat, peq, k, m_max, alphabet) -> torch.Tensor:
+    """The PEQ table on the rows' device: ``peq`` as given, else built from
+    ``pat`` (a device-to-host copy; the Scanner passes its own table)."""
+    if peq is None:
+        peq = torch.from_numpy(build_peq(pat.cpu().numpy(), k, m_max, alphabet))
+    want = (pat.shape[0] * m_max, len(alphabet))
+    if tuple(peq.shape) != want or peq.dtype != torch.int32:
+        raise ValueError(f"peq must be int32 {want}, got {peq.dtype} {tuple(peq.shape)}")
+    return peq.to(pat.device).contiguous()
 
 
 def scan_folded_dp(
     rows: torch.Tensor,
     pat: torch.Tensor,
-    bound: int,
+    bound: Bound,
     start: int,
     *,
     k: int,
@@ -67,22 +153,49 @@ def scan_folded_dp(
     wf: int,
     halo: int,
     plens: Sequence[int],
+    alphabet: Sequence[int] = (),
+    dp_impl: str = "auto",
+    peq: torch.Tensor = None,
+    plain: bool = False,
 ) -> torch.Tensor:
     """(P,) int32 banded-DP counts of this chunk (module contract).
 
-    CUDA tensors go to the kernel (launched on the current stream, no
-    synchronisation); CPU tensors to :func:`scan_folded_dp_ref`.
+    CUDA tensors go to kernel C (Myers mode) or kernel A, launched on the
+    current stream without synchronisation; CPU tensors, and any tensor
+    under ``plain=True``, to the plain version of the same mode. ``peq``
+    is the Myers-mode table (:func:`build_peq`), built from ``pat`` when
+    not given.
     """
     plens = tuple(int(m) for m in plens)
-    _check_args(rows, pat, k, m_max, wf, halo, plens)
-    if rows.device.type == "cpu":
-        return scan_folded_dp_ref(
-            rows, pat, bound, start, k=k, m_max=m_max, wf=wf, halo=halo,
-            plens=plens,
-        )
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+    myers = _is_myers(k, m_max, plens, alphabet, dp_impl)
+    if plain or rows.device.type == "cpu":
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+        if myers:
+            return scan_folded_myers_ref(
+                rows, pat, bound, start, alphabet=alphabet, peq=peq, **kw
+            )
+        return scan_folded_dp_ref(rows, pat, bound, start, **kw)
     if rows.device.type != "cuda":
         raise ValueError(f"no banded-DP kernel for device {rows.device}")
-    return _launch(rows, pat, int(bound), int(start), k, m_max, wf, plens)
+    if myers:
+        peq = _peq_tensor(pat, peq, k, m_max, alphabet)
+        return _launch_myers(rows, peq, bound, int(start), k, m_max, wf, plens, alphabet)
+    return _launch(rows, pat, bound, int(start), k, m_max, wf, plens)
+
+
+def _bound_args(bound: Bound, dev):
+    """``(value, pointer, keep-alive)`` of a bound for the C entries."""
+    if isinstance(bound, torch.Tensor):
+        dbound = bound.to(device=dev, dtype=torch.int64).reshape(())
+        return 0, dbound.data_ptr(), dbound
+    return int(bound), None, None
+
+
+def _grid(dev, n_rows: int, wf: int) -> int:
+    n_tiles = n_rows * -(-wf // _TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
 
 
 def _launch(rows, pat, bound, start, k, m_max, wf, plens) -> torch.Tensor:
@@ -100,10 +213,9 @@ def _launch(rows, pat, bound, start, k, m_max, wf, plens) -> torch.Tensor:
     # Lengths travel with the launch; a pageable non-blocking copy stages
     # on the host and does not wait for the stream.
     dplen = torch.tensor(plens, dtype=torch.int32).to(dev, non_blocking=True)
+    bval, bptr, _keep = _bound_args(bound, dev)
     ke = min(k, m_max)
-    n_tiles = rows.shape[0] * -(-wf // _TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+    grid = _grid(dev, rows.shape[0], wf)
     scratch = None
     if ke > lib.apm_dp_band_reg_max():
         slab = (2 * ke + 1) * _TILE * 4
@@ -117,7 +229,7 @@ def _launch(rows, pat, bound, start, k, m_max, wf, plens) -> torch.Tensor:
         err = lib.apm_dp_band_count(
             rows.data_ptr(), rows.shape[0], rows.shape[1],
             pat[g0].data_ptr(), ng, pat.shape[1], dplen[g0].data_ptr(),
-            k, ke, wf, bound, start,
+            k, ke, wf, bval, bptr, start,
             out[g0].data_ptr(),
             scratch.data_ptr() if scratch is not None else None,
             grid, stream,
@@ -127,10 +239,43 @@ def _launch(rows, pat, bound, start, k, m_max, wf, plens) -> torch.Tensor:
     return out
 
 
+def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet) -> torch.Tensor:
+    global MYERS_LAUNCHES
+    from ._build import check, library
+
+    lib = library()
+    dev = rows.device
+    rows = rows.contiguous()
+    n_pat = len(plens)
+    out = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
+    if not any(plens):
+        return out
+    dplen = torch.tensor(plens, dtype=torch.int32).to(dev, non_blocking=True)
+    alph = torch.tensor(list(alphabet), dtype=torch.uint8).to(dev, non_blocking=True)
+    bval, bptr, _keep = _bound_args(bound, dev)
+    err = lib.apm_dp_myers_count(
+        rows.data_ptr(), rows.shape[0], rows.shape[1],
+        peq.data_ptr(), n_pat, m_max, len(alphabet), alph.data_ptr(),
+        dplen.data_ptr(), k, wf, bval, bptr, start, out.data_ptr(),
+        _grid(dev, rows.shape[0], wf), torch.cuda.current_stream(dev).cuda_stream,
+    )
+    check(err, "apm_dp_myers_count")
+    MYERS_LAUNCHES += 1
+    return out
+
+
+def _valid(rows, bound, start, wf) -> torch.Tensor:
+    """(R, wf) window ownership ``start + r*wf + lane < bound``."""
+    dev = rows.device
+    lane = torch.arange(wf, device=dev, dtype=torch.int64)
+    row = torch.arange(rows.shape[0], device=dev, dtype=torch.int64)
+    return (start + row[:, None] * wf + lane[None, :]) < bound
+
+
 def scan_folded_dp_ref(
     rows: torch.Tensor,
     pat: torch.Tensor,
-    bound: int,
+    bound: Bound,
     start: int,
     *,
     k: int,
@@ -147,7 +292,7 @@ def scan_folded_dp_ref(
     ``k + 1``, ``D[m_p][m_p]`` captured at step ``x == m_p``.
     """
     plens = tuple(int(m) for m in plens)
-    _check_args(rows, pat, k, m_max, wf, halo, plens)
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
     dev = rows.device
     out = torch.zeros((len(plens),), dtype=torch.int32, device=dev)
     live = [p for p, m in enumerate(plens) if m > 0]
@@ -185,9 +330,78 @@ def scan_folded_dp_ref(
         for i, m in enumerate(lens):
             if m == x:
                 res[i] = band[k][i]
-    lane = torch.arange(wf, device=dev, dtype=torch.int64)
-    row = torch.arange(n_rows, device=dev, dtype=torch.int64)
-    valid = (start + row[:, None] * wf + lane[None, :]) < bound  # (R, wf)
-    hits = (res <= k) & valid[None]
+    hits = (res <= k) & _valid(rows, bound, start, wf)[None]
     out[live] = hits.sum(dim=(1, 2)).to(torch.int32)
+    return out
+
+
+def scan_folded_myers_ref(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    bound: Bound,
+    start: int,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+    alphabet: Sequence[int],
+    peq: torch.Tensor = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel C, on any device: ``apm``'s
+    ``_myers_phases`` per pattern, ``VP``/``VN``/centre as ``(R, wf)``
+    int64 tensors. The match word of a step is the PEQ row's entry for the
+    text byte's alphabet channel (0 outside the alphabet)."""
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+    alphabet = tuple(int(a) for a in alphabet)
+    if not alphabet or not 1 <= k <= MYERS_KMAX or k >= m_max:
+        raise ValueError(f"Myers mode needs an alphabet and 1 <= k <= {MYERS_KMAX}, k < m_max")
+    dev = rows.device
+    out = torch.zeros((len(plens),), dtype=torch.int32, device=dev)
+    if not any(plens):
+        return out
+    n_chan = len(alphabet)
+    peq = _peq_tensor(pat, peq, k, m_max, alphabet).to(torch.int64)
+    # Channel C of every row is the zero word of bytes outside the alphabet.
+    peq = torch.cat([peq, torch.zeros_like(peq[:, :1])], dim=1)
+    lut = torch.full((256,), n_chan, dtype=torch.int64, device=dev)
+    lut[torch.tensor(alphabet, device=dev)] = torch.arange(n_chan, device=dev)
+    chan = lut[rows[:, : wf + m_max - 1].to(torch.int64)]  # (R, wf + m - 1)
+    bw = 2 * k + 1
+    mask = (1 << bw) - 1
+    topbit = 1 << (bw - 1)
+    valid = _valid(rows, bound, start, wf)
+
+    def step(vp, vn, cc, eq, cbit):
+        xv = eq | vn
+        xh = (((eq & vp) + vp) ^ vp) | eq
+        ph = vn | (~(xh | vp) & mask)
+        mh = vp & xh
+        ph = ((ph << 1) & mask) | 1
+        mh = (mh << 1) & mask
+        cc = cc + (1 - (((xh | vn) >> cbit) & 1))
+        return mh | (~(xv | ph) & mask), ph & xv, cc
+
+    shape = (rows.shape[0], wf)
+    for p, m in enumerate(plens):
+        if m == 0:
+            continue
+        vp = torch.full(shape, mask, dtype=torch.int64, device=dev)
+        vn = torch.zeros(shape, dtype=torch.int64, device=dev)
+        cc = torch.zeros(shape, dtype=torch.int64, device=dev)
+        base = p * m_max
+        for x in range(1, min(k, m) + 1):  # static band: PEQ row k
+            eq = peq[base + k][chan[:, x - 1 : x - 1 + wf]]
+            vp, vn, cc = step(vp, vn, cc, eq, x - 1)
+        if m > k:  # re-index onto the moving band
+            vp = ((vp << 1) | 1) & mask
+            vn = (vn << 1) & mask
+            for x in range(k + 1, m + 1):
+                vp = (vp >> 1) | topbit
+                vn = vn >> 1
+                eq = peq[base + x - 1][chan[:, x - 1 : x - 1 + wf]]
+                vp, vn, cc = step(vp, vn, cc, eq, k)
+        out[p] = ((cc <= k) & valid).sum().to(torch.int32)
     return out

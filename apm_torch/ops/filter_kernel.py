@@ -1,32 +1,63 @@
-"""Pigeonhole-filtration planning helpers (port of the host half of
-``apm/ops/filter_kernel.py``).
-
-``make_plan`` partitions patterns by filtration tier exactly as ``apm``
-does, so the two packages agree on the plan. The filtration kernel itself
-(``apm/ops/filter_kernel.py::scan_filter_pallas``) is not ported yet
-(``ROADMAP.md``, Queue 2); until it is, the Scanner sends
-``plan.plens_filter`` to the banded-DP kernel, which counts exactly.
+"""Pigeonhole filtration, phase 1: kernel D and its plain PyTorch version,
+with the host half of ``apm/ops/filter_kernel.py``.
 
 Tiers (Navarro's pigeonhole taxonomy): split a pattern of length ``m`` into
 ``j`` pieces; a window within edit distance ``k`` has some piece matching
 with at most ``floor(k / j)`` errors. The exact tier uses ``j = k + 1``
 pieces with 0 errors, the banded tier ``j = k//2 + 1`` pieces with 1 error.
+:func:`tier_of` and :func:`partition_plens` decide, exactly as ``apm`` does,
+which patterns filtration takes.
+
+Scan contract (``apm``'s ``scan_filter_pallas``), shared by
+:func:`scan_filter` and :func:`scan_filter_ref`: staged rows
+``(R, wf + halo)`` uint8 with ``halo >= m_max + 2k``, the raw pattern table
+``(P, m_max)`` uint8 and static lengths (each 0 or filtration-eligible).
+Piece ``(o, li)`` of a pattern carries a pinned-start band of ``2kp + 1``
+cells; it hits at text position ``T`` when the band, run over the text
+from ``T``, reaches ``<= kp`` at one of its end drifts. Window ``j`` of row
+``r`` (``j = start + r*wf + lane``) is a candidate of pattern ``p`` iff
+``j < bound`` and some piece hits at ``lane + o + s`` for a shift ``s`` in
+:func:`piece_shift_range`. Returns ``(fcnt (P,), rowmap (R, P))`` int32:
+candidate totals (exact match counts at k = 0) and candidate windows per
+row. Phase 2 (:mod:`apm_torch.ops.fused`) verifies candidate rows.
+
+:func:`scan_filter` launches kernel D (``csrc/filter_pieces.cu``) for a
+CUDA tensor and uses :func:`scan_filter_ref` only for a CPU tensor.
 """
 
 from __future__ import annotations
 
+from typing import Sequence
+
+import numpy as np
+import torch
+
 FOLD = 8  # apm's fold-8 int32 layout; make_plan rounds block widths to it
+INF = 1 << 20  # additive-safe infinity for out-of-band piece-DP cells
 K_MAX = 16  # filtration eligibility cap (both tiers)
+SENTINEL = 256  # pattern-table padding no widened text byte equals
 
 # Minimum piece length per tier (selectivity bound; see apm's module doc).
 EXACT_LMIN_HIGH = 14  # exact tier, k >= 5
 BANDED_LMIN = {5: 14, 6: 14, 7: 14, 8: 14}  # else 16 for k in [9, 16]
+
+# Kernel launches made by scan_filter.
+LAUNCHES = 0
+
+_PAT_GROUP = 4096  # patterns per launch (32 KB of shared counters)
+_BLOCKS_PER_SM = 8
+_TILE = 256
 
 
 def pieces_of_j(m: int, j: int):
     """Static piece table: [(offset, length)] — j contiguous pieces."""
     l = m // j
     return [(i * l, l if i < j - 1 else m - (j - 1) * l) for i in range(j)]
+
+
+def pieces_of(m: int, k: int):
+    """Exact-tier piece table (k + 1 pieces)."""
+    return pieces_of_j(m, k + 1)
 
 
 def banded_j(k: int) -> int:
@@ -60,6 +91,25 @@ def filter_eligible(m: int, k: int) -> bool:
     return tier_of(m, k) is not None
 
 
+def shift_range(o: int, li: int, m: int, k: int):
+    """Geometric occurrence shifts for a *middle* piece at [o, o+li)."""
+    return (-min(o, k), min(k, m - o - li))
+
+
+def piece_shift_range(idx: int, j: int, o: int, li: int, m: int, k: int, kp: int):
+    """Allowed occurrence shifts for piece ``idx`` of ``j``.
+
+    The equal-length-window alignment pins the first piece's start at the
+    window start and the last piece's end at the window end; middle pieces
+    drift by the errors spent before/after them (<= k), clamped to fit.
+    """
+    if idx == 0:
+        return (0, 0)
+    if idx == j - 1:
+        return (-min(o, kp), min(kp, m - o - li + kp))
+    return (-min(o, k), min(k, m - o - li + kp))
+
+
 def partition_plens(plens: tuple, k: int, engine: str):
     """Split a static length tuple into (fmask, filtration, banded-DP)."""
     use = engine in ("auto", "filter")
@@ -67,3 +117,207 @@ def partition_plens(plens: tuple, k: int, engine: str):
     plens_filter = tuple(m if f else 0 for m, f in zip(plens, fmask))
     plens_dp = tuple(0 if f else m for m, f in zip(plens, fmask))
     return fmask, plens_filter, plens_dp
+
+
+def sentinel_pad(plens, k: int) -> int:
+    """Front sentinel columns of the char table: the largest piece ``kp``."""
+    return max((tier_of(m, k)[1] for m in plens if m > 0), default=0)
+
+
+def pchar_table(pat_raw: torch.Tensor, pad: int) -> torch.Tensor:
+    """The int32 pattern-char table both scans read: ``pat_raw`` widened,
+    with ``pad`` sentinel columns in front and ``2*pad`` behind when
+    ``pad > 0`` (``apm``'s ``scan_filter_pallas``, ``:383-396``).
+
+    Out-of-piece compares hit the sentinel 256, which no text byte
+    equals. The front needs ``pad`` columns (index ``x - 1 + d + pad >=
+    o - kp + pad >= 0``); the back ``2*pad``: the final capture step of
+    the last piece reads up to index ``m - 1 + 2kp + pad``.
+    """
+    if not pad:
+        return pat_raw.to(torch.int32)
+    p, m_max = pat_raw.shape
+    t = torch.full((p, m_max + 3 * pad), SENTINEL, dtype=torch.int32, device=pat_raw.device)
+    t[:, pad : pad + m_max] = pat_raw.to(torch.int32)
+    return t
+
+
+def piece_plan(plens, k: int):
+    """Kernel D's piece table: ``(pieces (N, 5) int32 rows (o, li, kp,
+    s_lo, s_hi) grouped by pattern, pstart (P + 1,) int32 range of each
+    pattern, largest shift span)``."""
+    rows, pstart = [], [0]
+    for m in plens:
+        if m > 0:
+            j, kp = tier_of(m, k)
+            for idx, (o, li) in enumerate(pieces_of_j(m, j)):
+                s_lo, s_hi = piece_shift_range(idx, j, o, li, m, k, kp)
+                rows.append((o, li, kp, s_lo, s_hi))
+        pstart.append(len(rows))
+    pieces = np.asarray(rows, dtype=np.int32).reshape(-1, 5)
+    span = int((pieces[:, 4] - pieces[:, 3]).max()) if len(rows) else 0
+    return pieces, np.asarray(pstart, dtype=np.int32), span
+
+
+def _check_args(rows, pat_raw, k, m_max, wf, halo, plens) -> None:
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise ValueError(f"rows must be 2-D uint8, got {rows.dtype} {tuple(rows.shape)}")
+    if rows.shape[1] != wf + halo or rows.shape[0] <= 0:
+        raise ValueError(f"rows shape {tuple(rows.shape)} != (R, wf + halo = {wf + halo})")
+    if halo < m_max + 2 * k:
+        raise ValueError(f"halo {halo} < m_max + 2k = {m_max + 2 * k}")
+    if pat_raw.dtype != torch.uint8 or tuple(pat_raw.shape) != (len(plens), m_max):
+        raise ValueError(
+            f"pat_raw must be uint8 ({len(plens)}, {m_max}), got "
+            f"{pat_raw.dtype} {tuple(pat_raw.shape)}"
+        )
+    bad = [m for m in plens if m != 0 and not (m <= m_max and filter_eligible(m, k))]
+    if bad:
+        raise ValueError(f"lengths {bad} are not filtration-eligible at k={k}")
+    if pat_raw.device != rows.device:
+        raise ValueError(f"rows on {rows.device}, pat_raw on {pat_raw.device}")
+
+
+def scan_filter(
+    rows: torch.Tensor,
+    pat_raw: torch.Tensor,
+    bound: int,
+    start: int,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+    plain: bool = False,
+):
+    """``(fcnt, rowmap)`` of this chunk (module contract).
+
+    CUDA tensors go to kernel D (current stream, no synchronisation); CPU
+    tensors, and any tensor under ``plain=True`` (the Scanner's
+    ``backend="torch"``), to :func:`scan_filter_ref`.
+    """
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat_raw, k, m_max, wf, halo, plens)
+    if plain or rows.device.type == "cpu":
+        return scan_filter_ref(
+            rows, pat_raw, bound, start, k=k, m_max=m_max, wf=wf, halo=halo,
+            plens=plens,
+        )
+    if rows.device.type != "cuda":
+        raise ValueError(f"no filtration kernel for device {rows.device}")
+    return _launch(rows, pat_raw, int(bound), int(start), k, wf, plens)
+
+
+def _launch(rows, pat_raw, bound, start, k, wf, plens):
+    global LAUNCHES
+    from ._build import check, library
+
+    lib = library()
+    dev = rows.device
+    rows = rows.contiguous()
+    n_rows, n_pat = rows.shape[0], len(plens)
+    fcnt = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
+    rowmap = torch.zeros((n_rows, n_pat), dtype=torch.int32, device=dev)
+    if not any(plens):
+        return fcnt, rowmap
+    pad = sentinel_pad(plens, k)
+    pchar = pchar_table(pat_raw, pad).contiguous()
+    pieces_np, pstart_np, span = piece_plan(plens, k)
+    pieces = torch.from_numpy(pieces_np).to(dev, non_blocking=True)
+    pstart = torch.from_numpy(pstart_np).to(dev, non_blocking=True)
+    n_tiles = n_rows * -(-wf // _TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for g0 in range(0, n_pat, _PAT_GROUP):
+        ng = min(_PAT_GROUP, n_pat - g0)
+        if pstart_np[g0] == pstart_np[g0 + ng]:
+            continue
+        err = lib.apm_filter_pieces_count(
+            rows.data_ptr(), n_rows, rows.shape[1],
+            pchar[g0].data_ptr(), ng, pchar.shape[1], pad,
+            pieces.data_ptr(), pstart[g0].data_ptr(), span,
+            wf, bound, start,
+            fcnt[g0].data_ptr(), rowmap.data_ptr() + 4 * g0, n_pat,
+            grid, stream,
+        )
+        check(err, "apm_filter_pieces_count")
+        LAUNCHES += 1
+    return fcnt, rowmap
+
+
+def scan_filter_ref(
+    rows: torch.Tensor,
+    pat_raw: torch.Tensor,
+    bound: int,
+    start: int,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+):
+    """Plain PyTorch version of kernel D, on any device: a direct
+    transcription of ``apm``'s ``_filter_kernel``.
+
+    Every piece's band is advanced over all ``wf + 2k`` lanes of every row
+    at once. Piece 0 reads the text at ``lane + x - 1``; later pieces read
+    it ``k`` lanes to the right (the TPU's pre-rotated tile, modular like
+    its roll), so their hit at lane ``w + s + k`` belongs to window ``w``
+    at shift ``s``.
+    """
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat_raw, k, m_max, wf, halo, plens)
+    dev = rows.device
+    n_rows, wpf = rows.shape
+    n_pat = len(plens)
+    fcnt = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
+    rowmap = torch.zeros((n_rows, n_pat), dtype=torch.int32, device=dev)
+    if not any(plens):
+        return fcnt, rowmap
+    pad = sentinel_pad(plens, k)
+    pchar = pchar_table(pat_raw.cpu(), pad).tolist()
+    text0 = rows.to(torch.int32)
+    lanes = torch.arange(wf + 2 * k, device=dev)
+    row = torch.arange(n_rows, device=dev, dtype=torch.int64)
+    win = start + row[:, None] * wf + torch.arange(wf, device=dev)[None, :]
+    valid = win < bound  # (R, wf)
+    full = lambda v: torch.full((n_rows, wf + 2 * k), v, dtype=torch.int32, device=dev)
+
+    for pi, m in enumerate(plens):
+        if m == 0:
+            continue
+        j, kp = tier_of(m, k)
+        pc = pchar[pi]
+        cand = torch.zeros((n_rows, wf), dtype=torch.bool, device=dev)
+        for pidx, (o, li) in enumerate(pieces_of_j(m, j)):
+            delta = 0 if pidx == 0 else k
+            band = [full(di - kp if di >= kp else INF) for di in range(2 * kp + 1)]
+            mincap = None
+            for x in range(o + 1, o + li + kp + 1):
+                src = text0[:, (lanes + x - 1 - delta) % wpf]
+                new, prev = [], None
+                for di in range(2 * kp + 1):
+                    d = di - kp
+                    val = band[di] + (src != pc[x - 1 + d + pad]).to(torch.int32)
+                    if d < kp:
+                        val = torch.minimum(val, band[di + 1] + 1)  # deletion
+                    if prev is not None:
+                        val = torch.minimum(val, prev + 1)  # insertion
+                    new.append(val)
+                    prev = val
+                band = new
+                d = o + li - x  # capture D[li][li - d] at step o + li - d
+                if -kp <= d <= kp:
+                    cell = band[d + kp]
+                    mincap = cell if mincap is None else torch.minimum(mincap, cell)
+            hit = mincap <= kp  # (R, wf + 2k)
+            s_lo, s_hi = piece_shift_range(pidx, j, o, li, m, k, kp)
+            for s in range(s_lo, s_hi + 1):
+                cand |= hit[:, s + delta : s + delta + wf]
+        per_row = (cand & valid).sum(dim=1).to(torch.int32)
+        rowmap[:, pi] = per_row
+        fcnt[pi] = per_row.sum().to(torch.int32)
+    return fcnt, rowmap

@@ -39,19 +39,24 @@ class ApmConfig:
     max_devices: Optional[int] = None
     # Scan each distinct pattern once and expand counts to duplicates.
     dedup_patterns: bool = True
-    # Scan engine: "auto"/"dp" run the k = 0 correlation kernel where
-    # apm's plan picks the correlation engine and the banded DP kernel for
-    # every other pattern; "corr" demands the correlation engine; "filter"
-    # (pigeonhole filtration) is not ported yet and raises.
+    # Scan engine, routed as apm's plan routes it: "auto" (correlation at
+    # k = 0 where eligible, pigeonhole filtration for eligible patterns,
+    # the banded DP for the rest), "filter" (filtration with the shift-OR
+    # piece kernel, never the piece conv), "dp" (banded DP only), "corr"
+    # (demands the correlation engine).
     engine: str = "auto"
-    # k = 0 correlation implementation: "auto"/"fused" run the fused
-    # correlation kernel (m_max <= 97); "conv" is not ported yet and raises.
+    # Correlation implementation: "auto"/"fused" run the fused k = 0
+    # correlation kernel (m_max <= 97) and the piece conv as filtration
+    # phase 1; "conv" at k = 0, and "fused" where apm would run its fused
+    # piece scan (k >= 1), are not ported yet and raise.
     corr_impl: str = "auto"
     # DP cell dtype: only "int32" runs in the port (apm's int16/int8 are
     # interpreter-only layouts); other values raise.
     dp_dtype: str = "int32"
-    # Banded-DP implementation: "auto" and "band" run the classic band
-    # (same counts as Myers); "myers" is not ported yet and raises.
+    # Banded-DP implementation: "auto" (the bit-parallel Myers band from
+    # k = 3 where it can represent the pattern set, else the classic band),
+    # "band" (always the classic band), "myers" (Myers wherever it can).
+    # Both give the same counts.
     dp_impl: str = "auto"
     # apm's serving-surface knobs, accepted for config parity; the port has
     # no device corpus cache, prewarm or count_batch yet (ROADMAP.md).

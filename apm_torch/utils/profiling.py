@@ -2,6 +2,8 @@
 
 * :class:`ScanStats` / :class:`Meter` — bytes/s throughput accounting, the
   north-star metric;
+* :class:`Spans` — named per-phase times of one scan, recorded where the
+  work is dispatched (``Meter.trace`` turns them on);
 * :func:`info` — the ``APM_INFO`` analog, gated by config/env instead of a
   compile-time ``-D`` flag.
 
@@ -13,8 +15,10 @@ from __future__ import annotations
 
 import os
 import sys
+import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import List
+from typing import Dict, List
 
 
 def info(msg: str, *, enabled: bool = True) -> None:
@@ -62,11 +66,72 @@ class ScanStats:
         )
 
 
+class Spans:
+    """Named spans of one scan, in milliseconds summed per name.
+
+    ``device(name)`` brackets work queued on the device: on a CUDA device
+    two CUDA events on the current stream, so the span is the device
+    timeline from the first queued piece of work to the last, launch gaps
+    included; elsewhere the host clock (the work runs synchronously).
+    ``host(name)`` brackets host work with the host clock. Off, a span
+    costs one test. Spans may nest; each name sums its own brackets.
+    """
+
+    def __init__(self, device=None, enabled: bool = False):
+        self.enabled = enabled
+        self._cuda = enabled and device is not None and device.type == "cuda"
+        self._events: List[tuple] = []  # (name, start event, end event)
+        self._ms: Dict[str, float] = {}
+
+    def _add(self, name: str, ms: float) -> None:
+        self._ms[name] = self._ms.get(name, 0.0) + ms
+
+    @contextmanager
+    def host(self, name: str):
+        if not self.enabled:
+            yield
+            return
+        t0 = time.perf_counter()
+        yield
+        self._add(name, (time.perf_counter() - t0) * 1e3)
+
+    @contextmanager
+    def device(self, name: str):
+        if not self._cuda:
+            with self.host(name):
+                yield
+            return
+        import torch
+
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        yield
+        e1.record()
+        self._events.append((name, e0, e1))
+
+    def totals(self) -> Dict[str, float]:
+        """Milliseconds per name; waits for the device spans' end events."""
+        for name, e0, e1 in self._events:
+            e1.synchronize()
+            self._add(name, e0.elapsed_time(e1))
+        self._events = []
+        return dict(self._ms)
+
+
+OFF = Spans()
+
+
 @dataclass
 class Meter:
-    """Accumulates ScanStats across scans (serving-style aggregate view)."""
+    """Accumulates ScanStats across scans (serving-style aggregate view).
+
+    With ``trace`` on, each scan also leaves its :class:`Spans` totals in
+    ``last_spans``."""
 
     history: List[ScanStats] = field(default_factory=list)
+    trace: bool = False
+    last_spans: Dict[str, float] = field(default_factory=dict)
 
     def record(self, stats: ScanStats) -> None:
         self.history.append(stats)

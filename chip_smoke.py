@@ -13,10 +13,19 @@ Phases, one line each; any failure exits non-zero:
    version on the card at main-path shapes (8192-window rows, 128-byte
    halo, 4096 rows = 32 MB), k in {0, 1, 2, 3}, a mixed-length set with a
    mid-row bound, and a band wider than the register path (k = 17);
+2b. kernel C (bit-parallel Myers band, ``csrc/dp_myers.cu``) against its
+   plain version and against kernel A at 4096 rows, k in {3, 4, 8, 12, 14},
+   P = 2 (m 32, 50) and P = 6 (m 50), a case with start > 0 and a mid-row
+   bound held in device memory, and P = 6 at k = 12 on the 32768 rows of a
+   256 MB chunk;
 3. kernel B (fused k = 0 correlation, ``csrc/corr_fused.cu``) against its
    plain version (the TPU's bit-plane matmul formulation) at P = 2, P = 64
    (int8 tables) and m = 80 (32-phase tables), and at P = 2 on the 32768
    rows of a 256 MB main-path chunk;
+3b. kernel D (shift-OR piece filter, ``csrc/filter_pieces.cu``) against its
+   plain version, candidate totals and row maps cell for cell: k = 0 on a
+   short set, k = 1 and k = 3 exact tier, k = 8 and k = 16 banded tier,
+   and k = 3 on the 32768 rows of a 256 MB chunk;
 4. end to end, k = 0, 256 MB (one chunk) and 512 MB (two chunks):
    ``Scanner.count`` on the reference-shaped pattern set (1 x 32 + 5 x 50
    bytes, seeded), gated by a host substring count plus the oracle on the
@@ -24,12 +33,24 @@ Phases, one line each; any failure exits non-zero:
 5. end to end, k = 1 and k = 2, ``engine="dp"``, 32 MB with planted
    approximate copies: the kernels against the plain versions over the same
    plan on the card, and a 1 MB prefix against the NumPy oracle;
+5b. end to end at k >= 1 under ``engine="auto"`` on bench.py's 256 MB
+   cells (k = 1, 2, 3 planted on the reference-shaped set, k4_exact_tier,
+   k8_banded_tier, k12_myers_dp) and a k = 0 short set, each gated by the
+   same scan under ``engine="dp", dp_impl="band"`` and by a 1 MB prefix
+   against the oracle; a dense cell that takes the density rescan and an
+   overflow cell that takes ``count_hot_batch``; MB/s under ``auto`` and
+   ``engine="dp"``, then a phase breakdown of the k = 3 and k = 8 cells
+   (the Scanner's own spans, and the device's busy share from
+   ``torch.profiler``);
 6. the CLI (``python -m apm_torch``) against lines built from the oracle.
 
-Kernel launch counters are reset just before phase 4 and read after phase
-5 (the main path); the line before the last is a JSON object with each
-kernel's launches, largest disagreement, and time beside its plain
-version's; the last line is the device record.
+The main path is the first ``Scanner.count`` of each end-to-end path of
+phases 4, 5 and 5b: every kernel launch counter is set to 0 just before it
+and read just after, and each path must have launched the kernels its
+route runs (gates, prefixes and timed repeats are not counted). The line
+before the last is a JSON object with each kernel's main-path launches,
+largest disagreement, and time beside its plain version's; the last line
+is the device record.
 """
 
 from __future__ import annotations
@@ -111,6 +132,36 @@ class KernelRecord:
         }
 
 
+class MainPath:
+    """Kernel launches of the main path. Before each counted run every
+    counter is set to 0; after it the counts are read, the kernels the
+    run's route must launch are checked, and the counts are added to the
+    totals the ``kernels`` line reports."""
+
+    def __init__(self):
+        from apm_torch.ops import corr_fused, dp_kernel, filter_kernel
+
+        self.counters = {
+            "dp_band": (dp_kernel, "LAUNCHES"),
+            "corr_fused": (corr_fused, "LAUNCHES"),
+            "dp_myers": (dp_kernel, "MYERS_LAUNCHES"),
+            "filter_pieces": (filter_kernel, "LAUNCHES"),
+        }
+        self.total = dict.fromkeys(self.counters, 0)
+
+    def run(self, what, expect, fn):
+        for mod, attr in self.counters.values():
+            setattr(mod, attr, 0)
+        out = fn()
+        got = {name: getattr(mod, attr) for name, (mod, attr) in self.counters.items()}
+        need(all(got[name] > 0 for name in expect),
+             f"{what}: expected launches of {expect}, got {got}")
+        for name, v in got.items():
+            self.total[name] += v
+        say(f"main path {what}: launches {got}")
+        return out
+
+
 def staged(corpus, start_row, n_rows, wf, halo, dev):
     import torch
 
@@ -120,12 +171,28 @@ def staged(corpus, start_row, n_rows, wf, halo, dev):
     return torch.from_numpy(rows).to(dev)
 
 
+def _pattern_table(pats, k):
+    """k-padded table, raw table, static lengths and m_max of a pattern
+    list, padded to a multiple of 8 slots (the Scanner's layout)."""
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.io import PatternSet
+
+    ps = PatternSet.from_patterns(pats)
+    packed, _ = ps.packed(k)
+    p_pad = max(8, round_up(len(pats), 8))
+    pat = np.zeros((p_pad, packed.shape[1]), np.uint8)
+    pat[: len(pats)] = packed
+    raw = np.zeros((p_pad, ps.max_len), np.uint8)
+    raw[: len(pats)] = ps.table
+    plens = tuple(len(p) for p in pats) + (0,) * (p_pad - len(pats))
+    return pat, raw, plens, ps.max_len
+
+
 def phase_dp(rec, dev, n_rows: int = 4096) -> None:
     """Kernel A against scan_folded_dp_ref at main-path shapes."""
     from apm_torch.ops import dp_kernel
     from apm_torch.ops.common import round_up
     from apm_torch.utils.corpus import plant, random_corpus, random_pattern
-    from apm_torch.utils.io import PatternSet
 
     import torch
 
@@ -137,13 +204,7 @@ def phase_dp(rec, dev, n_rows: int = 4096) -> None:
     plant(corpus, p32, [p + 90 for p in pos], k=0)
 
     def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=2):
-        ps = PatternSet.from_patterns(pats)
-        packed, _ = ps.packed(k)
-        p_pad = max(8, round_up(len(pats), 8))
-        pat = np.zeros((p_pad, packed.shape[1]), np.uint8)
-        pat[: len(pats)] = packed
-        plens = tuple(int(len(p)) for p in pats) + (0,) * (p_pad - len(pats))
-        m_max = ps.max_len
+        pat, _, plens, m_max = _pattern_table(pats, k)
         halo = round_up(m_max + 2 * k, 128)
         rows = staged(corpus, start_row, n, wf, halo, dev)
         dpat = torch.from_numpy(pat).to(dev)
@@ -230,7 +291,123 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     case(mid, "P=2 m=70,80")
 
 
-def phase_e2e_k0(dev, mb: int = 256) -> None:
+def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
+    """Kernel C against scan_folded_myers_ref and against kernel A."""
+    import torch
+
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    wf = 8192
+    p32, p50 = random_pattern(32, seed=71), random_pattern(50, seed=72)
+    six = [random_pattern(50, seed=80 + i) for i in range(6)]
+    corpus = random_corpus(main_rows * wf + 4096, seed=70)
+    pos = list(range(1000, len(corpus) - 200, 65_537))
+    plant(corpus, p50, pos, k=3, seed=73)
+    plant(corpus, p32, [p + 90 for p in pos], k=2, seed=74)
+    for i, p in enumerate(six):
+        plant(corpus, p, [q + 300 + 70 * i for q in pos], k=3, seed=75 + i)
+
+    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=1, timed=True):
+        pat, _, plens, m_max = _pattern_table(pats, k)
+        alph = tuple(sorted(set(b"".join(pats))))
+        need(dp_kernel._myers_mode(k, alph, "int32", "myers", len(plens), m_max),
+             f"kernel C {what}: not representable in Myers mode")
+        halo = round_up(m_max + 2 * k, 128)
+        rows = staged(corpus, start_row, n, wf, halo, dev)
+        dpat = torch.from_numpy(pat).to(dev)
+        peq = torch.from_numpy(dp_kernel.build_peq(pat, k, m_max, alph)).to(dev)
+        start = start_row * wf
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph, peq=peq)
+        myers = lambda: dp_kernel.scan_folded_dp(rows, dpat, bound, start, dp_impl="myers", **kw)
+        band = lambda: dp_kernel.scan_folded_dp(rows, dpat, bound, start, dp_impl="band", **kw)
+        plain = lambda: dp_kernel.scan_folded_myers_ref(rows, dpat, bound, start, **kw)
+        got = myers()
+        torch.cuda.synchronize()
+        rec.compare(got, plain(), what + " vs plain")
+        rec.compare(got, band(), what + " vs kernel A")
+        need(int(got.sum()) > 0, f"kernel C {what}: no matches at all")
+        ms, band_ms = cuda_ms(myers, reps), cuda_ms(band, reps)
+        plain_ms = cuda_ms(plain, plain_reps) if timed else None
+        say(f"phase 2b kernel C {what}: equal to plain and to kernel A, counts "
+            f"{got[:len(pats)].tolist()}, kernel {ms:.3f} ms, kernel A {band_ms:.3f} ms, "
+            f"plain {'%.3f ms' % plain_ms if timed else 'not timed'}")
+        return ms, plain_ms
+
+    pair = [p32.tobytes(), p50.tobytes()]
+    six_b = [p.tobytes() for p in six]
+    full = n_rows * wf - 50 + 1
+    for k in (3, 4, 8, 12, 14):
+        case(pair, k, n_rows, 0, full, f"P=2 m=32,50 k={k} R={n_rows}")
+        ms_plain = case(six_b, k, n_rows, 0, full, f"P=6 m=50 k={k} R={n_rows}")
+        if k == 12:
+            rec.ms, rec.plain_ms = ms_plain  # the k12_myers_dp cell's patterns
+    mid = torch.tensor(3 * wf + (n_rows - 13) * wf + 4321, device=dev)
+    case(pair, 5, n_rows - 8, 3, mid,
+         f"P=2 k=5 R={n_rows - 8} start>0, mid-row bound in device memory")
+    case(six_b, 12, main_rows, 0, main_rows * wf - 50 + 1,
+         f"P=6 m=50 k=12 R={main_rows} (a 256 MB chunk)", reps=3, timed=False)
+
+
+def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
+    """Kernel D against scan_filter_ref, fcnt and rowmap cell for cell."""
+    import torch
+
+    from apm_torch.ops import filter_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    wf = 8192
+    corpus = random_corpus(main_rows * wf + 4096, seed=90)
+    sets = {
+        "short": ([random_pattern(12, seed=91), random_pattern(20, seed=92)], 0),
+        "pair": ([random_pattern(32, seed=93), random_pattern(50, seed=94)], 2),
+        "120": ([random_pattern(120, seed=95 + i) for i in range(2)], 6),
+        "160": ([random_pattern(160, seed=97 + i) for i in range(2)], 12),
+    }
+    for si, (pats, pk) in enumerate(sets.values()):
+        for i, p in enumerate(pats):
+            plant(corpus, p, range(700 + 211 * i + 53 * si, len(corpus) - 300, 100_003),
+                  k=pk, seed=100 + 10 * si + i)
+
+    def case(name, k, n, start_row, bound, what, reps=5, plain_reps=1):
+        pats = [p.tobytes() for p in sets[name][0]]
+        _, raw, plens, m_max = _pattern_table(pats, k)
+        need(all(filter_kernel.filter_eligible(m, k) for m in plens if m),
+             f"kernel D {what}: a pattern is not filtration-eligible")
+        halo = round_up(m_max + 2 * k, 128)
+        rows = staged(corpus, start_row, n, wf, halo, dev)
+        draw = torch.from_numpy(raw).to(dev)
+        start = start_row * wf
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+        kern = lambda: filter_kernel.scan_filter(rows, draw, bound, start, **kw)
+        plain = lambda: filter_kernel.scan_filter_ref(rows, draw, bound, start, **kw)
+        fcnt, rowmap = kern()
+        rfcnt, rrowmap = plain()
+        torch.cuda.synchronize()
+        rec.compare(fcnt, rfcnt, what + " fcnt")
+        rec.compare(rowmap, rrowmap, what + " rowmap")
+        need(int(fcnt.sum()) > 0, f"kernel D {what}: no candidates at all")
+        ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
+        tiers = sorted({filter_kernel.tier_of(m, k) for m in plens if m})
+        say(f"phase 3b kernel D {what} tiers {tiers}: fcnt and rowmap equal, fcnt "
+            f"{fcnt[:len(pats)].tolist()}, hot rows {int((rowmap.sum(1) > 0).sum())}, "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        return ms, plain_ms
+
+    full = n_rows * wf - 200
+    case("short", 0, n_rows, 0, full, f"k=0 m=12,20 R={n_rows}")
+    case("pair", 1, n_rows, 0, full, f"k=1 m=32,50 R={n_rows}")
+    rec.ms, rec.plain_ms = case("pair", 3, n_rows, 0, full, f"k=3 m=32,50 R={n_rows}")
+    case("120", 8, n_rows, 0, full, f"k=8 2x120 R={n_rows}")
+    case("160", 16, n_rows - 8, 3, 3 * wf + (n_rows - 13) * wf + 4321,
+         f"k=16 2x160 R={n_rows - 8} start>0 mid-row bound")
+    case("pair", 3, main_rows, 0, main_rows * wf - 200,
+         f"k=3 m=32,50 R={main_rows} (a 256 MB chunk)", reps=3)
+
+
+def phase_e2e_k0(main, dev, mb: int = 256) -> None:
     import torch
 
     import apm_torch
@@ -245,7 +422,7 @@ def phase_e2e_k0(dev, mb: int = 256) -> None:
         syn[pos : pos + 50] = p50
     pats = [p32.tobytes()] + [p50.tobytes()] * 5
     sc = apm_torch.Scanner(pats, 0, apm_torch.ApmConfig(device=str(dev)))
-    counts = sc.count(syn)
+    counts = main.run(f"{mb} MB k=0", ["corr_fused"], lambda: sc.count(syn))
     dev_bound = sc.device_window_bound(len(syn))
     syn_b = syn.tobytes()
     tail = count_matches(syn[dev_bound:], pats, 0)
@@ -268,7 +445,7 @@ def phase_e2e_k0(dev, mb: int = 256) -> None:
         f"included; {torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev})")
 
 
-def phase_e2e_dp(dev, mb: int = 32) -> None:
+def phase_e2e_dp(main, dev, mb: int = 32) -> None:
     import apm_torch
     from apm_torch import ApmConfig
     from apm_torch.utils.corpus import plant, random_corpus, random_pattern
@@ -281,7 +458,7 @@ def phase_e2e_dp(dev, mb: int = 32) -> None:
         plant(c, p50, range(4096, (mb << 20) - 100, 1 << 18), k=kk, seed=40 + kk)
         plant(c, p32, range(70_000, (mb << 20) - 100, 1 << 19), k=kk, seed=50 + kk)
         sc = apm_torch.Scanner(pats, kk, ApmConfig(engine="dp", device=str(dev)))
-        counts = sc.count(c)
+        counts = main.run(f"{mb} MB k={kk} engine=dp", ["dp_band"], lambda: sc.count(c))
         plain = apm_torch.Scanner(
             pats, kk, ApmConfig(engine="dp", backend="torch", device=str(dev))
         )
@@ -302,6 +479,181 @@ def phase_e2e_dp(dev, mb: int = 32) -> None:
         mbps = len(c) / statistics.median(secs) / 1e6
         say(f"phase 5 e2e k={kk} engine=dp {mb} MB: kernels == plain, 1 MB prefix == "
             f"oracle, counts {counts.tolist()}, median {mbps:.1f} MB/s over 3 reps")
+
+
+def _dedup_oracle(prefix, pats, k):
+    """Oracle counts of a pattern list, each distinct pattern counted once."""
+    from apm_torch.utils.oracle import count_matches
+
+    uniq = list(dict.fromkeys(pats))
+    got = dict(zip(uniq, count_matches(prefix, uniq, k)))
+    return [got[p] for p in pats]
+
+
+def _timed_counts(sc, c, reps: int = 3) -> float:
+    """Median MB/s of ``sc.count(c)`` over ``reps`` calls (host clock)."""
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        sc.count(c)
+        secs.append(time.perf_counter() - t0)
+    return len(c) / statistics.median(secs) / 1e6
+
+
+def device_busy(sc, c) -> str:
+    """Device busy share of one ``sc.count(c)``: the union of the device
+    activity intervals ``torch.profiler`` records (kernels, copies,
+    memsets), over the call's host-clock time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sc.count(c)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return "device busy not measured (the profiler saw no device activity)"
+    busy, top = 0.0, {}
+    (s0, e0), *rest = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    for s1, e1 in rest:
+        if s1 > e0:
+            busy, s0, e0 = busy + e0 - s0, s1, e1
+        else:
+            e0 = max(e0, e1)
+    busy += e0 - s0
+    for e in evs:
+        top[e.name] = top.get(e.name, 0.0) + e.time_range.elapsed_us()
+    names = sorted(top, key=top.get, reverse=True)[:5]
+    return (f"device busy {busy / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms "
+            f"({100 * busy / wall_us:.1f} %, idle {100 - 100 * busy / wall_us:.1f} %; "
+            f"torch.profiler, one call); top device work: "
+            + "; ".join(f"{n[:48]} {top[n] / 1e3:.3f} ms" for n in names))
+
+
+def breakdown(sc, c) -> str:
+    """Where one ``sc.count(c)`` spends its time: the Scanner's own spans
+    (``Scanner.meter.trace``; medians of 3 calls), then the device's busy
+    share under ``torch.profiler``."""
+    sc.meter.trace = True
+    runs, secs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        sc.count(c)
+        secs.append(time.perf_counter() - t0)
+        runs.append(sc.meter.last_spans)
+    sc.meter.trace = False
+    spans = ", ".join(
+        f"{name} {statistics.median(r.get(name, 0.0) for r in runs):.3f} ms"
+        for name in runs[0]
+    )
+    return (f"count {statistics.median(secs) * 1e3:.1f} ms with spans on; {spans}; "
+            f"{device_busy(sc, c)}")
+
+
+def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: int = 200 << 10):
+    """Scanner.count at k >= 1 under engine="auto" on bench.py's cells,
+    each gated by the same scan under engine="dp", dp_impl="band" (kernel
+    A over the whole corpus) and by a 1 MB prefix against the oracle.
+    Returns the (name, scanner, corpus) of the cells to break down."""
+    import apm_torch
+    from apm_torch import ApmConfig
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    size = mb << 20
+    base = random_corpus(size, seed=0)
+    p32, p50 = random_pattern(32, seed=11), random_pattern(50, seed=12)
+    ref_set = [p32.tobytes()] + [p50.tobytes()] * 5
+    fifty = [random_pattern(50, seed=200 + i).tobytes() for i in range(6)]
+    long2 = [random_pattern(120, seed=210 + i).tobytes() for i in range(2)]
+    cfg = lambda **kw: ApmConfig(device=str(dev), **kw)
+    # bench.py's plants: one copy per MB, pattern i offset by i * 128 KB
+    every_mb = lambda i=0: list(range(5000 + i * 131072, size - 4096, 1 << 20))
+
+    def gate(name, pats, k, c, sc, expect):
+        counts = main.run(name, expect, lambda: sc.count(c))
+        band = apm_torch.Scanner(pats, k, cfg(engine="dp", dp_impl="band")).count(c)
+        need(counts.tolist() == band.tolist(),
+             f"{name}: auto {counts.tolist()} != engine=dp band {band.tolist()}")
+        return counts
+
+    def cell(name, pats, k, planted, expect, route=None):
+        c = base.copy()
+        for i, p in enumerate(planted):
+            plant(c, np.frombuffer(p, np.uint8), every_mb(i), k=k, seed=13 + i)
+        sc = apm_torch.Scanner(pats, k, cfg())
+        counts = gate(name, pats, k, c, sc, expect)
+        need(counts[pats.index(planted[0])] >= len(every_mb()), f"{name}: plants missed")
+        info = sc.last_filtration or {"route": "banded DP only"}
+        need(route in (None, info["route"]), f"{name}: route {info}, expected {route}")
+        prefix = c[: 1 << 20]
+        got = sc.count(prefix).tolist()
+        want = _dedup_oracle(prefix, pats, k)
+        need(got == want, f"{name} 1 MB prefix: {got} != oracle {want}")
+        auto_mbps = _timed_counts(sc, c)
+        dp_mbps = _timed_counts(apm_torch.Scanner(pats, k, cfg(engine="dp")), c)
+        say(f"phase 5b {name} k={k}: auto == dp band, 1 MB prefix == oracle, counts "
+            f"{counts.tolist()}, route {info['route']}, n_hot {info.get('n_hot', '-')} "
+            f"(bucket {info.get('max_hot', '-')}), median {auto_mbps:.1f} MB/s auto, "
+            f"{dp_mbps:.1f} MB/s engine=dp")
+        return sc, c
+
+    # The kernels each route must launch: kernel A verifies at k <= 2 and
+    # kernel C at k >= 3 (Myers mode under auto); kernel D is phase 1
+    # where the piece conv is not.
+    keep = []
+    for k in (1, 2):
+        cell(f"{mb}mb_k{k}_planted", ref_set, k, [ref_set[1]], ["dp_band"], "device-verify")
+    keep.append((f"{mb}mb_k3_planted",) + cell(
+        f"{mb}mb_k3_planted", ref_set, 3, [ref_set[1]], ["filter_pieces", "dp_myers"]))
+    cell(f"{mb}mb_k4_exact_tier", fifty, 4, fifty, ["dp_myers"])
+    keep.append((f"{mb}mb_k8_banded_tier",) + cell(
+        f"{mb}mb_k8_banded_tier", long2, 8, long2, ["filter_pieces", "dp_myers"]))
+    cell(f"{mb}mb_k12_myers_dp", fifty, 12, fifty, ["dp_myers"])
+
+    # k = 0 on a short set: kernel D's candidates are the exact counts
+    short = [random_pattern(12, seed=220).tobytes(), random_pattern(20, seed=221).tobytes()]
+    c = base.copy()
+    plant(c, np.frombuffer(short[1], np.uint8), every_mb(), k=0)
+    sc = apm_torch.Scanner(short, 0, cfg())
+    counts = main.run(f"{mb}mb_k0_short_set", ["filter_pieces"], lambda: sc.count(c))
+    bound = sc.device_window_bound(len(c))
+    tail = _dedup_oracle(c[bound:], short, 0)
+    cb = c.tobytes()
+    want = [host_exact_count(cb[: bound + len(p) - 1], p) + t for p, t in zip(short, tail)]
+    del cb
+    need(counts.tolist() == want, f"k=0 short set: {counts.tolist()} != {want}")
+    need(counts[1] >= len(every_mb()), "k=0 short set: plants missed")
+    say(f"phase 5b {mb}mb_k0_short_set (m 12, 20; kernel D): host count + oracle tail ok, "
+        f"counts {counts.tolist()}, median {_timed_counts(sc, c):.1f} MB/s")
+    del c
+
+    # Dense: a candidate in every row takes the density rescan
+    dense = base[: dense_mb << 20].copy()
+    plant(dense, p50, range(1000, len(dense) - 100, 4096), k=1, seed=230)
+    sc = apm_torch.Scanner(ref_set, 1, cfg())
+    counts = gate("dense", ref_set, 1, dense, sc, ["dp_band"])
+    info = sc.last_filtration
+    need(info["route"] == "rescan", f"dense: route {info}")
+    say(f"phase 5b dense {dense_mb} MB k=1 (a plant every 4 KB): auto == dp band, counts "
+        f"{counts.tolist()}, route {info['route']}, n_hot {info['n_hot']}, median "
+        f"{_timed_counts(sc, dense):.1f} MB/s")
+    del dense
+
+    # Overflow: more hot rows than the bucket, fewer than the density
+    # threshold, so count_hot_batch re-verifies on the device
+    over = base.copy()
+    plant(over, p50, range(1000, len(over) - 100, over_step), k=1, seed=240)
+    sc = apm_torch.Scanner(ref_set, 1, cfg())
+    counts = gate("overflow", ref_set, 1, over, sc, ["dp_band"])
+    info = sc.last_filtration
+    need(info["route"] == "count_hot_batch", f"overflow: route {info}")
+    say(f"phase 5b overflow {mb} MB k=1 (a plant every {over_step >> 10} KB): auto == dp "
+        f"band, counts {counts.tolist()}, route {info['route']}, n_hot {info['n_hot']} > "
+        f"bucket {info['max_hot']}, median {_timed_counts(sc, over):.1f} MB/s")
+    return keep
 
 
 def phase_cli(device: str = "cuda") -> None:
@@ -347,7 +699,7 @@ def run(t_start: float) -> dict:
     card = smi.stdout.strip().splitlines()[0]
     say(card)
 
-    from apm_torch.ops import _build, corr_fused, dp_kernel
+    from apm_torch.ops import _build
 
     t0 = time.perf_counter()
     _build.library()
@@ -355,28 +707,38 @@ def run(t_start: float) -> dict:
     regs = [l.strip() for l in _build.build_log().splitlines() if "registers" in l]
     say(f"phase 1 environment: torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
-        f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs[:3])}")
+        f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
     dev = torch.device("cuda", 0)
 
-    rec_a = KernelRecord("dp_band", "apm_torch/csrc/dp_band.cu",
-                         "apm/ops/pallas_kernel.py:593")
-    rec_b = KernelRecord("corr_fused", "apm_torch/csrc/corr_fused.cu",
-                         "apm/ops/corr_fused.py:298")
-    phase_dp(rec_a, dev)
-    phase_corr(rec_b, dev)
+    recs = {
+        "dp_band": KernelRecord("dp_band", "apm_torch/csrc/dp_band.cu",
+                                "apm/ops/pallas_kernel.py:593"),
+        "corr_fused": KernelRecord("corr_fused", "apm_torch/csrc/corr_fused.cu",
+                                   "apm/ops/corr_fused.py:298"),
+        "dp_myers": KernelRecord("dp_myers", "apm_torch/csrc/dp_myers.cu",
+                                 "apm/ops/pallas_kernel.py:593"),
+        "filter_pieces": KernelRecord("filter_pieces", "apm_torch/csrc/filter_pieces.cu",
+                                      "apm/ops/filter_kernel.py:350"),
+    }
+    phase_dp(recs["dp_band"], dev)
+    phase_myers(recs["dp_myers"], dev)
+    phase_corr(recs["corr_fused"], dev)
+    phase_filter(recs["filter_pieces"], dev)
 
-    # The main path: counters from zero, read after the end-to-end phases.
-    dp_kernel.LAUNCHES = 0
-    corr_fused.LAUNCHES = 0
+    main = MainPath()
     for mb in (256, 512):  # one chunk, then two
-        phase_e2e_k0(dev, mb)
-    phase_e2e_dp(dev)
-    launches = {"dp_band": dp_kernel.LAUNCHES, "corr_fused": corr_fused.LAUNCHES}
+        phase_e2e_k0(main, dev, mb)
+    phase_e2e_dp(main, dev)
+    keep = phase_e2e_filter(main, dev)
+    launches = main.total
     need(all(v > 0 for v in launches.values()), f"a kernel never launched on the main path: {launches}")
-    say(f"main path launches: {launches}")
+    say(f"main path launches, all paths: {launches}")
+    for name, sc, c in keep:
+        say(f"phase 5b breakdown {name} (first 256 MB chunk): {breakdown(sc, c)}")
+    del keep
     phase_cli()
     say(f"total {time.perf_counter() - t_start:.1f} s")
-    say(json.dumps({"kernels": [rec_a.json(launches["dp_band"]), rec_b.json(launches["corr_fused"])]}))
+    say(json.dumps({"kernels": [r.json(launches[name]) for name, r in recs.items()]}))
     return {
         "ok": True,
         "device": {

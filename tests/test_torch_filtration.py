@@ -1,0 +1,223 @@
+"""The port's Scanner at k >= 1 on apm's own routes, three ways.
+
+``apm_torch.Scanner(..., ApmConfig(device="cpu"))`` (plain versions of
+kernels A, C and D, the piece conv, device-side phase 2 and
+``finalize_filtration``), ``apm.Scanner`` (its Pallas kernels in interpret
+mode) and the oracle ``count_matches`` must give the same counts — integers,
+tolerance 0 — on every branch of the filtration decision tree: on-device
+verify, density rescan, overflow through ``count_hot_batch``, the
+host-staged ``verify_rows_host`` and a clipped hot row; and for the k = 0
+short-set filter route. Also: the port names the same kernel for each
+pattern as apm's plan does.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import apm
+from apm import ApmConfig as JaxConfig
+from apm.utils.oracle import count_matches
+
+import apm_torch
+from apm_torch import ApmConfig
+from apm_torch.utils.corpus import plant
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the test workers share the machine's cores; torch's own thread pool in
+    # each would oversubscribe them and slow every worker down
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _corpus(n, seed, alphabet=b"ACGT\n"):
+    rng = np.random.default_rng(seed)
+    a = np.frombuffer(alphabet, np.uint8)
+    return a[rng.integers(0, len(a), size=n)]
+
+
+def _patterns(lengths, seed):
+    return [bytes(_corpus(m, seed + i, b"ACGT")) for i, m in enumerate(lengths)]
+
+
+def _planted(n, pats, k, seed, every):
+    c = _corpus(n, seed)
+    for i, p in enumerate(pats):
+        plant(c, np.frombuffer(p, np.uint8), range(400 + 97 * i, n - 300, every),
+              k=min(k, 3), seed=seed + i)
+    return c
+
+
+def _three_way(c, pats, k, **cfg):
+    want = count_matches(c, pats, k)
+    jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True,
+                                         block_windows=1024, **cfg))
+    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024, **cfg))
+    got = tsc.count(c).tolist()
+    assert got == want, ("port", got, want)
+    assert jsc.count(c).tolist() == want, "apm"
+    return tsc, want
+
+
+@pytest.mark.parametrize(
+    "k,lengths,engine,dp_impl",
+    [
+        (1, [32, 50], "auto", "auto"),  # conv phase 1, phase 2 on kernel A
+        (2, [32, 50], "auto", "auto"),
+        (3, [32, 50], "auto", "auto"),  # kernel D, phase 2 on kernel C
+        (4, [50, 50, 50], "auto", "auto"),  # conv phase 1, kernel C
+        (8, [120, 120], "auto", "auto"),  # kernel D banded tier, kernel C
+        (12, [50, 50], "auto", "auto"),  # DP route on kernel C
+        (1, [32, 50, 9], "filter", "auto"),  # kernel D; m = 9 on the DP route
+        (3, [32, 50], "filter", "myers"),
+        (4, [50, 50], "filter", "band"),
+        (2, [32, 50], "dp", "myers"),  # the bit-parallel band at k = 2
+    ],
+)
+def test_count_three_way(k, lengths, engine, dp_impl):
+    pats = _patterns(lengths, 20 + k)
+    c = _planted(40_000, pats, k, seed=k, every=6_000)
+    tsc, want = _three_way(c, pats, k, engine=engine, dp_impl=dp_impl)
+    assert sum(want[:2]) > 0
+    routes = {r for r in (tsc.last_filtration or {}).values() if isinstance(r, str)}
+    assert routes <= {"device-verify"}
+
+
+@pytest.mark.parametrize("engine", ["auto", "filter"])
+def test_count_k0_short_set_filter_route(engine):
+    # k = 0, m_max < 48, a light set: apm's plan sends it to the shift-OR
+    # filter, whose candidates are the exact counts
+    from apm_torch.models.pipeline import make_plan
+
+    pats = _patterns([12, 20], 40)
+    c = _planted(30_000, pats, 0, seed=41, every=3_000)
+    tsc, want = _three_way(c, pats, 0, engine=engine)
+    plan = make_plan(tsc, len(c))
+    assert plan.plens_filter[:2] == (12, 20) and not plan.use_corr
+    assert min(want) >= 9
+
+
+def test_count_density_rescan():
+    # a candidate in most rows: past the density threshold, the filtration
+    # patterns are rescanned with the banded DP
+    pats = _patterns([32, 50], 50)
+    c = _planted(40_000, pats, 1, seed=51, every=150)
+    tsc, _ = _three_way(c, pats, 1)
+    assert tsc.last_filtration["route"] == "rescan"
+
+
+def test_count_overflow_through_count_hot_batch(monkeypatch):
+    # more full hot rows than the bucket, fewer than the density threshold:
+    # the overflowed chunk is re-verified on the device
+    from apm.ops import fused as jfused
+    from apm_torch.ops import fused as tfused
+
+    monkeypatch.setattr(jfused, "pick_max_hot", lambda *a: 8)
+    monkeypatch.setattr(tfused, "pick_max_hot", lambda *a: 8)
+    pats = _patterns([32, 50], 60)
+    c = _planted(40_000, pats, 3, seed=61, every=2_500)
+    tsc, _ = _three_way(c, pats, 3)
+    info = tsc.last_filtration
+    assert info["route"] == "count_hot_batch" and info["n_hot"] > 8
+
+
+def test_count_overflow_past_the_cap_verifies_on_the_host(monkeypatch):
+    from apm.ops import fused as jfused
+    from apm_torch.ops import fused as tfused
+
+    for mod in (jfused, tfused):
+        monkeypatch.setattr(mod, "pick_max_hot", lambda *a: 8)
+        monkeypatch.setattr(mod, "OVERFLOW_BATCH", 8)
+        monkeypatch.setattr(mod, "OVERFLOW_CAP", 8)
+    pats = _patterns([32, 50], 70)
+    c = _planted(40_000, pats, 1, seed=71, every=2_500)
+    tsc, _ = _three_way(c, pats, 1)
+    info = tsc.last_filtration
+    assert info["route"] == "verify_rows_host" and info["n_hot"] > 8
+
+
+def test_count_clipped_hot_row():
+    # a match whose window starts in the last, partial staging row: that
+    # row is verified on the host
+    pats = _patterns([32, 50], 80)
+    wf = 1024 // 8
+    n = wf * 300 + 60 + 49  # device bound n - 49 ends 60 windows into a row
+    c = _corpus(n, 81)
+    dev_bound = n - 50 + 1
+    assert dev_bound % wf == 60
+    c[dev_bound - 20 : dev_bound + 30] = np.frombuffer(pats[1], np.uint8)
+    c[dev_bound - 10] ^= 1  # one substitution
+    tsc, want = _three_way(c, pats, 2)
+    assert want[1] >= 1 and tsc.last_filtration["route"] == "device-verify"
+
+
+def _apm_routes(jsc, n):
+    """apm's kernel for each pattern slot, from its plan and dispatch."""
+    from apm.models.pipeline import make_plan
+    from apm.ops.pallas_kernel import resolve_dp_mode
+
+    plan = make_plan(jsc, n, "pallas")
+    mode = lambda plens: "dp_" + resolve_dp_mode(
+        jsc.k, jsc._dp_alphabet(), "int32", jsc.config.dp_impl, len(plens), jsc.m_max
+    )[1]
+    out = []
+    for i in range(len(plan.fmask)):
+        if plan.use_corr and plan.plens_corr[i]:
+            out.append("corr_fused" if jsc._use_fused_corr(plan.wf, plan.halo) else "corr_conv")
+        elif plan.plens_filter[i]:
+            phase1 = "piece_conv" if plan.fp1_conv else "filter_pieces"
+            out.append(phase1 if jsc.k == 0 else f"{phase1}+{mode(plan.plens_filter)}")
+        elif plan.plens_dp[i]:
+            out.append(mode(plan.plens_dp))
+        else:
+            out.append("-")
+    return out
+
+
+def _port_routes(tsc, n):
+    from apm_torch.models.pipeline import make_plan
+    from apm_torch.ops.dp_kernel import _is_myers
+
+    plan = make_plan(tsc, n)
+    use_fused, plens_dp = tsc._routes(plan)
+    mode = lambda plens: "dp_myers" if _is_myers(
+        tsc.k, tsc.m_max, plens, tsc._dp_alphabet(), tsc.config.dp_impl
+    ) else "dp_band"
+    out = []
+    for i in range(len(plan.fmask)):
+        if use_fused and plan.plens_corr[i]:
+            out.append("corr_fused")
+        elif plan.plens_filter[i]:
+            phase1 = "piece_conv" if plan.fp1_conv else "filter_pieces"
+            out.append(phase1 if tsc.k == 0 else f"{phase1}+{mode(plan.plens_filter)}")
+        elif plens_dp[i]:
+            out.append(mode(plens_dp))
+        else:
+            out.append("-")
+    return out
+
+
+def test_routes_name_apms_kernels():
+    seen = set()
+    for lengths, alphabet in (([32, 50], b"ACGT"), ([12, 20], b"ACGT"), ([50] * 6, b"ACGT"),
+                              ([120, 120, 9], b"ACGT"), ([40, 60], b"ACDEFGHIKL")):
+        pats = [bytes(_corpus(m, 90 + i, alphabet)) for i, m in enumerate(lengths)]
+        for k in (0, 1, 2, 3, 4, 8, 12):
+            for engine in ("auto", "filter", "dp"):
+                for dp_impl in ("auto", "band", "myers"):
+                    cfg = dict(engine=engine, dp_impl=dp_impl)
+                    jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True, **cfg))
+                    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", **cfg))
+                    want = _apm_routes(jsc, 1 << 22)
+                    seen.update(want)
+                    # the one temporary route: apm's XLA conv at k = 0 and
+                    # 97 < m_max <= 512 is not ported; kernel A counts it
+                    want = ["dp_band" if r == "corr_conv" else r for r in want]
+                    assert _port_routes(tsc, 1 << 22) == want, (lengths, k, cfg)
+    assert {"corr_fused", "corr_conv", "dp_band", "dp_myers", "filter_pieces",
+            "piece_conv+dp_band", "piece_conv+dp_myers",
+            "filter_pieces+dp_band", "filter_pieces+dp_myers"} <= seen

@@ -13,12 +13,25 @@ import sys
 
 import numpy as np
 import pytest
+import torch
 
 import apm
 from apm import ApmConfig as JaxConfig
+from apm.utils.oracle import count_matches
 
 import apm_torch
 from apm_torch import ApmConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the test workers share the machine's cores; torch's own thread pool in
+    # each would oversubscribe them and slow every worker down
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -108,6 +121,111 @@ def test_block_windows_and_tiers_match_apm():
                     )
 
 
+def test_piece_tables_and_shift_ranges_match_apm():
+    from apm.ops import filter_kernel as jfk
+    from apm_torch.ops import filter_kernel as tfk
+
+    for k in range(0, 17):
+        assert tfk.banded_j(k) == jfk.banded_j(k)
+        for m in range(1, 200, 7):
+            assert tfk.pieces_of(m, k) == jfk.pieces_of(m, k)
+            tier = tfk.tier_of(m, k)
+            if tier is None:
+                continue
+            j, kp = tier
+            tab = tfk.pieces_of_j(m, j)
+            assert tab == jfk.pieces_of_j(m, j)
+            for idx, (o, li) in enumerate(tab):
+                assert tfk.shift_range(o, li, m, k) == jfk.shift_range(o, li, m, k)
+                assert tfk.piece_shift_range(idx, j, o, li, m, k, kp) == (
+                    jfk.piece_shift_range(idx, j, o, li, m, k, kp)
+                )
+
+
+def test_phase2_sizing_matches_apm():
+    from apm.models import pipeline as jpipe
+    from apm.ops import fused as jfused
+    from apm_torch.models import pipeline as tpipe
+    from apm_torch.ops import fused as tfused
+
+    for name in ("MAX_HOT", "MAX_CLIP", "MAX_HOT_CAP", "OVERFLOW_BATCH", "OVERFLOW_CAP"):
+        assert getattr(tfused, name) == getattr(jfused, name), name
+    for n_rows in (1, 8, 40, 512, 4096, 32768):
+        for wf in (128, 1024, 8192):
+            for plens in ((32, 50, 0), (50,) * 6, (120, 120), (10,) * 64):
+                for k in (1, 2, 4, 8, 16):
+                    assert tfused.pick_max_hot(n_rows, wf, plens, k) == (
+                        jfused.pick_max_hot(n_rows, wf, plens, k)
+                    )
+            for hot in (0, 1, 63, 64, 65, 2000):
+                for bound in (1000, n_rows * wf):
+                    assert tpipe.candidate_density_dense(hot, wf, bound) == (
+                        jpipe.candidate_density_dense(hot, wf, bound)
+                    )
+
+
+def test_conv_phase1_tables_match_apm():
+    from apm.ops import corr_engine as jce
+    from apm_torch.ops import corr_engine as tce
+
+    for n0 in range(0, 70):
+        assert tce.pick_stride(n0) == jce.pick_stride(n0)
+    for L in (128, 1152, 8320):
+        for c in (1, 2, 4, 5, 16):
+            for n_rows in (1, 8, 100, 32768):
+                assert tce._group_rows(L, c, n_rows) == jce._group_rows(L, c, n_rows)
+    for lengths, k, alphabet in [
+        ([32, 50], 1, b"ACGT"), ([50] * 6, 4, b"ACGT"), ([64, 40], 2, b"ACGTN"),
+        ([30, 30], 2, b"\x00\xff"),
+    ]:
+        pats = _patterns(lengths, 60 + k, alphabet)
+        m_max = max(lengths)
+        pat_raw = np.zeros((8, m_max), np.uint8)
+        for i, p in enumerate(pats):
+            pat_raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+        plens = tuple(lengths) + (0,) * (8 - len(lengths))
+        alph = tce.build_alphabet(pats)
+        n_pieces = sum(k + 1 for _ in lengths)
+        for stride in (1, tce.pick_stride(n_pieces)):
+            got = tce.build_piece_kernel(pat_raw, plens, k, alph, stride=stride)
+            want = jce.build_piece_kernel(pat_raw, plens, k, alph, stride=stride)
+            assert got[0].dtype == np.float32
+            for g, w in zip(got, want):
+                assert np.array_equal(g, np.asarray(w, np.float32)), (lengths, k, stride)
+        kern = np.random.default_rng(k).integers(-1, 2, (7, 2, 3)).astype(np.float32)
+        thr = np.arange(3, dtype=np.float32)
+        for stride in (1, 4):
+            for g, w in zip(tce._fold_shifts(kern, thr, stride), jce._fold_shifts(kern, thr, stride)):
+                assert np.array_equal(g, w)
+
+
+def test_myers_gate_and_peq_match_apm():
+    import jax.numpy as jnp
+
+    from apm.ops import pallas_kernel as jpk
+    from apm_torch.ops import dp_kernel as tdk
+
+    for name in ("MYERS_KMIN_AUTO", "MYERS_KMAX", "MYERS_CMAX", "MYERS_SMEM_MAX"):
+        assert getattr(tdk, name) == getattr(jpk, name), name
+    alphabets = [(), (65,), tuple(b"ACGT"), tuple(b"ACGTNRYK"), tuple(b"ACGTNRYKM")]
+    for k in range(0, 17):
+        for alph in alphabets:
+            for impl in ("auto", "band", "myers"):
+                for p, m_max in ((8, 50), (8, k), (64, 50), (256, 50), (8, 300)):
+                    for dtype in ("int32", "int16"):
+                        args = (k, alph, dtype, impl, p, m_max)
+                        assert tdk._myers_mode(*args) == jpk._myers_mode(*args), args
+                        assert tdk.resolve_dp_mode(*args) == jpk.resolve_dp_mode(*args)
+    rng = np.random.default_rng(5)
+    for k, alph in ((1, b"AC"), (3, b"ACGT"), (14, b"ACGTNRYK")):
+        a = np.frombuffer(alph, np.uint8)
+        pat = a[rng.integers(0, len(a), (8, 40 + 2 * k))]
+        pat[5:] = 0  # padding rows
+        got = tdk.build_peq(pat, k, 40, tuple(alph))
+        want = np.asarray(jpk._build_peq(jnp.asarray(pat), k, 40, tuple(alph)))
+        assert got.dtype == np.int32 and np.array_equal(got, want)
+
+
 @pytest.mark.parametrize(
     "lengths,alphabet",
     [([14, 50, 3], b"ACGT"), ([33] * 27, b"ACGT"), ([20] * 33, b"ACGT"),
@@ -178,7 +296,7 @@ def test_make_plan_matches_apm(lengths, alphabet):
 
     pats = _patterns(lengths, 11, alphabet)
     for k in (0, 1, 2, 5, 9):
-        for engine in ("auto", "dp", "corr"):
+        for engine in ("auto", "dp", "corr", "filter"):
             jsc = apm.Scanner(
                 pats, k, JaxConfig(backend="pallas", interpret=True, engine=engine)
             )
@@ -196,6 +314,16 @@ def test_make_plan_matches_apm(lengths, alphabet):
 
 
 def _apm_tables(sc):
+    """The tables an ``apm.Scanner`` builds, as NumPy arrays under the names
+    ``apm_torch.Scanner.load_tables`` takes: the correlation tables, the
+    conv phase 1 piece tables when its ``engine="auto"`` plan runs that
+    phase, and the Myers PEQ table when the bit-parallel band can
+    represent the pattern table."""
+    import jax.numpy as jnp
+
+    from apm.models.pipeline import make_plan
+    from apm.ops.pallas_kernel import _build_peq, _myers_mode
+
     out = {
         "pat": sc._pat,
         "plen": sc._plen,
@@ -206,11 +334,22 @@ def _apm_tables(sc):
         km, thr = sc._corr_fused_tables()
         out["km"] = np.asarray(km, np.float32) if km.dtype != np.int8 else np.asarray(km)
         out["thr"] = np.asarray(thr)
+    plan = make_plan(sc, 1 << 20, "pallas")
+    if plan.fp1_conv:
+        kern, thr, owner, stride = sc._fp1_kernel(plan.plens_filter)
+        out["pkern"] = np.asarray(kern, np.float32)
+        out["pthr"], out["owner"] = np.asarray(thr), np.asarray(owner)
+        out["stride"] = np.asarray(stride, np.int64)
+    alph = sc._dp_alphabet()
+    if _myers_mode(sc.k, alph, "int32", "myers", sc._pat.shape[0], sc.m_max):
+        out["peq"] = np.asarray(_build_peq(jnp.asarray(sc._pat), sc.k, sc.m_max, alph))
     return out
 
 
-@pytest.mark.parametrize("k", [0, 2])
+@pytest.mark.parametrize("k", [0, 2, 3, 4])
 def test_load_tables_round_trips_apm_scanner(k):
+    # k = 2 and 4 run conv phase 1 (piece tables), k = 3 the shift-OR
+    # filter; k >= 2 carries the PEQ table (kernel C at k >= 3)
     pats = _patterns([32, 50], 21) + _patterns([50], 22)
     jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True))
     arrays = _apm_tables(jsc)
@@ -222,11 +361,36 @@ def test_load_tables_round_trips_apm_scanner(k):
         assert np.array_equal(own[name], a) and own[name].dtype == a.dtype, name
     c = _corpus(20_000, 23, b"ACGT")
     c[500:550] = np.frombuffer(pats[1], np.uint8)
+    c[9_000:9_050] = np.frombuffer(pats[2], np.uint8)
+    c[9_010] = c[9_010] ^ 2  # one substitution
     before = tsc.count(c).tolist()
+    assert before == count_matches(c, pats, k)
     tsc.load_tables(arrays)
     assert tsc.count(c).tolist() == before
     with pytest.raises(ValueError):
         tsc.load_tables({**arrays, "pat": arrays["pat"][:, 1:]})
+    if "peq" in arrays:
+        with pytest.raises(ValueError):
+            tsc.load_tables({**arrays, "peq": arrays["peq"][1:]})
+
+
+def test_load_tables_piece_tables_drive_conv_phase1():
+    # the port's conv phase 1 reads the loaded piece tables: with every
+    # piece blanked no row is a candidate, and only the EOF tail (counted
+    # on the host) is left
+    pats = _patterns([50, 50, 50, 50, 50, 50], 31)
+    k = 4
+    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024))
+    c = _corpus(30_000, 32, b"ACGT")
+    c[700:750] = np.frombuffer(pats[0], np.uint8)
+    arrays = tsc.tables()
+    assert "pkern" in arrays
+    assert tsc.count(c).tolist() == count_matches(c, pats, k)
+    assert tsc.last_filtration["route"] == "device-verify"
+    tsc.load_tables({**arrays, "pkern": np.zeros_like(arrays["pkern"])})
+    tail = tsc.tail_counts(c, tsc.device_window_bound(len(c)))
+    assert tsc.count(c).tolist() == tail.tolist()
+    assert tsc.last_filtration["route"] == "zero-candidates"
 
 
 def test_port_imports_without_jax():

@@ -9,6 +9,7 @@ options the port refuses instead of degrading quietly.
 
 import numpy as np
 import pytest
+import torch
 
 import apm
 from apm import ApmConfig as JaxConfig
@@ -16,6 +17,16 @@ from apm.utils.oracle import count_matches
 
 import apm_torch
 from apm_torch import ApmConfig
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    # the test workers share the machine's cores; torch's own thread pool in
+    # each would oversubscribe them and slow every worker down
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _corpus(n, seed, alphabet=b"ACGT\n"):
@@ -102,11 +113,17 @@ def test_scan_counts_and_backends_agree():
         apm_torch.Scanner(pats, 1, ApmConfig(device="cpu", backend="cuda"))
 
 
+_P32 = bytes(_corpus(32, 12, b"ACGT"))
+_P50 = bytes(_corpus(50, 13, b"ACGT"))
+
+
 @pytest.mark.parametrize(
     "cfg,k,pats,exc",
     [
-        (dict(engine="filter"), 1, [b"ACGTACGTACGTACGTACGT"], NotImplementedError),
-        (dict(dp_impl="myers"), 3, [b"ACGTACGTAC"], NotImplementedError),
+        # corr_impl="fused" at k >= 1 runs apm's fused piece scan (TPU
+        # kernel #7), not ported: refused whatever dp_impl asks for
+        (dict(corr_impl="fused"), 1, [_P32, _P50], NotImplementedError),
+        (dict(corr_impl="fused", dp_impl="myers"), 3, [_P50, _P50[::-1]], NotImplementedError),
         (dict(dp_dtype="int16"), 1, [b"ACGTACGTAC"], NotImplementedError),
         (dict(strategy="database_over_devices"), 0, [b"ACGT"], NotImplementedError),
         (dict(strategy="patterns_over_devices"), 0, [b"ACGT"], NotImplementedError),
@@ -114,8 +131,29 @@ def test_scan_counts_and_backends_agree():
     ],
 )
 def test_scanner_refuses_unported_options(cfg, k, pats, exc):
+    c = _corpus(5_000, 11, b"ACGT")
     with pytest.raises(exc, match="ROADMAP|int32"):
-        apm_torch.Scanner(pats, k, ApmConfig(device="cpu", **cfg))
+        apm_torch.Scanner(pats, k, ApmConfig(device="cpu", **cfg)).count(c)
+
+
+@pytest.mark.parametrize(
+    "cfg,k", [(dict(engine="filter"), 1), (dict(dp_impl="myers"), 3)]
+)
+def test_scanner_runs_filter_engine_and_myers(cfg, k):
+    # both were refused before the shift-OR filter and the bit-parallel
+    # band were ported; now three-way equal
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(30_000, 14 + k)
+    plant(c, np.frombuffer(_P50, np.uint8), [3000, 21_000], k=k, seed=2)
+    pats = [_P32, _P50, b"ACGTACGTAC"]
+    want = count_matches(c, pats, k)
+    jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True,
+                                         block_windows=1024, **cfg))
+    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024, **cfg))
+    assert tsc.count(c).tolist() == want
+    assert jsc.count(c).tolist() == want
+    assert want[1] >= 2
 
 
 @pytest.mark.parametrize(
@@ -133,3 +171,29 @@ def test_scanner_refuses_unported_correlation_routes(cfg, exc):
     sc = apm_torch.Scanner(pats, 0, ApmConfig(device="cpu", **cfg))
     with pytest.raises(exc):
         sc.count(c)
+
+
+@pytest.mark.parametrize(
+    "k, engine, names",
+    [
+        (0, "auto", {"fold", "copy", "corr", "fetch", "EOF tail"}),
+        (2, "dp", {"fold", "copy", "dp", "fetch", "EOF tail"}),
+        (3, "auto", {"fold", "copy", "phase 1", "phase 2", "fetch", "finalize", "EOF tail"}),
+    ],
+)
+def test_scanner_spans_name_each_phase(k, engine, names):
+    """Meter.trace leaves the scan's phase spans in meter.last_spans, and
+    changes no count."""
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(60_000, 300 + k)
+    p32, p50 = _corpus(32, 301, b"ACGT"), _corpus(50, 302, b"ACGT")
+    plant(c, p50, range(700, len(c) - 100, 9_000), k=k, seed=303)
+    pats = [p32.tobytes(), p50.tobytes()]
+    sc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", engine=engine))
+    off = sc.count(c).tolist()
+    assert sc.meter.last_spans == {}
+    sc.meter.trace = True
+    assert sc.count(c).tolist() == off == count_matches(c, pats, k)
+    assert set(sc.meter.last_spans) == names
+    assert all(ms >= 0 for ms in sc.meter.last_spans.values())
