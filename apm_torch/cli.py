@@ -19,7 +19,9 @@ Output (``sequential.c:79-82``, ``:151``, ``:157-160``):
 The port runs on one device: a trailing strategy word still selects the
 echo rule, and the scan itself stays single-device. Flags: ``--device``
 (default ``cuda``), ``--backend`` (``auto``/``cuda``/``torch``),
-``--block-windows``, ``--engine``, ``--devices``, ``--verbose``.
+``--block-windows``, ``--engine``, ``--devices``, ``--verbose``, and
+``--positions`` (after the counts, one ``Match positions for pattern
+<%s>: j ...`` line per pattern, from ``Scanner.find``).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     cfg = ApmConfig()
     truncate_echo: Optional[bool] = None  # None = variant default
+    positions = False
     rest: List[str] = []
     i = 0
     while i < len(argv):
@@ -80,10 +83,7 @@ def main(argv: Optional[List[str]] = None) -> int:
         elif a == "--interpret":
             cfg.interpret = True  # config parity with apm; no effect here
         elif a == "--positions":
-            sys.stderr.write(
-                "--positions (Scanner.find) is not ported yet; see ROADMAP.md\n"
-            )
-            return 1
+            positions = True
         elif a == "--truncate-echo":
             truncate_echo = True
         elif a == "--no-truncate-echo":
@@ -142,6 +142,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         sys.stdout.write(
             f"Number of matches for pattern <{echo.decode('latin-1')}>: {int(c)}\n"
         )
+    if positions:
+        # beyond the reference: exact window starts per pattern
+        for p, pos in zip(patterns, scanner.find(buf)):
+            echo = (p[:100] if truncate_echo else p).decode("latin-1")
+            sys.stdout.write(
+                f"Match positions for pattern <{echo}>:"
+                + "".join(f" {int(j)}" for j in pos)
+                + "\n"
+            )
     return 0
 
 

@@ -25,6 +25,19 @@
 // memory. A tensor-core formulation is later work. Staging padding (rows
 // at or past n_rows, windows past the bound) is masked by ownership, which
 // keeps a NUL byte in the alphabet exact.
+//
+// Batch mode (apm_corr_batch_count) replaces
+// apm/ops/corr_fused.py::scan_corr_batch_fused (kernel body
+// _fused_batch_kernel): rows of many corpora, each row's ownership given
+// as limits[r] (its owned lanes, precomputed by the caller from the
+// corpus's bound), counts per block of `fold` rows into an
+// (R/fold, max(P, p_out)) output. A block's tiles belong to different row
+// blocks, so it flushes its shared counters into the tile's slot after
+// every tile (one atomic per nonzero slot and pattern); the TPU kernel
+// instead folds per-128-byte chunks with an owner matmul and sums them
+// outside the kernel. Bound as kernel B: a batch group (1024 rows, 8.5 MB)
+// is read once, so at that size the launch and the per-tile barriers, not
+// HBM, set its time.
 #include "scan_common.cuh"
 
 namespace {
@@ -44,6 +57,9 @@ struct CorrArgs {
   int64_t bound;
   int64_t start;
   int32_t* out;         // (n_pat,) counts, accumulated with atomics
+  const int32_t* limits;  // batch mode: (n_staged,) owned lanes per row
+  int fold;             // batch mode: rows per count slot
+  int64_t out_stride;   // batch mode: slot b of the counts at out + b*stride
 };
 
 __global__ void __launch_bounds__(kTile) corr_fused_kernel(CorrArgs a) {
@@ -58,7 +74,9 @@ __global__ void __launch_bounds__(kTile) corr_fused_kernel(CorrArgs a) {
     const int64_t r = t / tiles_per_row;
     const int64_t lane0 = (t - r * tiles_per_row) * kTile;
     const int64_t limit =
-        apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+        a.limits != nullptr
+            ? apm::clip_lanes(a.limits[r], a.wf)
+            : apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
     if (lane0 >= limit) continue;  // uniform over the block
     const int64_t lane = lane0 + threadIdx.x;
     const bool own = lane < limit;
@@ -75,9 +93,24 @@ __global__ void __launch_bounds__(kTile) corr_fused_kernel(CorrArgs a) {
       }
       apm::add_hits(s_cnt, p, hit);
     }
+    if (a.limits != nullptr) {
+      __syncthreads();
+      apm::flush_and_reset(s_cnt, a.out + (r / a.fold) * a.out_stride,
+                           a.n_pat);
+      __syncthreads();
+    }
   }
-  __syncthreads();
-  apm::flush_counts(s_cnt, a.out, a.n_pat);
+  if (a.limits == nullptr) {
+    __syncthreads();
+    apm::flush_counts(s_cnt, a.out, a.n_pat);
+  }
+}
+
+int run(const CorrArgs& a, int grid, void* stream) {
+  if (grid <= 0 || a.n_pat <= 0) return (int)cudaErrorInvalidValue;
+  corr_fused_kernel<<<grid, kTile, a.n_pat * sizeof(int),
+                      (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -90,10 +123,28 @@ extern "C" int apm_corr_fused_count(const uint8_t* rows, int64_t n_staged,
                                     int64_t pat_stride, const int32_t* plens,
                                     int64_t wf, int64_t bound, int64_t start,
                                     int32_t* out, int grid, void* stream) {
-  CorrArgs a{rows, n_staged, row_stride, n_rows, pat,   n_pat, pat_stride,
-             plens, wf,      bound,      start,  out};
-  if (grid <= 0 || n_pat <= 0) return (int)cudaErrorInvalidValue;
-  corr_fused_kernel<<<grid, kTile, n_pat * sizeof(int),
-                      (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  const CorrArgs a{rows,  n_staged, row_stride, n_rows, pat,     n_pat,
+                   pat_stride, plens, wf,       bound,  start,   out,
+                   nullptr, 1,     0};
+  return run(a, grid, stream);
+}
+
+// Batch mode: row r owns lanes [0, limits[r]) and its counts are added to
+// out[(r / fold) * out_stride + p]; n_staged is a multiple of fold and the
+// caller zeroes out.
+extern "C" int apm_corr_batch_count(const uint8_t* rows, int64_t n_staged,
+                                    int64_t row_stride, const uint8_t* pat,
+                                    int n_pat, int64_t pat_stride,
+                                    const int32_t* plens, int64_t wf,
+                                    const int32_t* limits, int fold,
+                                    int32_t* out, int64_t out_stride,
+                                    int grid, void* stream) {
+  if (limits == nullptr || fold <= 0 || n_staged % fold != 0 ||
+      out_stride < n_pat) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CorrArgs a{rows,  n_staged, row_stride, n_staged, pat,  n_pat,
+                   pat_stride, plens, wf,       0,        0,    out,
+                   limits, fold,   out_stride};
+  return run(a, grid, stream);
 }

@@ -28,6 +28,23 @@
 // bands than kRegMax keep their cells in a global scratch buffer (one slab
 // per block, cell-major so a warp's accesses coalesce) instead of registers.
 // Padding patterns (m_p = 0) are skipped and cost nothing.
+//
+// Two more modes share the kernel body, each behind its own C entry:
+// - batch (apm_dp_band_batch) replaces _scan_folded_pallas_batch: many
+//   corpora in one launch, one [bound, start] pair per block of 8 staged
+//   rows (apm::batch_limit) and an (R/8, P) count output. The TPU gives
+//   each grid step its own output slot; here a block's tiles belong to
+//   different row blocks, so it flushes its shared counters into the
+//   tile's slot after every tile (one atomic per nonzero slot and pattern).
+// - mask (apm_dp_band_mask) replaces _scan_folded_pallas_mask: besides the
+//   (P,) counts it stores every window's verdict (<= k and owned) as one
+//   byte of an (R, P, wf) mask, zeros included (padding patterns and
+//   windows past the bound read 0). Consecutive threads store consecutive
+//   lanes of one (row, pattern) line, so the stores coalesce. The extra
+//   cost is R * P * wf bytes written.
+// Both modes stay bound by integer issue, as the count mode: the batch
+// mode's per-tile flush adds two barriers per 256 windows, the mask's
+// bytes are ~1/100 of the DP's work at find's 512-row batches.
 #include "scan_common.cuh"
 
 namespace {
@@ -53,6 +70,10 @@ struct DpArgs {
   int64_t start;
   int32_t* out;         // (n_pat,) counts, accumulated with atomics
   int32_t* scratch;     // wide bands only: (gridDim.x, 2ke + 1, kTile)
+  const int32_t* meta;  // batch mode: (n_rows / 8, 2) [bound, start]
+  int64_t out_stride;   // batch mode: slot b of the counts at out + b*stride
+  uint8_t* mask;        // mask mode: verdicts, row r at mask + r*mask_stride
+  int64_t mask_stride;  // mask mode: bytes per staged row (P_total * wf)
 };
 
 // Verdict D[m][m] <= k with the band in registers. `txt` points at the
@@ -161,14 +182,23 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
     const int64_t r = t / tiles_per_row;
     const int64_t lane0 = (t - r * tiles_per_row) * kTile;
     const int64_t limit =
-        apm::owned_limit(r, a.n_rows, a.wf, bound, a.start);
-    if (lane0 >= limit) continue;  // uniform over the block
+        a.meta != nullptr ? apm::batch_limit(a.meta, r, a.wf)
+                          : apm::owned_limit(r, a.n_rows, a.wf, bound, a.start);
+    // Uniform over the block. Mask mode visits every tile: it writes the
+    // zeros of windows past the bound too.
+    if (lane0 >= limit && a.mask == nullptr) continue;
     const int64_t lane = lane0 + threadIdx.x;
     const bool own = lane < limit;
     const uint8_t* txt = a.rows + r * a.row_stride + lane;
+    uint8_t* verdicts = a.mask != nullptr && lane < a.wf
+                            ? a.mask + r * a.mask_stride + lane
+                            : nullptr;
     for (int p = 0; p < a.n_pat; ++p) {
       const int m = a.plens[p];
-      if (m <= 0) continue;  // padding slot: no work
+      if (m <= 0) {  // padding slot: no work
+        if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = 0;
+        continue;
+      }
       int hit = 0;
       if (own) {
         const uint8_t* pp = a.pat + (int64_t)p * a.pat_stride + (a.k - a.ke);
@@ -178,11 +208,20 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
           hit = verdict_wide(txt, pp, m, a.k, a.ke, cell);
         }
       }
+      if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = (uint8_t)hit;
       apm::add_hits(s_cnt, p, hit);
     }
+    if (a.meta != nullptr) {
+      __syncthreads();
+      apm::flush_and_reset(s_cnt, a.out + (r / apm::kFold) * a.out_stride,
+                           a.n_pat);
+      __syncthreads();
+    }
   }
-  __syncthreads();
-  apm::flush_counts(s_cnt, a.out, a.n_pat);
+  if (a.meta == nullptr) {
+    __syncthreads();
+    apm::flush_counts(s_cnt, a.out, a.n_pat);
+  }
 }
 
 template <int KE>
@@ -201,6 +240,14 @@ cudaError_t dispatch(const DpArgs& a, int grid, cudaStream_t stream) {
   }
 }
 
+int run(const DpArgs& a, int grid, void* stream) {
+  if (grid <= 0 || a.n_pat <= 0 || a.ke < 0 || a.ke > a.k) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (a.ke > kRegMax && a.scratch == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)dispatch<0>(a, grid, (cudaStream_t)stream);
+}
+
 }  // namespace
 
 // Adds each pattern's window count to out[p] (the caller zeroes out).
@@ -216,14 +263,53 @@ extern "C" int apm_dp_band_count(const uint8_t* rows, int64_t n_rows,
                                  const int64_t* dbound, int64_t start,
                                  int32_t* out, int32_t* scratch, int grid,
                                  void* stream) {
-  DpArgs a{rows, n_rows, row_stride, pat,    n_pat, pat_stride, plens,
-           k,    ke,     wf,         bound,  dbound, start,     out,
-           scratch};
-  if (grid <= 0 || n_pat <= 0 || ke < 0 || ke > k) {
+  const DpArgs a{rows,  n_rows, row_stride, pat,     n_pat, pat_stride,
+                 plens, k,      ke,         wf,      bound, dbound,
+                 start, out,    scratch,    nullptr, 0,     nullptr,
+                 0};
+  return run(a, grid, stream);
+}
+
+// Batch mode: adds the counts of row block b (rows 8b .. 8b + 7, owned
+// through meta[b] = [bound, start]) to out[b * out_stride + p]. n_rows is a
+// multiple of 8; the caller zeroes out.
+extern "C" int apm_dp_band_batch(const uint8_t* rows, int64_t n_rows,
+                                 int64_t row_stride, const uint8_t* pat,
+                                 int n_pat, int64_t pat_stride,
+                                 const int32_t* plens, int k, int ke,
+                                 int64_t wf, const int32_t* meta,
+                                 int32_t* out, int64_t out_stride,
+                                 int32_t* scratch, int grid, void* stream) {
+  if (meta == nullptr || n_rows % apm::kFold != 0 || out_stride < n_pat) {
     return (int)cudaErrorInvalidValue;
   }
-  if (ke > kRegMax && scratch == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)dispatch<0>(a, grid, (cudaStream_t)stream);
+  const DpArgs a{rows,  n_rows, row_stride, pat,  n_pat,      pat_stride,
+                 plens, k,      ke,         wf,   0,          nullptr,
+                 0,     out,    scratch,    meta, out_stride, nullptr,
+                 0};
+  return run(a, grid, stream);
+}
+
+// Mask mode: apm_dp_band_count, and every window's verdict stored at
+// mask[r * mask_stride + p * wf + lane] (all of the n_rows * n_pat * wf
+// cells are written).
+extern "C" int apm_dp_band_mask(const uint8_t* rows, int64_t n_rows,
+                                int64_t row_stride, const uint8_t* pat,
+                                int n_pat, int64_t pat_stride,
+                                const int32_t* plens, int k, int ke,
+                                int64_t wf, int64_t bound,
+                                const int64_t* dbound, int64_t start,
+                                int32_t* out, uint8_t* mask,
+                                int64_t mask_stride, int32_t* scratch,
+                                int grid, void* stream) {
+  if (mask == nullptr || mask_stride < n_pat * wf) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const DpArgs a{rows,  n_rows, row_stride, pat,     n_pat, pat_stride,
+                 plens, k,      ke,         wf,      bound, dbound,
+                 start, out,    scratch,    nullptr, 0,     mask,
+                 mask_stride};
+  return run(a, grid, stream);
 }
 
 extern "C" int apm_dp_band_reg_max() { return kRegMax; }

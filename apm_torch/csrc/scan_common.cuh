@@ -9,6 +9,9 @@
 // corpus. Counts are reduced per pattern in shared memory over everything
 // the block scanned, then added to the (P,) output with one integer atomic
 // per pattern and block (integer atomics: the sum does not depend on order).
+// The batch modes (many corpora in one launch) take each row's ownership
+// from a per-block or per-row table instead and flush their counters into
+// the tile's row-block slot after every tile.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -19,14 +22,32 @@ namespace apm {
 // Threads per block; each thread scans one window of a tile.
 constexpr int kTile = 256;
 
+// Staged rows per block of the batch modes (apm's int32 fold): a batch
+// carries one [bound, start] pair and one count slot per kFold rows.
+constexpr int kFold = 8;
+
+__device__ __forceinline__ int64_t clip_lanes(int64_t lim, int64_t wf) {
+  return lim < 0 ? 0 : (lim > wf ? wf : lim);
+}
+
 // Row r owns lanes [0, limit): windows below the global bound, rows below
 // n_rows (rows at or past it are staging padding and own nothing).
 __device__ __forceinline__ int64_t owned_limit(int64_t r, int64_t n_rows,
                                                int64_t wf, int64_t bound,
                                                int64_t start) {
   if (r >= n_rows) return 0;
-  const int64_t lim = bound - start - r * wf;
-  return lim < 0 ? 0 : (lim > wf ? wf : lim);
+  return clip_lanes(bound - start - r * wf, wf);
+}
+
+// Batch mode: row r of block b = r / kFold owns the windows
+// meta[b][1] + (r % kFold)*wf + lane below meta[b][0]. Each corpus of a
+// batch has its own virtual window space (start = block index * w), and
+// padding blocks carry bound 0.
+__device__ __forceinline__ int64_t batch_limit(const int32_t* meta,
+                                               int64_t r, int64_t wf) {
+  const int64_t b = r / kFold;
+  return clip_lanes((int64_t)meta[2 * b] - meta[2 * b + 1] - (r % kFold) * wf,
+                    wf);
 }
 
 __device__ __forceinline__ void zero_counts(int* s_cnt, int n) {
@@ -44,6 +65,20 @@ __device__ __forceinline__ void flush_counts(const int* s_cnt, int32_t* out,
                                              int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     if (s_cnt[i] != 0) atomicAdd(&out[i], s_cnt[i]);
+  }
+}
+
+// Batch modes: after each tile, add the block's counters to the tile's
+// row-block slot and zero them (one atomic per nonzero (slot, pattern)).
+// Every thread of the block calls it between two __syncthreads().
+__device__ __forceinline__ void flush_and_reset(int* s_cnt, int32_t* out,
+                                                int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const int v = s_cnt[i];
+    if (v != 0) {
+      atomicAdd(&out[i], v);
+      s_cnt[i] = 0;
+    }
   }
 }
 

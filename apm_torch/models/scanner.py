@@ -5,6 +5,8 @@ A :class:`Scanner` owns the pattern tables, plans a scan with
 stages the corpus into overlapping rows chunk by chunk, launches the
 kernels of every chunk without synchronising, fetches all per-chunk counts
 once, and adds the EOF-truncated tail windows counted on the host.
+:meth:`Scanner.count_batch` does the same for many corpora in one staging
+space, and :meth:`Scanner.find` returns match positions.
 """
 
 from __future__ import annotations
@@ -100,6 +102,11 @@ class Scanner:
         # The last scan's filtration outcome (pipeline.finalize_filtration):
         # route taken, full hot rows, hot-row bucket; None without phase 2.
         self.last_filtration: Optional[dict] = None
+        # The last find's device branches, per path ("filter", "dense"):
+        # counts of batches resolved from per-row positions ("rows"), from
+        # the packed mask ("bits"), of gpos decodes ("gpos") and of gather
+        # batches ("gather").
+        self.last_find: Dict[str, Dict[str, int]] = {}
         self.meter = Meter()
 
     # -- configuration --------------------------------------------------------
@@ -361,26 +368,11 @@ class Scanner:
         conv (97 < m_max <= 512 under ``engine='auto'``) go to the banded
         DP, which counts them exactly. Routes, not fallbacks on failure.
         """
-        from ..ops.corr_fused import fused_eligible, fused_pieces_ok
+        from ..ops.corr_fused import fused_pieces_ok
 
         if plan.use_corr:
-            impl = self.config.corr_impl
-            if impl == "conv":
-                raise NotImplementedError(
-                    f"corr_impl='conv' (the XLA correlation conv) is {_ROADMAP} #5"
-                )
-            if fused_eligible(self.m_max, plan.wf, plan.halo):
+            if self._corr_route(plan.wf, plan.halo):
                 return True, tuple(0 for _ in plan.plens_corr)
-            if impl == "fused":
-                raise ValueError(
-                    "corr_impl='fused' requires m_max <= 97 and 128-aligned "
-                    "staging (apm_torch.ops.corr_fused.fused_eligible)"
-                )
-            if self.config.engine == "corr":
-                raise NotImplementedError(
-                    "engine='corr' with 97 < m_max <= 512 runs apm's XLA "
-                    f"correlation conv, which is {_ROADMAP} #5"
-                )
             return False, plan.plens_corr
         if (
             plan.fp1_conv
@@ -393,6 +385,33 @@ class Scanner:
                 "(ROADMAP.md, 'Queue 2' #7); corr_impl='auto' runs the piece conv"
             )
         return False, plan.plens_dp
+
+    def _corr_route(self, wf: int, halo: int) -> bool:
+        """Route of a k = 0 correlation set (``count`` and ``count_batch``):
+        True when the fused correlation kernel (kernel B, or its batch mode)
+        takes it under ``apm``'s fused gate; False for the temporary route
+        to the banded DP (97 < m_max <= 512 under ``engine="auto"``); raises
+        where ``apm`` would run its unported XLA conv or refuses."""
+        from ..ops.corr_fused import fused_eligible
+
+        impl = self.config.corr_impl
+        if impl == "conv":
+            raise NotImplementedError(
+                f"corr_impl='conv' (the XLA correlation conv) is {_ROADMAP} #5"
+            )
+        if fused_eligible(self.m_max, wf, halo):
+            return True
+        if impl == "fused":
+            raise ValueError(
+                "corr_impl='fused' requires m_max <= 97 and 128-aligned "
+                "staging (apm_torch.ops.corr_fused.fused_eligible)"
+            )
+        if self.config.engine == "corr":
+            raise NotImplementedError(
+                "engine='corr' with 97 < m_max <= 512 runs apm's XLA "
+                f"correlation conv, which is {_ROADMAP} #5"
+            )
+        return False
 
     def _peq_for(self, plens: tuple) -> Optional[torch.Tensor]:
         """The device PEQ table when a DP scan of ``plens`` runs in Myers
@@ -431,13 +450,21 @@ class Scanner:
         buffer until the copy has run). ``spans`` times the two steps as
         ``tag + "fold"`` and ``tag + "copy"``."""
         with spans.host(tag + "fold"):
-            if self.device.type == "cuda":
-                host = torch.empty((n_rows, wf + halo), dtype=torch.uint8, pin_memory=True)
-                fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
-            else:
-                host = torch.from_numpy(fold_corpus(buf, c0, n_rows, wf, halo))
+            host = self._host_rows(n_rows, wf + halo)
+            fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
         with spans.device(tag + "copy"):
-            return host.to(self.device, non_blocking=self.device.type == "cuda")
+            return self._to_device(host)
+
+    def _host_rows(self, n_rows: int, width: int) -> torch.Tensor:
+        """Host staging rows, page-locked on a CUDA device."""
+        pin = self.device.type == "cuda"
+        return torch.empty((n_rows, width), dtype=torch.uint8, pin_memory=pin)
+
+    def _to_device(self, host: torch.Tensor) -> torch.Tensor:
+        """Copy host rows or vectors to the device: asynchronous on the
+        current stream on a CUDA device (the caching host allocator keeps a
+        page-locked buffer until the copy has run)."""
+        return host.to(self.device, non_blocking=self.device.type == "cuda")
 
     def _count_device(self, buf: np.ndarray, n: int) -> np.ndarray:
         """Chunked single-device scan (port of ``apm``'s ``_count_pallas``);
@@ -631,6 +658,376 @@ class Scanner:
         if self.config.verbose:
             info(stats.line())
         return expanded
+
+    def count_batch(self, corpora: Sequence[Bytes]) -> np.ndarray:
+        """Counts of many corpora: ``(B, P)`` int64, exactly
+        ``np.stack([count(c) for c in corpora])`` (port of ``apm``'s
+        ``Scanner.count_batch``).
+
+        Every corpus's device-owned windows are cut into blocks of ``w = 8
+        * wf`` windows in a shared staging space; a block's 8 staged rows
+        are folded from its own corpus only (the halo of a corpus's last
+        block is that corpus's zero padding) and carry the corpus's window
+        bound and the block's start. Each group of ``gmax`` blocks (from
+        ``config.batch_blocks`` and ``chunk_bytes``, a power of two) is one
+        staging copy and one launch: at k = 0 the batch mode of the fused
+        correlation kernel (per-row limits) where ``apm``'s fused gate
+        takes the set, else the batch mode of the banded DP (kernel A or
+        C). Every group is dispatched before one fetch of all per-block
+        counts; the EOF tails are counted on the host. Filtration stays
+        out, as in ``apm``. Under ``backend="torch"`` the same layout runs
+        on the plain versions.
+        """
+        from ..ops import corr_fused, dp_kernel
+        from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, corr_eligible
+        from .pipeline import _FOLD, check_dp_dtype
+
+        t0 = time.perf_counter()
+        bufs = [as_u8(c) for c in corpora]
+        n_batch = len(bufs)
+        out = np.zeros((n_batch, self.patterns.num_patterns), dtype=np.int64)
+        if n_batch == 0:
+            return out
+        check_dp_dtype(self.config.dp_dtype)
+        k, fold, engine = self.k, _FOLD, self.config.engine
+        w = round_up(self.block_windows_for(max(len(b) for b in bufs)), fold * 128)
+        wf = w // fold
+        halo = round_up(self.m_max + 2 * k, 128)
+        p_pad = self._pat.shape[0]
+        n_scan = self.scan_patterns.num_patterns
+
+        # (corpus, block, bound) work items in a shared staging space.
+        items, bounds = [], []
+        for b, buf in enumerate(bufs):
+            db = self.device_window_bound(len(buf))
+            bounds.append(db)
+            items.extend((b, blk, db) for blk in range(-(-db // w) if db > 0 else 0))
+
+        use_corr = (
+            k == 0
+            and engine in ("auto", "corr")
+            and corr_eligible(
+                self._plens_static, len(self._corr_alphabet()), self.m_max, 0,
+                auto=engine == "auto",
+            )
+        )
+        if engine == "corr" and not use_corr:
+            raise ValueError(
+                "engine='corr' requires k == 0, a pattern alphabet of <= "
+                f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
+            )
+        uniq = np.zeros((n_batch, p_pad), dtype=np.int64)
+        if items:
+            use_fused = use_corr and self._corr_route(wf, halo)
+            gmax = max(8, min(
+                len(items), self.config.batch_blocks or 128,
+                self.config.chunk_bytes // (fold * (wf + halo)),
+            ))
+            # a power of two, rounded down: never past either cap
+            gmax = max(8, 1 << (gmax.bit_length() - 1))
+            plain = self.backend == "torch"
+            tabs = self._device_tables(fused_needed=use_fused)
+            peq = None if use_fused else self._peq_for(self._plens_static)
+            row_in_blk = np.arange(fold, dtype=np.int64) * wf
+            handles = []  # (group, (gmax, p_pad) device counts)
+            for g0 in range(0, len(items), gmax):
+                group = items[g0 : g0 + gmax]
+                host = self._host_rows(gmax * fold, wf + halo)
+                rows_np = host.numpy()
+                meta = np.zeros((gmax, 2), dtype=np.int32)
+                limits = np.zeros((gmax * fold,), dtype=np.int32)
+                for slot, (b, blk, db) in enumerate(group):
+                    sl = slice(slot * fold, (slot + 1) * fold)
+                    fold_corpus(bufs[b], blk * w, fold, wf, halo, out=rows_np[sl])
+                    meta[slot] = (db, blk * w)  # bound, start (per-corpus space)
+                    limits[sl] = np.clip(db - blk * w - row_in_blk, 0, wf)
+                rows_np[len(group) * fold :] = 0  # padding blocks, bound 0
+                drows = self._to_device(host)
+                if use_fused:
+                    cnts = corr_fused.scan_corr_batch_fused(
+                        drows, tabs["fused"], self._to_device(torch.from_numpy(limits)),
+                        wf=wf, halo=halo, fold=fold, p_out=p_pad, plain=plain,
+                    )
+                else:
+                    cnts = dp_kernel.scan_folded_dp_batch(
+                        drows, tabs["pat"], self._to_device(torch.from_numpy(meta)),
+                        k=k, m_max=self.m_max, wf=wf, halo=halo,
+                        plens=self._plens_static, alphabet=self._dp_alphabet(),
+                        dp_impl=self.config.dp_impl, peq=peq, plain=plain,
+                    )
+                handles.append((group, cnts[:, :p_pad]))
+            # ONE device-to-host fetch for every group's counts.
+            allc = torch.stack([c for _, c in handles]).cpu().numpy()
+            for gi, (group, _) in enumerate(handles):
+                for slot, (b, _blk, _db) in enumerate(group):
+                    uniq[b] += allc[gi, slot]
+
+        for b, buf in enumerate(bufs):
+            uniq[b, :n_scan] += self.tail_counts(buf, bounds[b])
+        out[:] = uniq[:, :n_scan][:, self._inverse]
+        self.last_duration = time.perf_counter() - t0
+        return out
+
+    def find(self, corpus: Bytes, limit: Optional[int] = None) -> List[np.ndarray]:
+        """Match positions, not just counts (port of ``apm``'s
+        ``Scanner.find``).
+
+        Returns one int64 array per input pattern: the window starts ``j``
+        with ``lev(pattern, corpus[j:j+m]) <= k``, untruncated and
+        EOF-truncated windows alike (the semantics of :meth:`count`).
+        ``limit`` caps the positions per pattern.
+
+        Positions are resolved on the device per chunk and path
+        (:meth:`_find_device`): filtration-eligible patterns through kernel
+        D, hot-row compaction and the mask mode of the DP kernels
+        (``fused.find_positions_chunk``), the rest through a mask sweep of
+        every row (``fused.sweep_positions_chunk``). Only the (at most one
+        per chunk) row clipped by the window bound and the EOF tail run
+        the host oracle. Under ``backend="torch"`` the same layout runs on
+        the plain versions.
+        """
+        from ..ops.filter_kernel import partition_plens
+        from ..utils.oracle import banded_distances
+        from .pipeline import check_dp_dtype
+
+        t0 = time.perf_counter()
+        buf = as_u8(corpus)
+        n = len(buf)
+        k = self.k
+        nw = max(n - k, 0)
+        p_all = self.scan_patterns.num_patterns
+        uniq_positions = [np.zeros((0,), dtype=np.int64) for _ in range(p_all)]
+        self.last_find = {}
+        if nw > 0:
+            check_dp_dtype(self.config.dp_dtype)
+            # apm's kernel path partitions as engine "filter" whatever the
+            # configured engine: eligible patterns take kernel D.
+            fmask, plens_filter, plens_dp = partition_plens(self._plens_static, k, "filter")
+            dev_bound = self.device_window_bound(n)
+            dev_positions = {pi: [] for pi in range(p_all)}
+            clip_ranges = {"filter": [], "dense": []}
+            if dev_bound > 0:
+                self._find_device(
+                    buf, n, dev_bound, fmask, plens_filter, plens_dp,
+                    dev_positions, clip_ranges,
+                )
+            for pi, raw in enumerate(self.scan_patterns.raw):
+                pat = np.frombuffer(raw, np.uint8)
+                if dev_bound > 0:
+                    # device positions + clipped rows + the EOF tail
+                    ranges = list(clip_ranges["filter" if fmask[pi] else "dense"])
+                    if dev_bound < nw:
+                        ranges.append((dev_bound, nw))
+                else:
+                    ranges = [(0, nw)]  # corpus shorter than one window row
+                found = list(dev_positions[pi])
+                m = len(pat)
+                for j0, j1 in ranges:
+                    if j0 >= j1:
+                        continue
+                    # Untruncated ranges need m - 1 + k context bytes; a
+                    # range reaching the EOF tail keeps the true end, so the
+                    # truncation semantics apply.
+                    end = n if j1 > dev_bound else min(n, j1 + m - 1 + k)
+                    d = banded_distances(buf[j0:end], pat, k)
+                    found.append(np.nonzero(d[: j1 - j0] <= k)[0] + j0)
+                pos = (
+                    np.concatenate(found).astype(np.int64)
+                    if found else np.zeros((0,), dtype=np.int64)
+                )
+                # Segments come ascending and disjoint (chunks in order, rows
+                # ascending within a chunk, clipped rows and the EOF tail
+                # past all device windows), so the check is normally all the
+                # sorting there is.
+                if len(pos) > 1 and not np.all(pos[1:] > pos[:-1]):
+                    pos = np.unique(pos)
+                if limit is not None:
+                    pos = pos[:limit]
+                uniq_positions[pi] = pos
+        self.last_duration = time.perf_counter() - t0
+        return [uniq_positions[i] for i in self._inverse]
+
+    def _find_device(
+        self, buf, n, dev_bound, fmask, plens_filter, plens_dp,
+        dev_positions, clip_ranges,
+    ) -> None:
+        """:meth:`find`'s device part: appends per-pattern position arrays
+        to ``dev_positions`` and the windows of bound-clipped rows to
+        ``clip_ranges`` (per path).
+
+        Chunks are dispatched ahead of the fetches: each chunk's staged rows
+        go through every path without a host sync, and once more than
+        ``4 * len(paths)`` entries are pending, the older half is flushed
+        with ONE device-to-host fetch of every entry's ``(meta, pos)``. The
+        bits, ``gpos``, row map and gather-batch fetches stay lazy: each
+        happens only where a count read from ``meta`` asks for it.
+        ``fused.FIND_BATCH`` and ``fused.POS_CAP`` are read per call.
+        """
+        from ..ops import fused
+        from ..ops.filter_kernel import FOLD
+
+        find_batch, pos_cap = fused.FIND_BATCH, fused.POS_CAP
+        k = self.k
+        p_all = self.scan_patterns.num_patterns
+        w = round_up(self.block_windows_for(n), FOLD * 128)
+        wf = w // FOLD
+        halo = round_up(self.m_max + 2 * k, 128)
+        chunk_win = max(w, round_up(min(self.config.chunk_bytes, dev_bound), w))
+        n_rows = chunk_win // wf
+        tabs = self._device_tables(fused_needed=False)
+        dpat_raw, dpat = tabs["pat_raw"], tabs["pat"]
+        kw_common = dict(
+            k=k, m_max=self.m_max, wf=wf, halo=halo, p_real=p_all,
+            alphabet=self._dp_alphabet(), dp_impl=self.config.dp_impl,
+            peq=self._peq_for(self._plens_static), plain=self.backend == "torch",
+            pos_cap=pos_cap,
+        )
+        paths = []
+        if any(plens_filter):
+            paths.append(("filter", plens_filter, fmask))
+        if any(plens_dp):
+            paths.append(("dense", plens_dp, tuple(m > 0 for m in plens_dp)))
+        stats = {name: dict(rows=0, bits=0, gpos=0, gather=0) for name, _, _ in paths}
+        self.last_find = stats
+
+        def collect(bits_np, rows_np, c0, sel):
+            """Positions from a fetched bit-packed mask."""
+            for pi in range(p_all):
+                if not sel[pi]:
+                    continue
+                m01 = fused.unpack_mask_bits(bits_np, pi, len(rows_np))
+                hh, ll = np.nonzero(m01[:, :wf])
+                if len(hh):
+                    dev_positions[pi].append(c0 + rows_np[hh].astype(np.int64) * wf + ll)
+
+        def collect_rows(pos2, cnts, rows_np, c0, sel):
+            """Positions from per-row device compaction: ``pos2`` (nb, c)
+            flat indices into (p, wf), ``cnts`` exact per-row hit counts,
+            ``rows_np`` the rows' staging indices. Rows with cnt > c are
+            skipped (the caller routes them through the mask)."""
+            valid = (pos2 >= 0) & (cnts <= pos2.shape[1])[:, None]
+            b, _ = np.nonzero(valid)
+            if not len(b):
+                return
+            v = pos2[valid].astype(np.int64)
+            pis, ll = v // wf, v % wf
+            base = c0 + rows_np.astype(np.int64)[b] * wf + ll
+            for pi in range(p_all):
+                if sel[pi]:
+                    seg = base[pis == pi]
+                    if len(seg):
+                        dev_positions[pi].append(seg)
+
+        def collect_batch(name, pm, bits, rows_np, c0, sel):
+            """One mask batch: per-row positions, or the packed mask when
+            some row passed pos_cap (fetched only then)."""
+            cnts = pm[:find_batch]
+            pos2 = pm[find_batch:].reshape(find_batch, -1)
+            if int(cnts.max(initial=0)) > pos2.shape[1]:
+                stats[name]["bits"] += 1
+                collect(bits.cpu().numpy(), rows_np, c0, sel)
+            else:
+                stats[name]["rows"] += 1
+                rows_full = np.zeros(find_batch, dtype=np.int64)
+                rows_full[: len(rows_np)] = rows_np
+                collect_rows(pos2, cnts, rows_full, c0, sel)
+
+        def gather_batches(name, hot, drows, c0, sel, kw):
+            """Re-verify the full hot rows ``hot`` (ascending) in batches
+            of find_batch, all dispatched before one fetch."""
+            r_rows = drows.shape[0]
+            batches, handles = [], []
+            for b0 in range(0, len(hot), find_batch):
+                batch = hot[b0 : b0 + find_batch]
+                bidx = np.full(find_batch, r_rows, dtype=np.int64)
+                bidx[: len(batch)] = batch
+                batches.append(batch)
+                handles.append(fused.gather_mask_rows(
+                    drows, self._to_device(torch.from_numpy(bidx)), dpat, len(batch), **kw
+                ))
+            stats[name]["gather"] += len(batches)
+            pms = torch.stack([pm for pm, _ in handles]).cpu().numpy()
+            for batch, pm, (_, bits) in zip(batches, pms, handles):
+                collect_batch(name, pm, bits, batch, c0, sel)
+
+        def finish_path(name, plens, sel, drows, c0, mv, pos, gpos, bits, rowmap):
+            kw = dict(kw_common, plens=plens)
+            fcnt = mv[: len(plens)]
+            n_hot = int(mv[len(plens)])
+            i0 = len(plens) + 1
+            idx = mv[i0 : i0 + find_batch]
+            tailcnt = mv[i0 + find_batch : i0 + 2 * find_batch]
+            cs0 = i0 + 2 * find_batch
+            clip_starts = mv[cs0 : cs0 + fused.MAX_CLIP]
+            gcnt = mv[cs0 + fused.MAX_CLIP :]  # sweep path: per-row counts
+            clip_ranges[name].extend(
+                (int(cs), min(int(cs) + wf, dev_bound)) for cs in clip_starts if cs >= 0
+            )
+            if int(fcnt.sum()) == 0:
+                return
+            r_rows = drows.shape[0]
+            if gpos is not None and n_hot > find_batch:
+                # Dense sweep: ONE gpos fetch replaces the tail verdicts and
+                # every gather batch; only rows past pos_cap re-verify.
+                stats[name]["gpos"] += 1
+                gp = gpos.cpu().numpy()
+                collect_rows(gp, gcnt, np.arange(r_rows, dtype=np.int64), c0, sel)
+                over = np.nonzero(gcnt > gp.shape[1])[0]
+                if len(over):
+                    gather_batches(name, over, drows, c0, sel, kw)
+                return
+            n_first = min(n_hot, find_batch)
+            if n_first > 0:
+                if int(tailcnt.max(initial=0)) > pos_cap:
+                    stats[name]["bits"] += 1
+                    collect(bits.cpu().numpy(), idx[:n_first], c0, sel)
+                else:
+                    stats[name]["rows"] += 1
+                    rows_full = np.zeros(find_batch, dtype=np.int64)
+                    rows_full[:n_first] = idx[:n_first]
+                    collect_rows(pos, tailcnt, rows_full, c0, sel)
+            if n_hot > find_batch:
+                rm = rowmap.cpu().numpy()
+                hot = np.nonzero(rm.sum(axis=1) > 0)[0]
+                full = c0 + (hot + 1) * wf <= dev_bound
+                gather_batches(name, hot[full][find_batch:], drows, c0, sel, kw)
+
+        def flush(entries):
+            """ONE fetch of every entry's (meta, pos), then each entry's
+            host tail."""
+            if not entries:
+                return
+            parts = [t for e in entries for t in (e[5], e[6])]
+            flat = torch.cat([t.reshape(-1).to(torch.int64) for t in parts]).cpu().numpy()
+            off = 0
+            for e in entries:
+                mv = flat[off : off + e[5].numel()]
+                off += e[5].numel()
+                pos = flat[off : off + e[6].numel()].reshape(e[6].shape)
+                off += e[6].numel()
+                finish_path(*e[:5], mv, pos, *e[7:])
+
+        ahead = 4 * max(1, len(paths))
+        pending = []
+        for c0 in range(0, dev_bound, chunk_win):
+            drows = self._stage(buf, c0, n_rows, wf, halo)
+            for name, plens, sel in paths:
+                kw = dict(kw_common, plens=plens, n_batch=find_batch)
+                if name == "filter":
+                    meta, pos, bits, rowmap = fused.find_positions_chunk(
+                        drows, dpat_raw, dpat, dev_bound, c0, **kw
+                    )
+                    gpos = None
+                else:
+                    meta, pos, gpos, bits, rowmap = fused.sweep_positions_chunk(
+                        drows, dpat, dev_bound, c0, **kw
+                    )
+                pending.append((name, plens, sel, drows, c0, meta, pos, gpos, bits, rowmap))
+            if len(pending) > ahead:
+                half = max(1, len(pending) // 2)
+                flush(pending[:half])
+                del pending[:half]
+        flush(pending)
 
 
 def scan_counts(

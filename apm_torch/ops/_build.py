@@ -129,6 +129,23 @@ def library() -> ctypes.CDLL:
         p, p, i32, p,  # out, scratch, grid, stream
     ]
     lib.apm_dp_band_count.restype = i32
+    lib.apm_dp_band_batch.argtypes = [
+        p, i64, i64,  # rows, n_rows, row_stride
+        p, i32, i64, p,  # pat, n_pat, pat_stride, plens
+        i32, i32, i64,  # k, ke, wf
+        p, p, i64,  # meta, out, out_stride
+        p, i32, p,  # scratch, grid, stream
+    ]
+    lib.apm_dp_band_batch.restype = i32
+    lib.apm_dp_band_mask.argtypes = [
+        p, i64, i64,  # rows, n_rows, row_stride
+        p, i32, i64, p,  # pat, n_pat, pat_stride, plens
+        i32, i32,  # k, ke
+        i64, i64, p, i64,  # wf, bound, dbound, start
+        p, p, i64,  # out, mask, mask_stride
+        p, i32, p,  # scratch, grid, stream
+    ]
+    lib.apm_dp_band_mask.restype = i32
     lib.apm_dp_band_reg_max.argtypes = []
     lib.apm_dp_band_reg_max.restype = i32
     lib.apm_corr_fused_count.argtypes = [
@@ -138,13 +155,34 @@ def library() -> ctypes.CDLL:
         p, i32, p,  # out, grid, stream
     ]
     lib.apm_corr_fused_count.restype = i32
-    lib.apm_dp_myers_count.argtypes = [
+    lib.apm_corr_batch_count.argtypes = [
+        p, i64, i64,  # rows, n_staged, row_stride
+        p, i32, i64, p,  # pat, n_pat, pat_stride, plens
+        i64, p, i32,  # wf, limits, fold
+        p, i64, i32, p,  # out, out_stride, grid, stream
+    ]
+    lib.apm_corr_batch_count.restype = i32
+    myers_head = [
         p, i64, i64,  # rows, n_rows, row_stride
         p, i32, i32, i32, p, p,  # peq, n_pat, m_max, n_chan, alph, plens
-        i32, i64, i64, p, i64,  # k, wf, bound, dbound, start
+        i32, i64,  # k, wf
+    ]
+    lib.apm_dp_myers_count.argtypes = myers_head + [
+        i64, p, i64,  # bound, dbound, start
         p, i32, p,  # out, grid, stream
     ]
     lib.apm_dp_myers_count.restype = i32
+    lib.apm_dp_myers_batch.argtypes = myers_head + [
+        p, p, i64,  # meta, out, out_stride
+        i32, p,  # grid, stream
+    ]
+    lib.apm_dp_myers_batch.restype = i32
+    lib.apm_dp_myers_mask.argtypes = myers_head + [
+        i64, p, i64,  # bound, dbound, start
+        p, p, i64,  # out, mask, mask_stride
+        i32, p,  # grid, stream
+    ]
+    lib.apm_dp_myers_mask.restype = i32
     lib.apm_filter_pieces_count.argtypes = [
         p, i64, i64,  # rows, n_rows, row_stride
         p, i32, i64, i32,  # pchar, n_pat, pchar_stride, pad

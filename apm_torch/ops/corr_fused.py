@@ -18,6 +18,12 @@ version (:func:`scan_corr_fused_ref`) runs that TPU formulation itself:
 ownership, phase fold. The CUDA kernel (``csrc/corr_fused.cu``) compares
 bytes instead, from the pattern bytes :func:`decode_fused_tables` recovers
 from the same tables; the two compute the count two different ways.
+
+Batch mode (:func:`scan_corr_batch_fused`, ``apm``'s
+``scan_corr_batch_fused``, TPU kernel #8; ``Scanner.count_batch`` at
+k = 0): rows of many corpora, each row's ownership given as its owned
+lanes ``limits[r]`` (the caller resolves every corpus's bound), counts per
+block of ``fold`` rows, ``(R/fold, max(p, p_out))`` int32.
 """
 
 from __future__ import annotations
@@ -29,8 +35,9 @@ import torch
 
 from .corr_engine import _encode_planes, n_bitplanes
 
-# Kernel launches made by scan_corr_fused.
+# Kernel launches made by scan_corr_fused, and by scan_corr_batch_fused.
 LAUNCHES = 0
+BATCH_LAUNCHES = 0
 
 S_FUSED = 64
 M_MAX_FUSED = 97  # m + 32 - 1 <= 128: one 128-byte K-tile per phase
@@ -228,6 +235,12 @@ def scan_corr_fused(
     return _launch(rows, tables, int(bound), int(start), wf, n_rows, p_out)
 
 
+def _grid(dev, n_rows: int, wf: int) -> int:
+    n_tiles = n_rows * -(-wf // _TILE)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+
+
 def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
     global LAUNCHES
     from ._build import check, library
@@ -240,9 +253,7 @@ def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
     live_rows = min(n_rows, rows.shape[0])
     if live_rows == 0:
         return out
-    n_tiles = live_rows * -(-wf // _TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+    grid = _grid(dev, live_rows, wf)
     stream = torch.cuda.current_stream(dev).cuda_stream
     pat, plen = tables.pat, tables.plen
     for g0 in range(0, p, _PAT_GROUP):
@@ -257,6 +268,104 @@ def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
     return out
 
 
+def _check_limits(rows, limits, fold) -> None:
+    if fold <= 0 or rows.shape[0] % fold:
+        raise ValueError(f"batch rows {rows.shape[0]} are not a multiple of fold {fold}")
+    if (
+        not isinstance(limits, torch.Tensor) or tuple(limits.shape) != (rows.shape[0],)
+        or limits.dtype != torch.int32 or limits.device != rows.device
+    ):
+        raise ValueError(f"limits must be int32 ({rows.shape[0]},) on {rows.device}")
+
+
+def scan_corr_batch_fused(
+    rows: torch.Tensor,
+    tables: FusedTables,
+    limits: torch.Tensor,
+    *,
+    wf: int,
+    halo: int,
+    fold: int = 8,
+    p_out: int = 0,
+    plain: bool = False,
+) -> torch.Tensor:
+    """(R/fold, max(p, p_out)) int32 per-block exact-match counts of a batch
+    (module doc, batch mode). CUDA tensors go to the kernel's batch mode
+    (current stream, no synchronisation); CPU tensors, and any tensor under
+    ``plain=True``, to :func:`scan_corr_batch_fused_ref`."""
+    _check_rows(rows, wf, halo, rows.shape[0], tables)
+    _check_limits(rows, limits, fold)
+    if plain or rows.device.type == "cpu":
+        return scan_corr_batch_fused_ref(
+            rows, tables, limits, wf=wf, halo=halo, fold=fold, p_out=p_out
+        )
+    if rows.device.type != "cuda":
+        raise ValueError(f"no correlation kernel for device {rows.device}")
+    global BATCH_LAUNCHES
+    from ._build import check, library
+
+    lib = library()
+    dev = rows.device
+    rows = rows.contiguous()
+    p = tables.p
+    width = max(p, p_out)
+    out = torch.zeros((rows.shape[0] // fold, width), dtype=torch.int32, device=dev)
+    grid = _grid(dev, rows.shape[0], wf)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pat, plen = tables.pat, tables.plen
+    for g0 in range(0, p, _PAT_GROUP):
+        ng = min(_PAT_GROUP, p - g0)
+        err = lib.apm_corr_batch_count(
+            rows.data_ptr(), rows.shape[0], rows.shape[1],
+            pat[g0].data_ptr(), ng, pat.shape[1], plen[g0].data_ptr(),
+            wf, limits.data_ptr(), fold, out.data_ptr() + 4 * g0, width,
+            grid, stream,
+        )
+        check(err, "apm_corr_batch_count")
+        BATCH_LAUNCHES += 1
+    return out
+
+
+def _corr_row_counts(rows, tables, limit, wf) -> torch.Tensor:
+    """``(R, p)`` int64 exact-match counts per staged row and slot, row
+    ``r`` owning lanes ``[0, limit[r])``, by the TPU formulation.
+
+    Windows come in phase blocks of ``s_ph``: the block at ``base`` (a
+    multiple of ``s_ph``) reads the 128 text bytes ``[base, base + 128)``,
+    encoded into B ±1 planes, and one matmul against ``km`` scores all
+    ``s_ph * p`` (offset, pattern) columns; window ``base + s`` matches
+    pattern ``q`` iff column ``s*p + q`` reaches ``thr``. The phase offsets
+    fold back per pattern (``apm``'s ``batch_owner`` product, as a sum).
+    Exactness: both matmul operands are in {-1, 0, 1} and every partial
+    sum is an integer of magnitude <= B * 128 < 2**24, so the float32
+    matmul is exact under any float32 matmul precision (TF32 or bf16
+    inputs represent ±1 exactly, accumulation is float32).
+    """
+    dev = rows.device
+    s_ph, B, p = tables.s_ph, tables.b_planes, tables.p
+    km = tables.km.to(torch.float32)  # (B*128, s_ph*p)
+    thr = tables.thr.to(torch.float32).reshape(1, 1, -1)
+    nb = wf // s_ph  # phase blocks per row that hold owned windows
+    # Window offset of each column: s for column s*p + q.
+    s_col = torch.arange(s_ph * p, device=dev) // p
+    base = torch.arange(nb, device=dev) * s_ph  # (nb,)
+    j = base[None, :, None] + s_col[None, None, :]  # (1, nb, s_ph*p)
+    per_row = nb * max(B * 128, s_ph * p) * 4
+    g = max(1, _REF_GROUP_BYTES // per_row)
+    counts = []
+    for r0 in range(0, rows.shape[0], g):
+        rg = rows[r0 : r0 + g]
+        planes = _encode_planes(rg, tables.alph, B)  # (g, B, L)
+        # im2col: (g, B, nb, 128) -> (g*nb, B*128), plane-major like km.
+        lhs = planes.unfold(2, 128, s_ph)[:, :, :nb]
+        lhs = lhs.permute(0, 2, 1, 3).reshape(-1, B * 128)
+        corr = (lhs @ km).reshape(rg.shape[0], nb, -1)  # (g, nb, s_ph*p)
+        lim = limit[r0 : r0 + g].to(torch.int64)
+        match = (corr >= thr) & (j < lim[:, None, None])
+        counts.append(match.sum(dim=1).reshape(-1, s_ph, p).sum(dim=1))
+    return torch.cat(counts)
+
+
 def scan_corr_fused_ref(
     rows: torch.Tensor,
     tables: FusedTables,
@@ -268,45 +377,37 @@ def scan_corr_fused_ref(
     n_rows: int,
     p_out: int = 0,
 ) -> torch.Tensor:
-    """Plain PyTorch version of kernel B: the TPU formulation.
-
-    Windows come in phase blocks of ``s_ph``: the block at ``base`` (a
-    multiple of ``s_ph``) reads the 128 text bytes ``[base, base + 128)``,
-    encoded into B ±1 planes, and one matmul against ``km`` scores all
-    ``s_ph * p`` (offset, pattern) columns; window ``base + s`` matches
-    pattern ``q`` iff column ``s*p + q`` reaches ``thr``. Exactness: both
-    matmul operands are in {-1, 0, 1} and every partial sum is an integer
-    of magnitude <= B * 128 < 2**24, so the float32 matmul is exact under
-    any float32 matmul precision (TF32 or bf16 inputs represent ±1 exactly,
-    accumulation is float32).
-    """
+    """Plain PyTorch version of kernel B: the TPU formulation
+    (:func:`_corr_row_counts`), summed over the live rows."""
     _check_rows(rows, wf, halo, n_rows, tables)
     dev = rows.device
-    s_ph, B, p = tables.s_ph, tables.b_planes, tables.p
+    p = tables.p
     out = torch.zeros((max(p, p_out),), dtype=torch.int32, device=dev)
     live_rows = min(n_rows, rows.shape[0])
     if live_rows == 0:
         return out
-    km = tables.km.to(torch.float32)  # (B*128, s_ph*p)
-    thr = tables.thr.to(torch.float32).reshape(1, 1, -1)
-    nb = wf // s_ph  # phase blocks per row that hold owned windows
-    # Window offset of each column: s for column s*p + q.
-    s_col = torch.arange(s_ph * p, device=dev) // p
-    per_row = nb * max(B * 128, s_ph * p) * 4
-    g = max(1, _REF_GROUP_BYTES // per_row)
-    counts = torch.zeros((s_ph * p,), dtype=torch.int64, device=dev)
-    for r0 in range(0, live_rows, g):
-        rg = rows[r0 : min(r0 + g, live_rows)]
-        planes = _encode_planes(rg, tables.alph, B)  # (g, B, L)
-        # im2col: (g, B, nb, 128) -> (g*nb, B*128), plane-major like km.
-        lhs = planes.unfold(2, 128, s_ph)[:, :, :nb]
-        lhs = lhs.permute(0, 2, 1, 3).reshape(-1, B * 128)
-        corr = (lhs @ km).reshape(rg.shape[0], nb, -1)  # (g, nb, s_ph*p)
-        r = torch.arange(r0, r0 + rg.shape[0], device=dev, dtype=torch.int64)
-        limit = (bound - start - r * wf).clamp(0, wf)  # (g,)
-        base = torch.arange(nb, device=dev) * s_ph  # (nb,)
-        j = base[None, :, None] + s_col[None, None, :]  # (1, nb, s_ph*p)
-        match = (corr >= thr) & (j < limit[:, None, None])
-        counts += match.sum(dim=(0, 1))
-    out[:p] = counts.reshape(s_ph, p).sum(dim=0).to(torch.int32)
+    r = torch.arange(live_rows, device=dev, dtype=torch.int64)
+    limit = (bound - start - r * wf).clamp(0, wf)
+    out[:p] = _corr_row_counts(rows[:live_rows], tables, limit, wf).sum(dim=0).to(torch.int32)
+    return out
+
+
+def scan_corr_batch_fused_ref(
+    rows: torch.Tensor,
+    tables: FusedTables,
+    limits: torch.Tensor,
+    *,
+    wf: int,
+    halo: int,
+    fold: int = 8,
+    p_out: int = 0,
+) -> torch.Tensor:
+    """Plain PyTorch version of the batch mode: :func:`_corr_row_counts`
+    under the given row limits, summed per block of ``fold`` rows."""
+    _check_rows(rows, wf, halo, rows.shape[0], tables)
+    _check_limits(rows, limits, fold)
+    p = tables.p
+    out = torch.zeros((rows.shape[0] // fold, max(p, p_out)), dtype=torch.int32, device=rows.device)
+    per_row = _corr_row_counts(rows, tables, limits.clamp(0, wf), wf)
+    out[:, :p] = per_row.reshape(-1, fold, p).sum(dim=1).to(torch.int32)
     return out

@@ -1,5 +1,5 @@
 """Banded-DP window count: kernels A (band) and C (Myers) and their plain
-PyTorch versions.
+PyTorch versions, each in three modes.
 
 Port of ``apm/ops/pallas_kernel.py::scan_folded_pallas_unrolled`` in both of
 its modes (``_scan_folded_pallas_unrolled`` -> ``_scan_kernel_unrolled`` ->
@@ -13,15 +13,28 @@ here: staged rows ``(R, wf + halo)`` uint8 from
 nothing. ``bound`` is an int, or a 0-d integer tensor on the rows' device
 (phase-2 verification, whose bound is only known on the device).
 
+Two more modes share the kernels (``Scanner.count_batch`` and
+``Scanner.find``):
+
+* batch (:func:`scan_folded_dp_batch`, ``apm``'s ``_scan_folded_pallas_batch``,
+  TPU kernel #4): rows of many corpora, one ``[bound, start]`` pair per block
+  of :data:`FOLD` rows (``meta``, ``(R/8, 2)`` int32); window
+  ``meta[b, 1] + (r % 8)*wf + lane`` of row ``r`` in block ``b = r // 8``
+  counts iff it is below ``meta[b, 0]``. Returns ``(R/8, P)`` int32.
+* mask (:func:`scan_folded_dp_mask`, ``_scan_folded_pallas_mask``, TPU kernel
+  #6): the counts, and every window's verdict as ``(R, P, wf)`` uint8
+  (``apm``'s int8 mask after its transpose), 0 for padding patterns and
+  windows past the bound.
+
 The mode is ``apm``'s static dispatch (:func:`_myers_mode`): the
 bit-parallel band for 1 <= k <= 14 with a pattern alphabet of at most 8
 bytes and a PEQ table of at most 64 KB, under ``dp_impl="auto"`` only from
 ``k >= MYERS_KMIN_AUTO``. Both modes give the same counts.
 
-:func:`scan_folded_dp` launches kernel C (``csrc/dp_myers.cu``) or kernel A
-(``csrc/dp_band.cu``) for a CUDA tensor, as that dispatch decides, and
-runs the plain version of the chosen mode for a CPU tensor, or on any
-device when the caller asks for it (``plain=True``, the Scanner's
+The public functions launch kernel C (``csrc/dp_myers.cu``) or kernel A
+(``csrc/dp_band.cu``) for a CUDA tensor, as that dispatch decides, and run
+the plain version of the chosen mode for a CPU tensor, or on any device
+when the caller asks for it (``plain=True``, the Scanner's
 ``backend="torch"``).
 """
 
@@ -32,10 +45,13 @@ from typing import Sequence, Union
 import numpy as np
 import torch
 
-# Kernel launches made by scan_folded_dp (the counts a run reads to show
-# that its scans went through the kernels): kernel A, kernel C.
+# Kernel launches (the counts a run reads to show that its scans went
+# through the kernels): kernel A and kernel C in count mode, and the batch
+# and mask modes of either.
 LAUNCHES = 0
 MYERS_LAUNCHES = 0
+BATCH_LAUNCHES = 0
+MASK_LAUNCHES = 0
 
 # apm's Myers-mode constants (measured on its TPU; copied so both packages
 # pick the same mode — re-measuring them on the H100 is open work).
@@ -43,6 +59,8 @@ MYERS_KMIN_AUTO = 3
 MYERS_KMAX = 14  # band width 2k + 1 <= 29 bits
 MYERS_CMAX = 8  # alphabet channels
 MYERS_SMEM_MAX = 64 * 1024  # PEQ table budget (bytes)
+
+FOLD = 8  # rows per block of the batch mode (apm's int32 fold)
 
 # Patterns per launch: bounds the kernel's shared per-pattern counters to
 # 32 KB, under the default dynamic shared-memory limit.
@@ -127,6 +145,20 @@ def _check_args(rows, pat, bound, k, m_max, wf, halo, plens) -> None:
         )
 
 
+def _check_meta(rows, meta) -> None:
+    want = (rows.shape[0] // FOLD, 2)
+    if rows.shape[0] % FOLD:
+        raise ValueError(f"batch rows {rows.shape[0]} are not a multiple of {FOLD}")
+    if (
+        not isinstance(meta, torch.Tensor) or tuple(meta.shape) != want
+        or meta.dtype != torch.int32 or meta.device != rows.device
+    ):
+        raise ValueError(
+            f"meta must be int32 {want} on {rows.device}, got "
+            f"{getattr(meta, 'dtype', type(meta))} {tuple(getattr(meta, 'shape', ()))}"
+        )
+
+
 def _is_myers(k, m_max, plens, alphabet, dp_impl) -> bool:
     return _myers_mode(k, tuple(alphabet), "int32", dp_impl, len(plens), m_max)
 
@@ -140,6 +172,34 @@ def _peq_tensor(pat, peq, k, m_max, alphabet) -> torch.Tensor:
     if tuple(peq.shape) != want or peq.dtype != torch.int32:
         raise ValueError(f"peq must be int32 {want}, got {peq.dtype} {tuple(peq.shape)}")
     return peq.to(pat.device).contiguous()
+
+
+def _dispatch(rows, pat, bound, start, meta, mask, *, k, m_max, wf, halo, plens,
+              alphabet, dp_impl, peq, plain):
+    """Shared dispatch of the three modes: one mode decision, then kernel C
+    or A for a CUDA tensor, else the plain version of that mode."""
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+    if meta is not None:
+        _check_meta(rows, meta)
+    myers = _is_myers(k, m_max, plens, alphabet, dp_impl)
+    if plain or rows.device.type == "cpu":
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+        mode = dict(alphabet=alphabet, dp_impl=dp_impl, peq=peq)
+        if meta is not None:
+            return scan_folded_dp_batch_ref(rows, pat, meta, **mode, **kw)
+        if mask:
+            return scan_folded_dp_mask_ref(rows, pat, bound, start, **mode, **kw)
+        if myers:
+            return scan_folded_myers_ref(rows, pat, bound, start, alphabet=alphabet, peq=peq, **kw)
+        return scan_folded_dp_ref(rows, pat, bound, start, **kw)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no banded-DP kernel for device {rows.device}")
+    if myers:
+        peq = _peq_tensor(pat, peq, k, m_max, alphabet)
+        return _launch_myers(rows, peq, bound, int(start), k, m_max, wf, plens,
+                             alphabet, meta, mask)
+    return _launch(rows, pat, bound, int(start), k, m_max, wf, plens, meta, mask)
 
 
 def scan_folded_dp(
@@ -166,22 +226,55 @@ def scan_folded_dp(
     is the Myers-mode table (:func:`build_peq`), built from ``pat`` when
     not given.
     """
-    plens = tuple(int(m) for m in plens)
-    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
-    myers = _is_myers(k, m_max, plens, alphabet, dp_impl)
-    if plain or rows.device.type == "cpu":
-        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
-        if myers:
-            return scan_folded_myers_ref(
-                rows, pat, bound, start, alphabet=alphabet, peq=peq, **kw
-            )
-        return scan_folded_dp_ref(rows, pat, bound, start, **kw)
-    if rows.device.type != "cuda":
-        raise ValueError(f"no banded-DP kernel for device {rows.device}")
-    if myers:
-        peq = _peq_tensor(pat, peq, k, m_max, alphabet)
-        return _launch_myers(rows, peq, bound, int(start), k, m_max, wf, plens, alphabet)
-    return _launch(rows, pat, bound, int(start), k, m_max, wf, plens)
+    return _dispatch(rows, pat, bound, start, None, False, k=k, m_max=m_max,
+                     wf=wf, halo=halo, plens=plens, alphabet=alphabet,
+                     dp_impl=dp_impl, peq=peq, plain=plain)
+
+
+def scan_folded_dp_batch(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    meta: torch.Tensor,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+    alphabet: Sequence[int] = (),
+    dp_impl: str = "auto",
+    peq: torch.Tensor = None,
+    plain: bool = False,
+) -> torch.Tensor:
+    """(R/8, P) int32 per-block counts of a batch (module doc, batch mode):
+    the batch mode of kernel C or A, as :func:`scan_folded_dp` dispatches."""
+    return _dispatch(rows, pat, 0, 0, meta, False, k=k, m_max=m_max, wf=wf,
+                     halo=halo, plens=plens, alphabet=alphabet,
+                     dp_impl=dp_impl, peq=peq, plain=plain)
+
+
+def scan_folded_dp_mask(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    bound: Bound,
+    start: int,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+    alphabet: Sequence[int] = (),
+    dp_impl: str = "auto",
+    peq: torch.Tensor = None,
+    plain: bool = False,
+):
+    """``(counts (P,) int32, mask (R, P, wf) uint8)`` of this chunk (module
+    doc, mask mode): the mask mode of kernel C or A, as
+    :func:`scan_folded_dp` dispatches."""
+    return _dispatch(rows, pat, bound, start, None, True, k=k, m_max=m_max,
+                     wf=wf, halo=halo, plens=plens, alphabet=alphabet,
+                     dp_impl=dp_impl, peq=peq, plain=plain)
 
 
 def _bound_args(bound: Bound, dev):
@@ -198,70 +291,120 @@ def _grid(dev, n_rows: int, wf: int) -> int:
     return max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
 
 
-def _launch(rows, pat, bound, start, k, m_max, wf, plens) -> torch.Tensor:
-    global LAUNCHES
+def _outputs(rows, n_pat, wf, meta, mask):
+    """Zeroed counts ((P,), or (R/8, P) in batch mode) and, in mask mode,
+    the mask the kernel fills cell by cell."""
+    dev = rows.device
+    shape = (rows.shape[0] // FOLD, n_pat) if meta is not None else (n_pat,)
+    out = torch.zeros(shape, dtype=torch.int32, device=dev)
+    vmask = torch.empty((rows.shape[0], n_pat, wf), dtype=torch.uint8, device=dev) if mask else None
+    return out, vmask
+
+
+def _result(out, vmask, plens):
+    if vmask is None:
+        return out
+    if not any(plens):  # nothing launched
+        vmask.zero_()
+    return out, vmask
+
+
+def _launch(rows, pat, bound, start, k, m_max, wf, plens, meta=None, mask=False):
+    """Kernel A in count, batch (``meta``) or mask mode."""
+    global LAUNCHES, BATCH_LAUNCHES, MASK_LAUNCHES
     from ._build import check, library
 
     lib = library()
     dev = rows.device
     rows = rows.contiguous()
     pat = pat.contiguous()
-    n_pat = pat.shape[0]
-    out = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
+    n_rows, n_pat = rows.shape[0], pat.shape[0]
+    out, vmask = _outputs(rows, n_pat, wf, meta, mask)
     if not any(plens):
-        return out
+        return _result(out, vmask, plens)
     # Lengths travel with the launch; a pageable non-blocking copy stages
     # on the host and does not wait for the stream.
     dplen = torch.tensor(plens, dtype=torch.int32).to(dev, non_blocking=True)
     bval, bptr, _keep = _bound_args(bound, dev)
     ke = min(k, m_max)
-    grid = _grid(dev, rows.shape[0], wf)
+    grid = _grid(dev, n_rows, wf)
     scratch = None
     if ke > lib.apm_dp_band_reg_max():
         slab = (2 * ke + 1) * _TILE * 4
         grid = max(1, min(grid, _SCRATCH_BYTES // slab))
         scratch = torch.empty((grid * slab // 4,), dtype=torch.int32, device=dev)
+    sptr = scratch.data_ptr() if scratch is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (rows.data_ptr(), n_rows, rows.shape[1])
     for g0 in range(0, n_pat, _PAT_GROUP):
         ng = min(_PAT_GROUP, n_pat - g0)
-        if not any(plens[g0 : g0 + ng]):
+        # Mask mode launches every group: its verdicts are zeros too.
+        if not any(plens[g0 : g0 + ng]) and vmask is None:
             continue
-        err = lib.apm_dp_band_count(
-            rows.data_ptr(), rows.shape[0], rows.shape[1],
-            pat[g0].data_ptr(), ng, pat.shape[1], dplen[g0].data_ptr(),
-            k, ke, wf, bval, bptr, start,
-            out[g0].data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            grid, stream,
-        )
-        check(err, "apm_dp_band_count")
-        LAUNCHES += 1
-    return out
+        pats = (pat[g0].data_ptr(), ng, pat.shape[1], dplen[g0].data_ptr(), k, ke, wf)
+        if meta is not None:
+            err = lib.apm_dp_band_batch(
+                *head, *pats, meta.data_ptr(), out.data_ptr() + 4 * g0, n_pat,
+                sptr, grid, stream,
+            )
+            check(err, "apm_dp_band_batch")
+            BATCH_LAUNCHES += 1
+        elif vmask is not None:
+            err = lib.apm_dp_band_mask(
+                *head, *pats, bval, bptr, start, out[g0].data_ptr(),
+                vmask.data_ptr() + g0 * wf, n_pat * wf, sptr, grid, stream,
+            )
+            check(err, "apm_dp_band_mask")
+            MASK_LAUNCHES += 1
+        else:
+            err = lib.apm_dp_band_count(
+                *head, *pats, bval, bptr, start, out[g0].data_ptr(), sptr,
+                grid, stream,
+            )
+            check(err, "apm_dp_band_count")
+            LAUNCHES += 1
+    return _result(out, vmask, plens)
 
 
-def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet) -> torch.Tensor:
-    global MYERS_LAUNCHES
+def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet,
+                  meta=None, mask=False):
+    """Kernel C in count, batch (``meta``) or mask mode."""
+    global MYERS_LAUNCHES, BATCH_LAUNCHES, MASK_LAUNCHES
     from ._build import check, library
 
     lib = library()
     dev = rows.device
     rows = rows.contiguous()
     n_pat = len(plens)
-    out = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
+    out, vmask = _outputs(rows, n_pat, wf, meta, mask)
     if not any(plens):
-        return out
+        return _result(out, vmask, plens)
     dplen = torch.tensor(plens, dtype=torch.int32).to(dev, non_blocking=True)
     alph = torch.tensor(list(alphabet), dtype=torch.uint8).to(dev, non_blocking=True)
     bval, bptr, _keep = _bound_args(bound, dev)
-    err = lib.apm_dp_myers_count(
-        rows.data_ptr(), rows.shape[0], rows.shape[1],
-        peq.data_ptr(), n_pat, m_max, len(alphabet), alph.data_ptr(),
-        dplen.data_ptr(), k, wf, bval, bptr, start, out.data_ptr(),
-        _grid(dev, rows.shape[0], wf), torch.cuda.current_stream(dev).cuda_stream,
+    head = (
+        rows.data_ptr(), rows.shape[0], rows.shape[1], peq.data_ptr(), n_pat,
+        m_max, len(alphabet), alph.data_ptr(), dplen.data_ptr(), k, wf,
     )
-    check(err, "apm_dp_myers_count")
-    MYERS_LAUNCHES += 1
-    return out
+    tail = (_grid(dev, rows.shape[0], wf), torch.cuda.current_stream(dev).cuda_stream)
+    if meta is not None:
+        err = lib.apm_dp_myers_batch(*head, meta.data_ptr(), out.data_ptr(), n_pat, *tail)
+        check(err, "apm_dp_myers_batch")
+        BATCH_LAUNCHES += 1
+    elif vmask is not None:
+        err = lib.apm_dp_myers_mask(
+            *head, bval, bptr, start, out.data_ptr(), vmask.data_ptr(), n_pat * wf, *tail
+        )
+        check(err, "apm_dp_myers_mask")
+        MASK_LAUNCHES += 1
+    else:
+        err = lib.apm_dp_myers_count(*head, bval, bptr, start, out.data_ptr(), *tail)
+        check(err, "apm_dp_myers_count")
+        MYERS_LAUNCHES += 1
+    return _result(out, vmask, plens)
+
+
+# -- plain versions -----------------------------------------------------------
 
 
 def _valid(rows, bound, start, wf) -> torch.Tensor:
@@ -272,29 +415,38 @@ def _valid(rows, bound, start, wf) -> torch.Tensor:
     return (start + row[:, None] * wf + lane[None, :]) < bound
 
 
-def scan_folded_dp_ref(
-    rows: torch.Tensor,
-    pat: torch.Tensor,
-    bound: Bound,
-    start: int,
-    *,
-    k: int,
-    m_max: int,
-    wf: int,
-    halo: int,
-    plens: Sequence[int],
-) -> torch.Tensor:
-    """Plain PyTorch version of kernel A, on any device.
+def _valid_batch(meta, n_rows, wf) -> torch.Tensor:
+    """(R, wf) window ownership of the batch mode: row ``r`` of block
+    ``b = r // 8`` owns lane ``l`` iff ``meta[b, 1] + (r % 8)*wf + l <
+    meta[b, 0]``."""
+    dev = meta.device
+    m = meta.to(torch.int64).repeat_interleave(FOLD, dim=0)  # (R, 2)
+    sub = torch.arange(n_rows, device=dev, dtype=torch.int64) % FOLD
+    lane = torch.arange(wf, device=dev, dtype=torch.int64)
+    return (m[:, 1:2] + sub[:, None] * wf + lane[None, :]) < m[:, 0:1]
 
-    The clamped band of ``apm/ops/xla_engine.py::scan_block_xla``: one
-    step loop over ``x`` advancing every live pattern's ``2k + 1``
-    diagonals as ``(P_live, R, wf)`` int32 tensors, cells clamped at
-    ``k + 1``, ``D[m_p][m_p]`` captured at step ``x == m_p``.
-    """
-    plens = tuple(int(m) for m in plens)
-    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+
+def _reduce(hits, rows, bound, start, meta, mask, wf):
+    """The plain versions' outputs from the ``(P, R, wf)`` verdicts."""
+    if meta is not None:
+        hits = hits & _valid_batch(meta, rows.shape[0], wf)[None]
+        p, r = hits.shape[0], hits.shape[1]
+        return hits.reshape(p, r // FOLD, FOLD * wf).sum(dim=2).to(torch.int32).t().contiguous()
+    hits = hits & _valid(rows, bound, start, wf)[None]
+    counts = hits.sum(dim=(1, 2)).to(torch.int32)
+    if mask:
+        return counts, hits.permute(1, 0, 2).to(torch.uint8).contiguous()
+    return counts
+
+
+def _band_verdicts(rows, pat, *, k, wf, plens) -> torch.Tensor:
+    """Verdicts of the clamped band of ``apm/ops/xla_engine.py::
+    scan_block_xla``: one step loop over ``x`` advancing every live
+    pattern's ``2k + 1`` diagonals as ``(P_live, R, wf)`` int32 tensors,
+    cells clamped at ``k + 1``, ``D[m_p][m_p]`` captured at step
+    ``x == m_p``."""
     dev = rows.device
-    out = torch.zeros((len(plens),), dtype=torch.int32, device=dev)
+    out = torch.zeros((len(plens), rows.shape[0], wf), dtype=torch.bool, device=dev)
     live = [p for p, m in enumerate(plens) if m > 0]
     if not live:
         return out
@@ -330,36 +482,20 @@ def scan_folded_dp_ref(
         for i, m in enumerate(lens):
             if m == x:
                 res[i] = band[k][i]
-    hits = (res <= k) & _valid(rows, bound, start, wf)[None]
-    out[live] = hits.sum(dim=(1, 2)).to(torch.int32)
+    out[live] = res <= k
     return out
 
 
-def scan_folded_myers_ref(
-    rows: torch.Tensor,
-    pat: torch.Tensor,
-    bound: Bound,
-    start: int,
-    *,
-    k: int,
-    m_max: int,
-    wf: int,
-    halo: int,
-    plens: Sequence[int],
-    alphabet: Sequence[int],
-    peq: torch.Tensor = None,
-) -> torch.Tensor:
-    """Plain PyTorch version of kernel C, on any device: ``apm``'s
-    ``_myers_phases`` per pattern, ``VP``/``VN``/centre as ``(R, wf)``
-    int64 tensors. The match word of a step is the PEQ row's entry for the
-    text byte's alphabet channel (0 outside the alphabet)."""
-    plens = tuple(int(m) for m in plens)
-    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+def _myers_verdicts(rows, pat, *, k, m_max, wf, plens, alphabet, peq) -> torch.Tensor:
+    """Verdicts of ``apm``'s ``_myers_phases`` per pattern, ``VP``/``VN``/
+    centre as ``(R, wf)`` int64 tensors. The match word of a step is the
+    PEQ row's entry for the text byte's alphabet channel (0 outside the
+    alphabet)."""
     alphabet = tuple(int(a) for a in alphabet)
     if not alphabet or not 1 <= k <= MYERS_KMAX or k >= m_max:
         raise ValueError(f"Myers mode needs an alphabet and 1 <= k <= {MYERS_KMAX}, k < m_max")
     dev = rows.device
-    out = torch.zeros((len(plens),), dtype=torch.int32, device=dev)
+    out = torch.zeros((len(plens), rows.shape[0], wf), dtype=torch.bool, device=dev)
     if not any(plens):
         return out
     n_chan = len(alphabet)
@@ -372,7 +508,6 @@ def scan_folded_myers_ref(
     bw = 2 * k + 1
     mask = (1 << bw) - 1
     topbit = 1 << (bw - 1)
-    valid = _valid(rows, bound, start, wf)
 
     def step(vp, vn, cc, eq, cbit):
         xv = eq | vn
@@ -403,5 +538,83 @@ def scan_folded_myers_ref(
                 vn = vn >> 1
                 eq = peq[base + x - 1][chan[:, x - 1 : x - 1 + wf]]
                 vp, vn, cc = step(vp, vn, cc, eq, k)
-        out[p] = ((cc <= k) & valid).sum().to(torch.int32)
+        out[p] = cc <= k
     return out
+
+
+def scan_folded_dp_ref(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    bound: Bound,
+    start: int,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel A, on any device (the clamped band,
+    :func:`_band_verdicts`)."""
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+    hits = _band_verdicts(rows, pat, k=k, wf=wf, plens=plens)
+    return _reduce(hits, rows, bound, start, None, False, wf)
+
+
+def scan_folded_myers_ref(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    bound: Bound,
+    start: int,
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+    plens: Sequence[int],
+    alphabet: Sequence[int],
+    peq: torch.Tensor = None,
+) -> torch.Tensor:
+    """Plain PyTorch version of kernel C, on any device (the bit-parallel
+    band, :func:`_myers_verdicts`)."""
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+    hits = _myers_verdicts(rows, pat, k=k, m_max=m_max, wf=wf, plens=plens,
+                           alphabet=alphabet, peq=peq)
+    return _reduce(hits, rows, bound, start, None, False, wf)
+
+
+def _plain_verdicts(rows, pat, bound, *, k, m_max, wf, halo, plens, alphabet,
+                    dp_impl, peq):
+    """(P, R, wf) bool: every window's ``<= k`` verdict in the mode the
+    dispatch chooses (ownership not applied; False for padding patterns)."""
+    plens = tuple(int(m) for m in plens)
+    _check_args(rows, pat, bound, k, m_max, wf, halo, plens)
+    if _is_myers(k, m_max, plens, alphabet, dp_impl):
+        return _myers_verdicts(rows, pat, k=k, m_max=m_max, wf=wf, plens=plens,
+                               alphabet=alphabet, peq=peq)
+    return _band_verdicts(rows, pat, k=k, wf=wf, plens=plens)
+
+
+def scan_folded_dp_batch_ref(
+    rows, pat, meta, *, k, m_max, wf, halo, plens, alphabet=(),
+    dp_impl="auto", peq=None,
+) -> torch.Tensor:
+    """Plain version of the batch mode (:func:`scan_folded_dp_batch`'s
+    arguments), on any device, in the mode its dispatch chooses."""
+    _check_meta(rows, meta)
+    hits = _plain_verdicts(rows, pat, 0, k=k, m_max=m_max, wf=wf, halo=halo,
+                           plens=plens, alphabet=alphabet, dp_impl=dp_impl, peq=peq)
+    return _reduce(hits, rows, 0, 0, meta, False, wf)
+
+
+def scan_folded_dp_mask_ref(
+    rows, pat, bound, start, *, k, m_max, wf, halo, plens, alphabet=(),
+    dp_impl="auto", peq=None,
+):
+    """Plain version of the mask mode (:func:`scan_folded_dp_mask`'s
+    arguments), on any device, in the mode its dispatch chooses."""
+    hits = _plain_verdicts(rows, pat, bound, k=k, m_max=m_max, wf=wf, halo=halo,
+                           plens=plens, alphabet=alphabet, dp_impl=dp_impl, peq=peq)
+    return _reduce(hits, rows, bound, start, None, True, wf)

@@ -20,6 +20,16 @@ where the DP kernels read it.
 device (the Scanner's ``backend="torch"``); otherwise a CUDA tensor goes to
 the kernels and a CPU tensor to the plain versions. ``spans``
 (:class:`apm_torch.utils.profiling.Spans`) times phase 1 and phase 2.
+
+The second half holds ``Scanner.find``'s position helpers (``apm``'s
+``fused.py:425-776``): per chunk, phase 1 through kernel D
+(:func:`find_positions_chunk`) or a verdict-mask sweep of every row
+(:func:`sweep_positions_chunk`), then hot-row compaction and the mask mode
+of the DP kernels (:func:`apm_torch.ops.dp_kernel.scan_folded_dp_mask`),
+whose verdicts become per-row positions on the device
+(:func:`_row_topk_positions`) and a bit-packed mask
+(:func:`_pack_mask_bits`). Nothing there synchronises with the host
+either; ``Scanner.find`` fetches the small vectors of many chunks at once.
 """
 
 from __future__ import annotations
@@ -209,3 +219,189 @@ def unpack_chunk(packed, p: int):
         int(packed[2 * p]),
         packed[2 * p + 1 : 2 * p + 1 + MAX_CLIP],
     )
+
+
+# -- Scanner.find's position helpers --------------------------------------------
+
+# Hot rows verified per gather batch of Scanner.find's position path (the
+# bit-packed verdicts of a batch are FIND_BATCH * P * wf / 8 bytes).
+FIND_BATCH = 512
+
+# Per-row position cap: every verdict-mask row gets its first POS_CAP hit
+# positions extracted on the device, so the host fetches a few KB of
+# positions instead of the packed mask. A row with more hits than the cap
+# is incomplete, and its batch falls back to the packed mask.
+POS_CAP = 32
+
+# Device budget of the dense sweep's per-group transients: the group's
+# (g, P, wf) uint8 mask and the int32 keys of its per-row top-k, sized as
+# apm sizes its int32 mask (P * wf * 4 bytes per row).
+SWEEP_MASK_BYTES = 64 << 20
+
+
+def _row_topk_positions(mask: torch.Tensor, p_real: int, wf: int, c: int):
+    """Per-row top-k compaction of an ``(R, P, wf)`` verdict mask.
+
+    Returns ``(pos (R, c) int32, cnt (R,) int32)``: for each row, the first
+    ``c`` hit positions as ascending flat indices into ``(p_real, wf)``
+    (-1 padding), and the exact per-row hit count (a row with ``cnt > c``
+    is incomplete). The keys are ``apm``'s descending ``L - iota``, so the
+    largest ``c`` keys are the first ``c`` hits in order.
+    """
+    r = mask.shape[0]
+    flat = (mask[:, :p_real, :wf] != 0).reshape(r, -1)
+    L = flat.shape[1]
+    cc = min(c, L)
+    iota = torch.arange(L, dtype=torch.int32, device=mask.device)
+    keys = torch.where(flat, L - iota, torch.zeros_like(iota))
+    v = torch.topk(keys, cc, dim=1).values
+    pos = torch.where(v > 0, L - v, torch.full_like(v, -1)).to(torch.int32)
+    if cc < c:
+        pos = torch.nn.functional.pad(pos, (0, c - cc), value=-1)
+    return pos, flat.sum(dim=1, dtype=torch.int32)
+
+
+def _pack_mask_bits(mask: torch.Tensor, p_real: int) -> torch.Tensor:
+    """Bit-pack an ``(R, P, wf)`` verdict mask to ``(R, p_real, wf // 8)``
+    uint8: window ``j'`` of a row is bit ``j' % 8`` of byte ``j' // 8``.
+    Viewed as little-endian uint32 words, these are ``apm``'s ``(R,
+    p_real, wf // 32)`` uint32 words (bit ``j' % 32`` of word ``j' //
+    32``)."""
+    r, _, wf = mask.shape
+    bits = (mask[:, :p_real, :] != 0).to(torch.uint8).reshape(r, p_real, wf // 8, 8)
+    weights = torch.tensor([1 << b for b in range(8)], dtype=torch.uint8, device=mask.device)
+    return (bits * weights).sum(dim=-1).to(torch.uint8)
+
+
+def unpack_mask_bits(packed: np.ndarray, pi: int, n_rows: int) -> np.ndarray:
+    """Host-side inverse of :func:`_pack_mask_bits` for one pattern:
+    ``(n_rows, wf)`` uint8 0/1 verdicts (``packed`` as bytes, or ``apm``'s
+    uint32 words)."""
+    sub = np.ascontiguousarray(packed[:n_rows, pi, :])
+    return np.unpackbits(sub.view(np.uint8), bitorder="little").reshape(n_rows, -1)
+
+
+def _gather_fill(rows: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Rows ``idx`` of the staged chunk, zeros for indices ``>= R`` (the
+    compaction's padding): ``jnp.take(..., mode="fill", fill_value=0)``."""
+    r_rows = rows.shape[0]
+    stage = rows.index_select(0, idx.clamp(max=r_rows - 1))
+    return stage.masked_fill_((idx >= r_rows)[:, None], 0)
+
+
+def gather_mask_rows(
+    rows, idx, pat, n_real, *, k, m_max, wf, halo, plens, p_real, pos_cap,
+    alphabet=(), dp_impl="auto", peq=None, plain=False,
+):
+    """Re-verify the staged rows ``idx`` (``(n_batch,)`` on the device,
+    ``>= R`` for padding; ``n_real`` of them real) with the mask mode and
+    return ``(posmeta, bits)``: ``[cnt (n_batch) | pos (n_batch *
+    pos_cap)]`` (:func:`_row_topk_positions`) and the packed verdicts
+    (:func:`_pack_mask_bits`), both left on the device."""
+    stage = _gather_fill(rows, idx)
+    _, mask = dp_kernel.scan_folded_dp_mask(
+        stage, pat, int(n_real) * wf, 0, k=k, m_max=m_max, wf=wf, halo=halo,
+        plens=plens, alphabet=alphabet, dp_impl=dp_impl, peq=peq, plain=plain,
+    )
+    pos, cnt = _row_topk_positions(mask, p_real, wf, pos_cap)
+    return torch.cat([cnt, pos.reshape(-1)]), _pack_mask_bits(mask, p_real)
+
+
+def _positions_tail(
+    rows, fcnt, rowmap, pat, bound, start, *, k, m_max, wf, halo, plens,
+    p_real, n_batch, pos_cap, alphabet, dp_impl, peq, plain,
+):
+    """Shared position tail (``apm``'s ``_positions_tail``): compact the
+    first ``n_batch`` full hot rows out of the staged chunk, re-run them
+    through the mask mode, and return ``(meta, pos, bits, rowmap)`` with
+    ``meta = [fcnt (P) | n_hot | idx (n_batch) | cnt (n_batch) |
+    clip_starts (MAX_CLIP)]`` (int64).
+
+    ``apm`` packs the bits under a ``lax.cond`` only when some row passes
+    ``pos_cap``. A branch on a device value has no sync-free counterpart
+    here, so the bits are packed every time (one pass over the <= n_batch
+    * P * wf byte mask); the host fetches them only when it sees a count
+    past ``pos_cap``, as ``apm`` does."""
+    if n_batch % FOLD or n_batch <= 0:
+        raise ValueError(f"n_batch {n_batch} must be a positive multiple of {FOLD}")
+    r_rows = rows.shape[0]
+    hot, full = _hot_rows(rowmap, bound, start, wf)
+    use = hot & full
+    n_hot = use.sum()
+    idx = _compact(use, n_batch, r_rows)
+    vbound = torch.clamp(n_hot, max=n_batch) * wf
+    _, mask = dp_kernel.scan_folded_dp_mask(
+        _gather_fill(rows, idx), pat, vbound, 0, k=k, m_max=m_max, wf=wf,
+        halo=halo, plens=plens, alphabet=alphabet, dp_impl=dp_impl, peq=peq,
+        plain=plain,
+    )
+    clip_idx = _compact(hot & ~full, MAX_CLIP, -1)
+    clip_starts = torch.where(clip_idx >= 0, start + clip_idx * wf, -1)
+    pos, cnt = _row_topk_positions(mask, p_real, wf, pos_cap)
+    meta = torch.cat([
+        fcnt.to(torch.int64), n_hot.reshape(1).to(torch.int64), idx,
+        cnt.to(torch.int64), clip_starts,
+    ])
+    return meta, pos, _pack_mask_bits(mask, p_real), rowmap
+
+
+def find_positions_chunk(
+    rows, pat_raw, pat, bound, start, *, k, m_max, wf, halo, plens, p_real,
+    n_batch, pos_cap, alphabet=(), dp_impl="auto", peq=None, plain=False,
+):
+    """Positions of one staged chunk for filtration-eligible patterns
+    (``apm``'s ``find_positions_chunk``): kernel D's row map, then
+    :func:`_positions_tail`. Returns ``(meta, pos, bits, rowmap)``, all on
+    the device."""
+    fcnt, rowmap = filter_kernel.scan_filter(
+        rows, pat_raw, bound, start, k=k, m_max=m_max, wf=wf, halo=halo,
+        plens=plens, plain=plain,
+    )
+    return _positions_tail(
+        rows, fcnt, rowmap, pat, bound, start, k=k, m_max=m_max, wf=wf,
+        halo=halo, plens=plens, p_real=p_real, n_batch=n_batch,
+        pos_cap=pos_cap, alphabet=alphabet, dp_impl=dp_impl, peq=peq,
+        plain=plain,
+    )
+
+
+def sweep_positions_chunk(
+    rows, pat, bound, start, *, k, m_max, wf, halo, plens, p_real,
+    n_batch, pos_cap, alphabet=(), dp_impl="auto", peq=None, plain=False,
+):
+    """:func:`find_positions_chunk` for filtration-ineligible patterns
+    (``apm``'s ``sweep_positions_chunk``): the mask mode sweeps every
+    staged row, group by group (a Python loop over row groups sized from
+    :data:`SWEEP_MASK_BYTES`, with no host sync). Each group's mask gives
+    the per-row hit counts (the row map) and the first ``pos_cap``
+    positions of every full row (``gpos``, with its counts ``gcnt``).
+
+    Returns ``(meta, pos, gpos, bits, rowmap)``: the tail's ``meta`` with
+    ``gcnt (R)`` appended, and ``gpos (R, pos_cap)``."""
+    r_rows = rows.shape[0]
+    g_cap = max(FOLD, SWEEP_MASK_BYTES // max(pat.shape[0] * wf * 4, 1))
+    # Largest group <= g_cap that tiles the chunk (the chunk has a multiple
+    # of FOLD rows, so FOLD always does).
+    g = next(d for d in range(min(g_cap, r_rows), 0, -1) if r_rows % d == 0 and d % FOLD == 0)
+    dp = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens,
+              alphabet=alphabet, dp_impl=dp_impl, peq=peq, plain=plain)
+    rowcnt, gcnt, gpos = [], [], []
+    for g0 in range(0, r_rows, g):
+        _, mask = dp_kernel.scan_folded_dp_mask(
+            rows[g0 : g0 + g], pat, bound - start - g0 * wf, 0, **dp
+        )
+        rowcnt.append(mask.sum(dim=2, dtype=torch.int32))  # (g, P)
+        # Positions of full rows only (clipped rows resolve on the host).
+        ridx = torch.arange(g0, g0 + g, dtype=torch.int64, device=rows.device)
+        full = (start + (ridx + 1) * wf) <= bound
+        pos_g, cnt_g = _row_topk_positions(
+            mask.masked_fill_(~full[:, None, None], 0), p_real, wf, pos_cap
+        )
+        gcnt.append(cnt_g)
+        gpos.append(pos_g)
+    rowmap = torch.cat(rowcnt)
+    meta, pos, bits, rowmap = _positions_tail(
+        rows, rowmap.sum(dim=0), rowmap, pat, bound, start, p_real=p_real,
+        n_batch=n_batch, pos_cap=pos_cap, **dp,
+    )
+    return torch.cat([meta, torch.cat(gcnt).to(torch.int64)]), pos, torch.cat(gpos), bits, rowmap

@@ -58,11 +58,13 @@ class ApmConfig:
     # "band" (always the classic band), "myers" (Myers wherever it can).
     # Both give the same counts.
     dp_impl: str = "auto"
-    # apm's serving-surface knobs, accepted for config parity; the port has
-    # no device corpus cache, prewarm or count_batch yet (ROADMAP.md).
+    # apm's device corpus cache and prewarm knobs, accepted for config
+    # parity; the port has neither yet (ROADMAP.md).
     cache_corpus: bool = True
     cache_bytes: Optional[int] = None
     prewarm_bytes: Optional[int] = None
+    # Blocks of 8 staged rows per count_batch launch (None = 128), capped by
+    # chunk_bytes and rounded down to a power of two, at least 8.
     batch_blocks: Optional[int] = None
 
     def validate(self) -> "ApmConfig":

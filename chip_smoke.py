@@ -42,15 +42,33 @@ Phases, one line each; any failure exits non-zero:
    ``engine="dp"``, then a phase breakdown of the k = 3 and k = 8 cells
    (the Scanner's own spans, and the device's busy share from
    ``torch.profiler``);
-6. the CLI (``python -m apm_torch``) against lines built from the oracle.
+6. the CLI (``python -m apm_torch``) against lines built from the oracle;
+2c. kernel #4 (the batch mode of kernels A and C) against its plain version
+   on every 1024-row group of ``count_batch``'s staging of 40 mixed corpora
+   (64 KB to 4 MB), k = 1 (band), 3 and 12 (Myers);
+2d. kernel #6 (the mask mode of kernels A and C) against its plain version
+   at 512 rows (``FIND_BATCH``), k = 1 and 3, a mid-row bound: counts and
+   verdicts byte for byte; the bit pack and per-row top-k timed;
+3c. kernel #8 (the batch mode of kernel B) against its plain version on the
+   same kind of staging at P = 2, P = 64 (int8 tables) and m = 70, 80;
+7. ``Scanner.count_batch`` on 64 corpora of 0.5 to 8 MB, k = 0, 1 and 3,
+   gated by ``count`` on each corpus and the oracle; MB/s and corpora/s
+   beside the loop of ``count``;
+8. ``Scanner.find``: 256 MB k = 1 sparse (kernel D, then #6) and two 4 MB
+   dense cells of a 9-byte pattern at k = 2 (the mask sweep: the ``gpos``
+   decode on random text, the packed-mask fallback on all-A text), gated by
+   ``count``, a 1 MB oracle prefix and a 32 MB cut under the plain versions;
+9. the CLI with ``--positions`` against lines built from the oracle.
 
 The main path is the first ``Scanner.count`` of each end-to-end path of
-phases 4, 5 and 5b: every kernel launch counter is set to 0 just before it
+phases 4, 5 and 5b, and the first ``count_batch`` or ``find`` of each path
+of phases 7 and 8: every kernel launch counter is set to 0 just before it
 and read just after, and each path must have launched the kernels its
 route runs (gates, prefixes and timed repeats are not counted). The line
 before the last is a JSON object with each kernel's main-path launches,
-largest disagreement, and time beside its plain version's; the last line
-is the device record.
+largest disagreement, its time beside its plain version's and its bound
+(the larger of its bytes over the memory rate and its integer
+instructions over the issue rate); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -108,12 +126,119 @@ def host_exact_count(corpus: bytes, pat: bytes) -> int:
     return n
 
 
+# The least time the card could take for a kernel's work (``bound_ms``) is
+# the larger of its bytes over the H100's memory rate (3.35 TB/s) and its
+# integer instructions over the card's issue rate: each of an SM's four
+# schedulers issues one 32-lane instruction per clock, so 132 SMs x 128
+# lanes x 1.98 GHz boost clock (the float32 row of the card's table, 67
+# TFLOP/s, is the same issue rate at two flops per FMA). Integer work uses
+# both the INT32 pipe and the FMA pipe (nvcc emits IMAD forms of adds and
+# moves), so the INT32 pipe alone (64 lanes per SM) is not a ceiling. Both
+# rates are the published peaks of the SXM part at 700 W.
+HBM_BYTES_PER_S = 3.35e12
+INT_ISSUE_PER_S = 132 * 128 * 1.98e9
+
+# Instructions per unit of work, read from the kernels' SASS
+# (`cuobjdump -sass` of the sm_90a build, printed by phase 1 through
+# sass_loops; loads, address arithmetic and loop overhead included): kernel A's k = 1 step loop (dp_band.cu, KE = 1)
+# issues 80 instructions per 4 unrolled steps of 3 band cells; kernel C's
+# static and moving loops (dp_myers.cu) 103 and 125 per 4 unrolled steps.
+# The early-exit byte compares (corr_fused.cu, filter_pieces.cu) are
+# counted as 3 (load, compare, branch; the SASS loop issues 6.5 per compare
+# with its address arithmetic, so the bound stays below the true floor),
+# kernel D's shift OR per window and shift as 2 (a shared-memory load and
+# an or).
+BAND_K1_STEP_INSTR = 20
+MYERS_STATIC_STEP_INSTR = 103 / 4
+MYERS_MOVING_STEP_INSTR = 125 / 4
+COMPARE_OPS = 3
+SHIFT_OR_OPS = 2
+
+
+def band_k1_instr(owned: int, plens) -> int:
+    """Instructions of kernel A at k = 1 over ``owned`` windows."""
+    return owned * sum(plens) * BAND_K1_STEP_INSTR
+
+
+def myers_instr(owned: int, plens, k: int) -> int:
+    """Instructions of kernel C over ``owned`` windows: min(k, m) static
+    steps and m - k moving steps per pattern."""
+    per_window = sum(min(k, m) * MYERS_STATIC_STEP_INSTR + max(m - k, 0) * MYERS_MOVING_STEP_INSTR
+                     for m in plens if m)
+    return int(owned * per_window)
+
+
+def sass_loops(lib_path: str, kernel: str) -> str:
+    """Instruction counts of the innermost loops of ``kernel`` in the built
+    library's SASS (``cuobjdump -sass``), the source of the per-step counts
+    above: ``start-end: N instructions, L global and S shared loads`` for
+    each backward branch that encloses no other."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return "not measured (no cuobjdump)"
+    sass = subprocess.run([tool, "-sass", lib_path], capture_output=True, text=True, timeout=120).stdout
+    sec = next((x for x in sass.split("Function : ")[1:] if kernel in x.split("\n", 1)[0]), "")
+    ins = [(int(a, 16), op) for a, op in re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sec)]
+    loops = []
+    for i, (a, op) in enumerate(ins):
+        m = re.search(r"BRA\s+.*?0x([0-9a-f]+)", op)
+        if m and int(m.group(1), 16) < a:
+            loops.append((int(m.group(1), 16), a, i))
+    inner = [l for l in loops if not any(o != l and l[0] <= o[0] and o[1] <= l[1] for o in loops)]
+    out = []
+    for t, a, i in inner:
+        body = [op for b, op in ins[: i + 1] if b >= t]
+        out.append(f"{t:#x}-{a:#x}: {len(body)} instructions, "
+                   f"{sum('LDG' in op for op in body)} global and {sum('LDS' in op for op in body)} shared loads")
+    return "; ".join(out) or "no loop found"
+
+
+def bound_of(n_bytes: float, ops: float):
+    """``(bound_ms, bound_by)`` of work that moves ``n_bytes`` and issues
+    ``ops`` integer instructions."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT_ISSUE_PER_S
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def owned_lanes(n_rows, wf, bound, start=0):
+    """(R,) owned lanes of staged rows under a window bound, on the host."""
+    r = np.arange(n_rows, dtype=np.int64)
+    return np.clip(bound - start - r * wf, 0, wf)
+
+
+def compare_ops(rows, seqs, limits, wf) -> int:
+    """Integer operations of early-exit byte compares over the owned
+    windows of staged rows (the data decides where each exits): for each
+    ``(bytes, offset)`` in ``seqs``, a window at lane ``l`` compares
+    ``bytes`` with the text at ``l + offset`` until the first mismatch."""
+    import torch
+
+    dev = rows.device
+    lane = torch.arange(wf, device=dev)
+    own = lane[None, :] < torch.as_tensor(np.asarray(limits), device=dev)[:, None]
+    total = 0
+    for seq, off in seqs:
+        alive = own.clone()
+        for i, b in enumerate(seq):
+            n = int(alive.sum())
+            if n == 0:
+                break
+            total += n
+            alive &= rows[:, off + i : off + i + wf] == int(b)
+    return total * COMPARE_OPS
+
+
 class KernelRecord:
     def __init__(self, name, source, replaces):
         self.name, self.source, self.replaces = name, source, replaces
         self.max_abs_err = 0
         self.ms = None
         self.plain_ms = None
+        self.bound_ms = None
+        self.bound_by = None
 
     def compare(self, got, ref, what):
         import torch
@@ -121,14 +246,25 @@ class KernelRecord:
         need(got.shape == ref.shape, f"{self.name} {what}: shape {tuple(got.shape)} != {tuple(ref.shape)}")
         err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max().item())
         self.max_abs_err = max(self.max_abs_err, err)
-        need(err == 0, f"{self.name} {what}: kernel {got.tolist()} != plain {ref.tolist()}")
+        need(err == 0, f"{self.name} {what}: kernel != plain, {int((got != ref).sum())} cells differ")
+
+    def measured(self, ms, plain_ms, n_bytes, ops, what):
+        """Keep the times of the case the record reports, with its bound."""
+        self.ms, self.plain_ms = ms, plain_ms
+        self.bound_ms, self.bound_by = bound_of(n_bytes, ops)
+        say(f"  {self.name} record ({what}): {n_bytes} bytes, {ops} integer instructions, "
+            f"bound {self.bound_ms:.4f} ms by {self.bound_by}, kernel {ms:.3f} ms "
+            f"(roofline share {100 * self.bound_ms / ms:.1f} %)")
 
     def json(self, launches):
+        # No single PyTorch call computes a banded Levenshtein verdict or an
+        # exact-window count: library_ms stays null for every kernel here.
         return {
             "name": self.name, "route": "cuda", "source": self.source,
             "replaces": self.replaces, "launches": launches,
             "max_abs_err": self.max_abs_err, "ms": self.ms,
-            "plain_ms": self.plain_ms,
+            "plain_ms": self.plain_ms, "bound_ms": self.bound_ms,
+            "bound_by": self.bound_by, "library_ms": None,
         }
 
 
@@ -146,6 +282,9 @@ class MainPath:
             "corr_fused": (corr_fused, "LAUNCHES"),
             "dp_myers": (dp_kernel, "MYERS_LAUNCHES"),
             "filter_pieces": (filter_kernel, "LAUNCHES"),
+            "dp_batch": (dp_kernel, "BATCH_LAUNCHES"),
+            "dp_mask": (dp_kernel, "MASK_LAUNCHES"),
+            "corr_batch": (corr_fused, "BATCH_LAUNCHES"),
         }
         self.total = dict.fromkeys(self.counters, 0)
 
@@ -203,7 +342,7 @@ def phase_dp(rec, dev, n_rows: int = 4096) -> None:
     plant(corpus, p50, pos, k=1, seed=4)
     plant(corpus, p32, [p + 90 for p in pos], k=0)
 
-    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=2):
+    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=2, record=False):
         pat, _, plens, m_max = _pattern_table(pats, k)
         halo = round_up(m_max + 2 * k, 128)
         rows = staged(corpus, start_row, n, wf, halo, dev)
@@ -219,14 +358,16 @@ def phase_dp(rec, dev, n_rows: int = 4096) -> None:
         say(f"phase 2 kernel A {what}: equal, counts {got[:len(pats)].tolist()}, "
             f"kernel {ms:.3f} ms, plain {plain:.3f} ms")
         need(int(got.sum()) > 0, f"kernel A {what}: no matches at all")
-        return ms, plain
+        if record:
+            owned = int(owned_lanes(n, wf, bound, start).sum())
+            rec.measured(ms, plain, rows.numel() + pat.nbytes + 4 * len(plens),
+                         band_k1_instr(owned, plens), what)
 
     pair = [p32.tobytes(), p50.tobytes()]
     full = n_rows * wf - 50 + 1
     for k in (0, 1, 2, 3):
-        ms, plain = case(pair, k, n_rows, 0, full, f"P=2 m=32,50 k={k} R={n_rows}")
-        if k == 1:
-            rec.ms, rec.plain_ms = ms, plain  # phase 5's main-path shape
+        # k = 1 is phase 5's main-path shape
+        case(pair, k, n_rows, 0, full, f"P=2 m=32,50 k={k} R={n_rows}", record=k == 1)
     rng = np.random.default_rng(5)
     lens = [9, 17, 24, 33, 50, 64, 80, 97]
     mixed = [bytes(corpus[p : p + m]) for p, m in zip(rng.integers(0, n_rows * wf // 2, 8), lens)]
@@ -251,7 +392,7 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     rows_main = staged(corpus, 0, main_rows, wf, halo, dev)
     rows = rows_main[:n_rows]  # leading rows: a contiguous view
 
-    def case(pats, what, rows=rows, reps=5, plain_reps=2):
+    def case(pats, what, rows=rows, reps=5, plain_reps=2, record=False):
         n_rows = rows.shape[0]
         m_max = max(len(p) for p in pats)
         pat_raw = np.zeros((len(pats), m_max), np.uint8)
@@ -271,7 +412,10 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         plain = cuda_ms(lambda: corr_fused.scan_corr_fused_ref(rows, tabs, bound, 0, **kw), plain_reps)
         say(f"phase 3 kernel B {what} R={n_rows} ({km.dtype} tables, s_ph={tabs.s_ph}): equal, "
             f"total {int(got.sum())}, kernel {ms:.3f} ms, plain {plain:.3f} ms")
-        return ms, plain
+        if record:
+            limits = owned_lanes(n_rows, wf, bound)
+            rec.measured(ms, plain, rows.numel() + 4 * 8,
+                         compare_ops(rows, [(p, 0) for p in pats], limits, wf), what)
 
     def planted(pats):
         # plant each pattern into the staged rows' corpus copy on the card
@@ -286,7 +430,7 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     mid = [random_pattern(80, seed=200).tobytes(), random_pattern(70, seed=201).tobytes()]
     planted(pair + wide + mid)
     case(pair, "P=2 m=32,50")
-    rec.ms, rec.plain_ms = case(pair, "P=2 m=32,50", rows=rows_main)
+    case(pair, "P=2 m=32,50 (a 256 MB chunk)", rows=rows_main, record=True)
     case(wide, "P=64 m=50")
     case(mid, "P=2 m=70,80")
 
@@ -309,7 +453,7 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     for i, p in enumerate(six):
         plant(corpus, p, [q + 300 + 70 * i for q in pos], k=3, seed=75 + i)
 
-    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=1, timed=True):
+    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=1, timed=True, record=False):
         pat, _, plens, m_max = _pattern_table(pats, k)
         alph = tuple(sorted(set(b"".join(pats))))
         need(dp_kernel._myers_mode(k, alph, "int32", "myers", len(plens), m_max),
@@ -333,16 +477,18 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         say(f"phase 2b kernel C {what}: equal to plain and to kernel A, counts "
             f"{got[:len(pats)].tolist()}, kernel {ms:.3f} ms, kernel A {band_ms:.3f} ms, "
             f"plain {'%.3f ms' % plain_ms if timed else 'not timed'}")
-        return ms, plain_ms
+        if record:
+            owned = int(owned_lanes(n, wf, int(bound), start).sum())
+            rec.measured(ms, plain_ms, rows.numel() + peq.numel() * 4 + 4 * len(plens),
+                         myers_instr(owned, plens, k), what)
 
     pair = [p32.tobytes(), p50.tobytes()]
     six_b = [p.tobytes() for p in six]
     full = n_rows * wf - 50 + 1
     for k in (3, 4, 8, 12, 14):
         case(pair, k, n_rows, 0, full, f"P=2 m=32,50 k={k} R={n_rows}")
-        ms_plain = case(six_b, k, n_rows, 0, full, f"P=6 m=50 k={k} R={n_rows}")
-        if k == 12:
-            rec.ms, rec.plain_ms = ms_plain  # the k12_myers_dp cell's patterns
+        # k = 12 on six 50-mers: the k12_myers_dp cell's patterns
+        case(six_b, k, n_rows, 0, full, f"P=6 m=50 k={k} R={n_rows}", record=k == 12)
     mid = torch.tensor(3 * wf + (n_rows - 13) * wf + 4321, device=dev)
     case(pair, 5, n_rows - 8, 3, mid,
          f"P=2 k=5 R={n_rows - 8} start>0, mid-row bound in device memory")
@@ -371,7 +517,7 @@ def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
             plant(corpus, p, range(700 + 211 * i + 53 * si, len(corpus) - 300, 100_003),
                   k=pk, seed=100 + 10 * si + i)
 
-    def case(name, k, n, start_row, bound, what, reps=5, plain_reps=1):
+    def case(name, k, n, start_row, bound, what, reps=5, plain_reps=1, record=False):
         pats = [p.tobytes() for p in sets[name][0]]
         _, raw, plens, m_max = _pattern_table(pats, k)
         need(all(filter_kernel.filter_eligible(m, k) for m in plens if m),
@@ -394,17 +540,327 @@ def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         say(f"phase 3b kernel D {what} tiers {tiers}: fcnt and rowmap equal, fcnt "
             f"{fcnt[:len(pats)].tolist()}, hot rows {int((rowmap.sum(1) > 0).sum())}, "
             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        return ms, plain_ms
+        if record:  # exact-tier pieces: early-exit compares, then the shift ORs
+            seqs, spans = [], []
+            for pi, m in enumerate(plens):
+                if not m:
+                    continue
+                j, kp = filter_kernel.tier_of(m, k)
+                for idx, (o, li) in enumerate(filter_kernel.pieces_of_j(m, j)):
+                    s_lo, s_hi = filter_kernel.piece_shift_range(idx, j, o, li, m, k, kp)
+                    seqs.append((raw[pi, o : o + li], o + s_lo))
+                    spans.append(s_hi - s_lo + 1)
+            limits = owned_lanes(n, wf, bound, start)
+            ops = compare_ops(rows, seqs, limits, wf) + int(limits.sum()) * sum(spans) * SHIFT_OR_OPS
+            rec.measured(ms, plain_ms, rows.numel() + raw.nbytes + 4 * len(plens) * (1 + n), ops, what)
 
     full = n_rows * wf - 200
     case("short", 0, n_rows, 0, full, f"k=0 m=12,20 R={n_rows}")
     case("pair", 1, n_rows, 0, full, f"k=1 m=32,50 R={n_rows}")
-    rec.ms, rec.plain_ms = case("pair", 3, n_rows, 0, full, f"k=3 m=32,50 R={n_rows}")
+    case("pair", 3, n_rows, 0, full, f"k=3 m=32,50 R={n_rows}", record=True)
     case("120", 8, n_rows, 0, full, f"k=8 2x120 R={n_rows}")
     case("160", 16, n_rows - 8, 3, 3 * wf + (n_rows - 13) * wf + 4321,
          f"k=16 2x160 R={n_rows - 8} start>0 mid-row bound")
     case("pair", 3, main_rows, 0, main_rows * wf - 200,
          f"k=3 m=32,50 R={main_rows} (a 256 MB chunk)", reps=3)
+
+
+def batch_groups(corpora, w, wf, halo, bound, gmax=128):
+    """``Scanner.count_batch``'s staging of a batch, group by group:
+    ``(rows, meta, limits)`` NumPy arrays of ``gmax`` blocks of 8 rows, each
+    corpus's blocks folded from that corpus alone, padding blocks (bound 0)
+    last. ``bound(n)`` is a corpus's device window bound."""
+    from apm_torch.ops.common import fold_corpus
+
+    items = []
+    for c in corpora:
+        db = bound(len(c))
+        items.extend((c, blk, db) for blk in range(-(-db // w) if db > 0 else 0))
+    groups = []
+    for g0 in range(0, len(items), gmax):
+        rows = np.zeros((gmax * 8, wf + halo), np.uint8)
+        meta = np.zeros((gmax, 2), np.int32)
+        limits = np.zeros((gmax * 8,), np.int32)
+        for slot, (c, blk, db) in enumerate(items[g0 : g0 + gmax]):
+            rows[slot * 8 : (slot + 1) * 8] = fold_corpus(c, blk * w, 8, wf, halo)
+            meta[slot] = (db, blk * w)
+            limits[slot * 8 : (slot + 1) * 8] = np.clip(db - blk * w - np.arange(8) * wf, 0, wf)
+        groups.append((rows, meta, limits))
+    return groups
+
+
+def mixed_corpora(n, lo, hi, seed, plants=(), alphabet=b"ACGT\n"):
+    """``n`` corpora of seeded log-uniform lengths in [lo, hi) bytes, with
+    each ``(pattern, step, k)`` of ``plants`` planted every ``step`` bytes."""
+    from apm_torch.utils.corpus import plant, random_corpus
+
+    rng = np.random.default_rng(seed)
+    lens = np.exp(rng.uniform(np.log(lo), np.log(hi), n)).astype(np.int64)
+    out = []
+    for i, length in enumerate(lens):
+        c = random_corpus(int(length), seed=seed + 1 + i, alphabet=alphabet)
+        for j, (p, step, k) in enumerate(plants):
+            p = np.frombuffer(p, np.uint8)
+            plant(c, p, range(700 + 331 * j, len(c) - len(p) - 1, step), k=k, seed=seed + j)
+        out.append(c)
+    return out
+
+
+def phase_batch_dp(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int = 4 << 20) -> None:
+    """Kernel #4 (the batch mode of kernels A and C) against its plain
+    version, every group of ``count_batch``'s staging of 40 mixed corpora:
+    1024 staged rows (128 blocks) of 8192-window rows per group, the last
+    group ending in padding blocks."""
+    import torch
+
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import random_pattern
+
+    wf = 8192
+    pair = [random_pattern(32, seed=301).tobytes(), random_pattern(50, seed=302).tobytes()]
+    corpora = mixed_corpora(n_corpora, lo, hi, 303, [(pair[1], 40_000, 1), (pair[0], 90_000, 0)])
+    alph = tuple(sorted(set(b"".join(pair))))
+    for k in (1, 3, 12):
+        pat, _, plens, m_max = _pattern_table(pair, k)
+        halo = round_up(m_max + 2 * k, 128)
+        groups = batch_groups(corpora, 8 * wf, wf, halo,
+                              lambda n: max(0, min(n - m_max + 1, n - k)))
+        need(groups[-1][1][-1, 0] == 0, "phase 2c: the last group has no padding block")
+        dpat = torch.from_numpy(pat).to(dev)
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph)
+        mode = "myers" if dp_kernel._is_myers(k, m_max, plens, alph, "auto") else "band"
+        total = 0
+        for gi, (rows, meta, _) in enumerate(groups):
+            drows, dmeta = torch.from_numpy(rows).to(dev), torch.from_numpy(meta).to(dev)
+            got = dp_kernel.scan_folded_dp_batch(drows, dpat, dmeta, **kw)
+            ref = dp_kernel.scan_folded_dp_batch_ref(drows, dpat, dmeta, **kw)
+            torch.cuda.synchronize()
+            rec.compare(got, ref, f"k={k} group {gi}")
+            total += int(got.sum())
+        need(total >= len(corpora), f"phase 2c k={k}: plants missed ({total})")
+        rows, meta, limits = groups[0]
+        drows, dmeta = torch.from_numpy(rows).to(dev), torch.from_numpy(meta).to(dev)
+        ms = cuda_ms(lambda: dp_kernel.scan_folded_dp_batch(drows, dpat, dmeta, **kw), 5)
+        plain = cuda_ms(lambda: dp_kernel.scan_folded_dp_batch_ref(drows, dpat, dmeta, **kw), 1)
+        what = f"k={k} ({mode}) R={rows.shape[0]}, {len(corpora)} corpora"
+        say(f"phase 2c kernel #4 {what}: {len(groups)} groups equal, total {total}, "
+            f"first group kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        if k == 1:  # count_batch's k = 1 main path
+            owned = int(limits.sum())
+            rec.measured(ms, plain, rows.nbytes + meta.nbytes + pat.nbytes + 4 * meta.shape[0] * len(plens),
+                         band_k1_instr(owned, plens), what)
+
+
+def phase_mask(rec, dev, n_rows: int = 512) -> None:
+    """Kernel #6 (the mask mode of kernels A and C) against its plain
+    version at find's gather shape (FIND_BATCH rows), a mid-row bound;
+    counts and the (R, P, wf) verdicts byte for byte. Also times the bit
+    pack and the per-row top-k that follow it on find's path."""
+    import torch
+
+    from apm_torch.ops import dp_kernel, fused
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    wf = 8192
+    pair = [random_pattern(32, seed=311).tobytes(), random_pattern(50, seed=312).tobytes()]
+    corpus = random_corpus(n_rows * wf + 4096, seed=313)
+    plant(corpus, np.frombuffer(pair[1], np.uint8), range(900, len(corpus) - 100, 9_001), k=1, seed=314)
+    plant(corpus, np.frombuffer(pair[0], np.uint8), range(5000, len(corpus) - 100, 30_011), k=0)
+    alph = tuple(sorted(set(b"".join(pair))))
+    for k in (1, 3):
+        pat, _, plens, m_max = _pattern_table(pair, k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = staged(corpus, 0, n_rows, wf, halo, dev)
+        dpat = torch.from_numpy(pat).to(dev)
+        bound = (n_rows - 5) * wf + 4321
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph)
+        mode = "myers" if dp_kernel._is_myers(k, m_max, plens, alph, "auto") else "band"
+        counts, mask = dp_kernel.scan_folded_dp_mask(rows, dpat, bound, 0, **kw)
+        rc, rm = dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, 0, **kw)
+        torch.cuda.synchronize()
+        what = f"k={k} ({mode}) R={n_rows} mid-row bound"
+        rec.compare(counts, rc, what + " counts")
+        rec.compare(mask, rm, what + " mask")
+        need(int(mask.sum()) == int(counts.sum()) > 0, f"kernel #6 {what}: mask and counts disagree")
+        ms = cuda_ms(lambda: dp_kernel.scan_folded_dp_mask(rows, dpat, bound, 0, **kw), 5)
+        plain = cuda_ms(lambda: dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, 0, **kw), 1)
+        pack = cuda_ms(lambda: fused._pack_mask_bits(mask, len(pair)), 5)
+        topk = cuda_ms(lambda: fused._row_topk_positions(mask, len(pair), wf, fused.POS_CAP), 5)
+        say(f"phase 2d kernel #6 {what}: counts and {mask.numel()}-byte mask equal, counts "
+            f"{counts[:2].tolist()}, kernel {ms:.3f} ms, plain {plain:.3f} ms; then on find's "
+            f"path: bit pack {pack:.3f} ms, per-row top-{fused.POS_CAP} {topk:.3f} ms")
+        if k == 1:
+            owned = int(owned_lanes(n_rows, wf, bound).sum())
+            rec.measured(ms, plain, rows.numel() + pat.nbytes + 4 * len(plens) + mask.numel(),
+                         band_k1_instr(owned, plens), what)
+
+
+def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int = 4 << 20) -> None:
+    """Kernel #8 (the batch mode of kernel B) against its plain version on
+    every group of count_batch's staging of 40 mixed corpora (1024 rows per
+    group), at P = 2, P = 64 (int8 tables) and m = 70, 80 (32-phase
+    tables), row limits from each corpus's bound."""
+    import torch
+
+    from apm_torch.ops import corr_fused
+    from apm_torch.ops.corr_engine import build_alphabet
+    from apm_torch.utils.corpus import random_pattern
+
+    wf, halo = 8192, 128
+    pair = [random_pattern(32, seed=321).tobytes(), random_pattern(50, seed=322).tobytes()]
+    wide = [random_pattern(50, seed=330 + i).tobytes() for i in range(64)]
+    mid = [random_pattern(80, seed=323).tobytes(), random_pattern(70, seed=324).tobytes()]
+    plants = [(p, 200_003 + 1009 * i, 0) for i, p in enumerate(pair + wide[:6] + mid)]
+    corpora = mixed_corpora(n_corpora, lo, hi, 325, plants, alphabet=b"ACGT")
+    for pats, name in ((pair, "P=2 m=32,50"), (wide, "P=64 m=50"), (mid, "P=2 m=70,80")):
+        m_max = max(len(p) for p in pats)
+        pat_raw = np.zeros((len(pats), m_max), np.uint8)
+        for i, p in enumerate(pats):
+            pat_raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+        alph = build_alphabet(pats)
+        km, thr = corr_fused.build_fused_tables(pat_raw, [len(p) for p in pats], alph)
+        tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(m_max), dev)
+        groups = batch_groups(corpora, 8 * wf, wf, halo, lambda n: n - m_max + 1)
+        kw = dict(wf=wf, halo=halo, p_out=max(8, len(pats)))
+        total = 0
+        for gi, (rows, _, limits) in enumerate(groups):
+            drows, dlim = torch.from_numpy(rows).to(dev), torch.from_numpy(limits).to(dev)
+            got = corr_fused.scan_corr_batch_fused(drows, tabs, dlim, **kw)
+            ref = corr_fused.scan_corr_batch_fused_ref(drows, tabs, dlim, **kw)
+            torch.cuda.synchronize()
+            rec.compare(got, ref, f"{name} group {gi}")
+            total += int(got.sum())
+        need(total >= len(corpora), f"phase 3c {name}: plants missed ({total})")
+        rows, _, limits = groups[0]
+        drows, dlim = torch.from_numpy(rows).to(dev), torch.from_numpy(limits).to(dev)
+        ms = cuda_ms(lambda: corr_fused.scan_corr_batch_fused(drows, tabs, dlim, **kw), 5)
+        plain = cuda_ms(lambda: corr_fused.scan_corr_batch_fused_ref(drows, tabs, dlim, **kw), 2)
+        what = f"{name} R={rows.shape[0]}, {len(corpora)} corpora"
+        say(f"phase 3c kernel #8 {what} ({km.dtype} tables, s_ph={tabs.s_ph}): {len(groups)} "
+            f"groups equal, total {total}, first group kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        if pats is pair:  # count_batch's k = 0 main path
+            rec.measured(ms, plain, rows.nbytes + limits.nbytes + 4 * (rows.shape[0] // 8) * kw["p_out"],
+                         compare_ops(drows, [(p, 0) for p in pats], limits, wf), what)
+
+
+def phase_e2e_batch(main, dev, n_corpora: int = 64, lo: int = 1 << 19, hi: int = 8 << 20) -> None:
+    """Scanner.count_batch end to end on 64 corpora of 0.5 to 8 MB, the
+    reference-shaped set, k = 0, 1 and 3: each row equal to ``sc.count(c)``
+    on the same Scanner and, for up to three corpora under 1 MB, to the
+    oracle; MB/s and corpora/s beside the loop of ``count``."""
+    import apm_torch
+    from apm_torch.utils.corpus import random_pattern
+
+    p32, p50 = random_pattern(32, seed=341).tobytes(), random_pattern(50, seed=342).tobytes()
+    pats = [p32] + [p50] * 5
+    corpora = mixed_corpora(n_corpora, lo, hi, 343, [(p50, 1 << 18, 1), (p32, 1 << 19, 0)])
+    total = sum(len(c) for c in corpora)
+    small = sorted((c for c in corpora if len(c) < 1 << 20), key=len)[:3]
+    for k, expect in ((0, ["corr_batch"]), (1, ["dp_batch"]), (3, ["dp_batch"])):
+        sc = apm_torch.Scanner(pats, k, apm_torch.ApmConfig(device=str(dev)))
+        got = main.run(f"count_batch {n_corpora} corpora k={k}", expect, lambda: sc.count_batch(corpora))
+        t0 = time.perf_counter()
+        loop = np.stack([sc.count(c) for c in corpora])
+        loop_s = time.perf_counter() - t0
+        need(got.tolist() == loop.tolist(), f"count_batch k={k}: differs from the loop of count")
+        for c in small:
+            want = _dedup_oracle(c, pats, k)
+            need(sc.count_batch([c])[0].tolist() == want, f"count_batch k={k}: {len(c)} B != oracle")
+        secs = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            sc.count_batch(corpora)
+            secs.append(time.perf_counter() - t0)
+        batch_s = min(secs)
+        t0 = time.perf_counter()
+        for c in corpora:  # the host's share: count_batch's EOF tails alone
+            sc.tail_counts(c, sc.device_window_bound(len(c)))
+        tail_ms = (time.perf_counter() - t0) * 1e3
+        say(f"phase 7 count_batch k={k}, {n_corpora} corpora, {total / 1e6:.1f} MB: rows == count "
+            f"loop, {len(small)} corpora under 1 MB == oracle, counts of corpus 0 {got[0].tolist()}; "
+            f"count_batch {total / batch_s / 1e6:.1f} MB/s, {n_corpora / batch_s:.1f} corpora/s "
+            f"(best of 2, {batch_s * 1e3:.1f} ms, of which the {n_corpora} EOF tails on the host "
+            f"take {tail_ms:.1f} ms); loop of count {total / loop_s / 1e6:.1f} MB/s, "
+            f"{n_corpora / loop_s:.1f} corpora/s (one pass)")
+
+
+def _prefix_positions(c, pat, k, n):
+    """Oracle positions j < n of ``pat`` in corpus ``c`` (windows that end
+    before EOF: the prefix carries m - 1 + k context bytes)."""
+    from apm_torch.utils.oracle import banded_distances
+
+    d = banded_distances(c[: n + len(pat) - 1 + k], pat, k)
+    return np.nonzero(d[:n] <= k)[0].tolist()
+
+
+def phase_e2e_find(main, dev, mb: int = 256, dense_mb: int = 4, cut_mb: int = 32) -> None:
+    """Scanner.find end to end: a sparse cell (``mb`` MB, k = 1, the
+    reference-shaped set, one planted 50-mer per MB: kernel D, then #6) and
+    two dense cells (``dense_mb`` MB, one 9-byte pattern at k = 2, which
+    filtration cannot take: the mask sweep). Gates: per pattern as many
+    positions as ``count``, the positions of a 1 MB prefix equal to the
+    oracle's, and, on a ``cut_mb`` MB cut of the sparse cell, the kernels'
+    positions equal to the plain versions' on the card."""
+    import apm_torch
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    cfg = lambda **kw: apm_torch.ApmConfig(device=str(dev), **kw)
+
+    def gates(name, sc, c, pats, k, mbps_reps=2):
+        pos = sc.find(c)  # a repeat, as gated
+        counts = sc.count(c)
+        need([len(p) for p in pos] == counts.tolist(),
+             f"find {name}: {[len(p) for p in pos]} positions, count {counts.tolist()}")
+        n = min(len(c), 1 << 20)
+        for p, got in zip(pats, pos):
+            want = _prefix_positions(c, np.frombuffer(p, np.uint8), k, n)
+            need(got[got < n].tolist() == want, f"find {name}: 1 MB prefix != oracle")
+        secs = []
+        for _ in range(mbps_reps):
+            t0 = time.perf_counter()
+            sc.find(c)
+            secs.append(time.perf_counter() - t0)
+        return counts, len(c) / min(secs) / 1e6
+
+    size = mb << 20
+    p32, p50 = random_pattern(32, seed=351).tobytes(), random_pattern(50, seed=352).tobytes()
+    pats = [p32] + [p50] * 5
+    c = random_corpus(size, seed=353)
+    plant(c, np.frombuffer(p50, np.uint8), range(5000, size - 4096, 1 << 20), k=1, seed=354)
+    sc = apm_torch.Scanner(pats, 1, cfg())
+    main.run(f"find {mb} MB k=1 sparse", ["filter_pieces", "dp_mask"], lambda: sc.find(c))
+    route = sc.last_find
+    counts, mbps = gates(f"{mb} MB sparse", sc, c, pats, 1)
+    need(counts[1] >= mb - 2, f"find {mb} MB sparse: plants missed")
+    cut = c[: cut_mb << 20]
+    kern = sc.find(cut)
+    plain = apm_torch.Scanner(pats, 1, cfg(backend="torch")).find(cut)
+    need([p.tolist() for p in kern] == [p.tolist() for p in plain],
+         f"find {cut_mb} MB cut: kernels != plain versions")
+    say(f"phase 8 find {mb} MB k=1 sparse: positions == count {counts.tolist()}, 1 MB prefix == "
+        f"oracle, {cut_mb} MB cut == plain versions on the card; branches {route}; "
+        f"{mbps:.1f} MB/s (best of 2, host fold and copy included)")
+
+    nine = random_pattern(9, seed=355).tobytes()
+    cells = (
+        # random text: every 1024-window row holds a few hits and more rows
+        # are hot than FIND_BATCH: the gpos decode
+        ("random ACGT", random_corpus(dense_mb << 20, seed=356, alphabet=b"ACGT"), nine,
+         dict(block_windows=8192), "gpos"),
+        # every window matches: rows pass POS_CAP, the packed-mask fallback
+        ("all-A", np.full(dense_mb << 20, ord("A"), np.uint8), b"A" * 9, {}, "bits"),
+    )
+    for name, d, pat, extra, branch in cells:
+        sc = apm_torch.Scanner([pat], 2, cfg(**extra))
+        main.run(f"find {dense_mb} MB k=2 dense {name}", ["dp_mask"], lambda: sc.find(d))
+        route = sc.last_find
+        need(set(route) == {"dense"} and route["dense"][branch] > 0,
+             f"find dense {name}: branches {route}, expected {branch}")
+        counts, mbps = gates(f"{dense_mb} MB dense {name}", sc, d, [pat], 2)
+        say(f"phase 8 find {dense_mb} MB k=2 dense {name} (m = 9, the mask sweep): {counts[0]} "
+            f"positions == count, 1 MB prefix == oracle; branches {route}; {mbps:.1f} MB/s")
 
 
 def phase_e2e_k0(main, dev, mb: int = 256) -> None:
@@ -658,7 +1114,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
 
 def phase_cli(device: str = "cuda") -> None:
     from apm_torch.utils.corpus import plant, random_corpus, random_pattern
-    from apm_torch.utils.oracle import count_matches
+    from apm_torch.utils.oracle import banded_distances, count_matches
 
     c = random_corpus(200_000, seed=60)
     p1, p2 = random_pattern(40, seed=61), random_pattern(12, seed=62)
@@ -669,20 +1125,31 @@ def phase_cli(device: str = "cuda") -> None:
     try:
         with os.fdopen(fd, "wb") as f:
             f.write(c.tobytes())
-        r = subprocess.run(
-            [sys.executable, "-m", "apm_torch", "1", path, *pats, "--device", device],
-            capture_output=True, text=True, cwd=REPO, timeout=600,
-        )
+        runs = [
+            subprocess.run(
+                [sys.executable, "-m", "apm_torch", "1", path, *pats, "--device", device, *extra],
+                capture_output=True, text=True, cwd=REPO, timeout=600,
+            )
+            for extra in ((), ("--positions",))
+        ]
     finally:
         os.unlink(path)
-    need(r.returncode == 0, f"CLI exit {r.returncode}: {r.stderr[-2000:]}")
     counts = count_matches(c, [p.encode() for p in pats], 1)
     want = [
         f"Approximate Pattern Mathing: looking for 2 pattern(s) in file {path} w/ distance of 1"
     ] + [f"Number of matches for pattern <{p}>: {n}" for p, n in zip(pats, counts)]
-    got = [l for l in r.stdout.splitlines() if not l.startswith("APM done in ")]
-    need(got == want, f"CLI output {got} != {want}")
+    hits = [np.nonzero(banded_distances(c, p.encode(), 1) <= 1)[0] for p in pats]
+    with_pos = want + [
+        f"Match positions for pattern <{p}>:" + "".join(f" {int(j)}" for j in h)
+        for p, h in zip(pats, hits)
+    ]
+    for r, lines, phase in ((runs[0], want, "6"), (runs[1], with_pos, "9")):
+        need(r.returncode == 0, f"CLI exit {r.returncode}: {r.stderr[-2000:]}")
+        got = [l for l in r.stdout.splitlines() if not l.startswith("APM done in ")]
+        need(got == lines, f"CLI output {got} != {lines}")
     say(f"phase 6 CLI: output lines equal the oracle's, counts {counts}")
+    say(f"phase 9 CLI --positions: output lines equal the oracle's, "
+        f"{[len(h) for h in hits]} positions")
 
 
 def run(t_start: float) -> dict:
@@ -708,6 +1175,8 @@ def run(t_start: float) -> dict:
     say(f"phase 1 environment: torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
         f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
+    for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
+        say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
     dev = torch.device("cuda", 0)
 
     recs = {
@@ -719,10 +1188,19 @@ def run(t_start: float) -> dict:
                                  "apm/ops/pallas_kernel.py:593"),
         "filter_pieces": KernelRecord("filter_pieces", "apm_torch/csrc/filter_pieces.cu",
                                       "apm/ops/filter_kernel.py:350"),
+        "dp_batch": KernelRecord("dp_batch", "apm_torch/csrc/dp_band.cu",
+                                 "apm/ops/pallas_kernel.py:691"),
+        "dp_mask": KernelRecord("dp_mask", "apm_torch/csrc/dp_band.cu",
+                                "apm/ops/pallas_kernel.py:799"),
+        "corr_batch": KernelRecord("corr_batch", "apm_torch/csrc/corr_fused.cu",
+                                   "apm/ops/corr_fused.py:764"),
     }
     phase_dp(recs["dp_band"], dev)
     phase_myers(recs["dp_myers"], dev)
+    phase_batch_dp(recs["dp_batch"], dev)
+    phase_mask(recs["dp_mask"], dev)
     phase_corr(recs["corr_fused"], dev)
+    phase_corr_batch(recs["corr_batch"], dev)
     phase_filter(recs["filter_pieces"], dev)
 
     main = MainPath()
@@ -730,6 +1208,8 @@ def run(t_start: float) -> dict:
         phase_e2e_k0(main, dev, mb)
     phase_e2e_dp(main, dev)
     keep = phase_e2e_filter(main, dev)
+    phase_e2e_batch(main, dev)
+    phase_e2e_find(main, dev)
     launches = main.total
     need(all(v > 0 for v in launches.values()), f"a kernel never launched on the main path: {launches}")
     say(f"main path launches, all paths: {launches}")

@@ -43,6 +43,7 @@ def corpus_file(tmp_path_factory):
         ("1", "GATTACAGATT", "TTTTTT"),
         ("0", "GATTACA" * 16, "ACG", "DB_OVER_RANKS"),  # 112 chars: echo cut
         ("0", "GATTACA" * 16, "ACG", "DB_OVER_RANKS", "--no-truncate-echo"),
+        ("1", "GATTACAGATT", "TTTTTT", "GATTACAGATT", "--positions"),  # Scanner.find
     ],
 )
 def test_cli_output_matches_apm(corpus_file, args):

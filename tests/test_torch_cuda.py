@@ -199,3 +199,140 @@ def test_scanner_filtration_on_card_matches_oracle(dev, k):
     sc = apm_torch.Scanner(pats, k)
     assert sc.count(c).tolist() == count_matches(c, pats, k)
     assert filter_kernel.LAUNCHES > before[0] and dp_kernel.MYERS_LAUNCHES > before[1]
+
+
+def _batch_rows(corpora, w, wf, halo, n_slots, bound_of):
+    """count_batch's staging of a batch: rows, per-block meta, row limits."""
+    from apm_torch.ops.common import fold_corpus
+
+    rows = np.zeros((n_slots * 8, wf + halo), np.uint8)
+    meta = np.zeros((n_slots, 2), np.int32)
+    limits = np.zeros((n_slots * 8,), np.int32)
+    slot = 0
+    for c in corpora:
+        db = bound_of(len(c))
+        for blk in range(-(-db // w) if db > 0 else 0):
+            rows[slot * 8 : (slot + 1) * 8] = fold_corpus(c, blk * w, 8, wf, halo)
+            meta[slot] = (db, blk * w)
+            limits[slot * 8 : (slot + 1) * 8] = np.clip(db - blk * w - np.arange(8) * wf, 0, wf)
+            slot += 1
+    return rows, meta, limits
+
+
+@pytest.mark.parametrize("k,dp_impl", [(0, "band"), (1, "band"), (3, "myers"), (12, "myers"), (17, "band")])
+def test_dp_batch_kernel_matches_plain(dev, k, dp_impl):
+    # TPU kernel #4: the batch mode of kernels A and C
+    from apm_torch.ops import dp_kernel
+
+    wf = 1024
+    corpora = [_corpus(n, 90 + i) for i, n in enumerate([30_000, 500, 70_000, 9000])]
+    pats = [bytes(corpora[0][100:132]), bytes(corpora[2][5000:5050])]
+    for c in corpora:
+        c[200:250] = np.frombuffer(pats[1], np.uint8)
+    pat, _, plens, m_max, halo = _tables(pats, k)
+    rows, meta, _ = _batch_rows(corpora, 8 * wf, wf, halo, 20,
+                                lambda n: max(0, min(n - m_max + 1, n - k)))
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens,
+              alphabet=tuple(b"ACGT"), dp_impl=dp_impl)
+    args = (torch.from_numpy(rows).to(dev), torch.from_numpy(pat).to(dev),
+            torch.from_numpy(meta).to(dev))
+    before = dp_kernel.BATCH_LAUNCHES
+    got = dp_kernel.scan_folded_dp_batch(*args, **kw)
+    ref = dp_kernel.scan_folded_dp_batch_ref(*args, **kw)
+    assert dp_kernel.BATCH_LAUNCHES == before + 1
+    assert torch.equal(got, ref)
+    assert int(got.sum()) >= 4 and int(got[-1].sum()) == 0
+
+
+@pytest.mark.parametrize("k,dp_impl", [(0, "band"), (1, "band"), (3, "myers"), (8, "band")])
+def test_dp_mask_kernel_matches_plain(dev, k, dp_impl):
+    # TPU kernel #6: the mask mode of kernels A and C, a mid-row bound
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import fold_corpus
+
+    wf, n_rows = 1024, 40
+    corpus = _corpus(n_rows * wf + 512, 95 + k)
+    pats = [bytes(corpus[3000:3040]), bytes(corpus[7000:7012]), b"ACGTTGCAAC"]
+    pat, _, plens, m_max, halo = _tables(pats, k)
+    rows = torch.from_numpy(fold_corpus(corpus, wf, n_rows, wf, halo)).to(dev)
+    dpat = torch.from_numpy(pat).to(dev)
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens,
+              alphabet=tuple(b"ACGT"), dp_impl=dp_impl)
+    bound = wf + (n_rows - 4) * wf + 333
+    before = dp_kernel.MASK_LAUNCHES
+    counts, mask = dp_kernel.scan_folded_dp_mask(rows, dpat, bound, wf, **kw)
+    rc, rm = dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, wf, **kw)
+    assert dp_kernel.MASK_LAUNCHES == before + 1
+    assert torch.equal(counts, rc) and torch.equal(mask, rm)
+    assert int(counts.sum()) >= 2 and int(mask[n_rows - 3 :].sum()) == 0
+    dbound = torch.tensor(bound, device=dev)
+    c2, m2 = dp_kernel.scan_folded_dp_mask(rows, dpat, dbound, wf, **kw)
+    assert torch.equal(c2, rc) and torch.equal(m2, rm)
+
+
+@pytest.mark.parametrize("lengths", [[32, 50], [20] * 40, [70, 80]])
+def test_corr_batch_kernel_matches_plain(dev, lengths):
+    # TPU kernel #8: the batch mode of kernel B, per-row limits
+    from apm_torch.ops import corr_fused
+    from apm_torch.ops.corr_engine import build_alphabet
+
+    wf, halo = 1024, 128
+    pats = [bytes(_corpus(m, 50 + i)) for i, m in enumerate(lengths)]
+    corpora = [_corpus(n, 99 + i) for i, n in enumerate([40_000, 700, 20_000])]
+    for i, p in enumerate(pats):
+        c = corpora[i % 3]
+        at = (997 * i) % (len(c) - len(p))
+        c[at : at + len(p)] = np.frombuffer(p, np.uint8)
+    m_max = max(lengths)
+    pat_raw = np.zeros((len(pats), m_max), np.uint8)
+    for i, p in enumerate(pats):
+        pat_raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+    alph = build_alphabet(pats)
+    km, thr = corr_fused.build_fused_tables(pat_raw, lengths, alph)
+    tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(m_max), dev)
+    rows, _, limits = _batch_rows(corpora, 8 * wf, wf, halo, 12, lambda n: n - m_max + 1)
+    args = (torch.from_numpy(rows).to(dev), tabs, torch.from_numpy(limits).to(dev))
+    kw = dict(wf=wf, halo=halo, p_out=48)
+    before = corr_fused.BATCH_LAUNCHES
+    got = corr_fused.scan_corr_batch_fused(*args, **kw)
+    ref = corr_fused.scan_corr_batch_fused_ref(*args, **kw)
+    assert corr_fused.BATCH_LAUNCHES == before + 1
+    assert torch.equal(got, ref)
+    assert int(got.sum()) >= min(3, len(pats))  # plants may overwrite each other
+
+
+@pytest.mark.parametrize("k", [0, 1, 3])
+def test_count_batch_on_card_matches_oracle(dev, k):
+    import apm_torch
+    from apm_torch.ops import corr_fused, dp_kernel
+    from apm_torch.utils.oracle import count_matches
+
+    pats = [bytes(_corpus(50, 110)), bytes(_corpus(32, 111))]
+    corpora = [_corpus(n, 112 + i, b"ACGT\n") for i, n in enumerate([200_000, 30, 0, 70_000, 3000])]
+    for c in (corpora[0], corpora[3]):
+        c[1000:1050] = np.frombuffer(pats[0], np.uint8)
+    before = (corr_fused.BATCH_LAUNCHES, dp_kernel.BATCH_LAUNCHES)
+    sc = apm_torch.Scanner(pats + pats[:1], k, apm_torch.ApmConfig(batch_blocks=8))
+    got = sc.count_batch(corpora)
+    for b, c in enumerate(corpora):
+        assert got[b].tolist() == count_matches(c, pats + pats[:1], k)
+    after = (corr_fused.BATCH_LAUNCHES, dp_kernel.BATCH_LAUNCHES)
+    assert after[0 if k == 0 else 1] > before[0 if k == 0 else 1]
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_find_on_card_matches_oracle(dev, k):
+    import apm_torch
+    from apm_torch.ops import dp_kernel, filter_kernel
+    from apm_torch.utils.corpus import plant
+    from apm_torch.utils.oracle import banded_distances
+
+    c = _corpus(300_000, 120 + k, b"ACGT\n")
+    pats = [bytes(_corpus(50, 121)), bytes(_corpus(9, 122))]  # filter path, dense sweep
+    plant(c, np.frombuffer(pats[0], np.uint8), range(500, len(c) - 100, 7001), k=k, seed=k)
+    before = (filter_kernel.LAUNCHES, dp_kernel.MASK_LAUNCHES)
+    sc = apm_torch.Scanner(pats, k)
+    got = sc.find(c)
+    for pi, p in enumerate(pats):
+        assert got[pi].tolist() == np.nonzero(banded_distances(c, p, k) <= k)[0].tolist()
+    assert filter_kernel.LAUNCHES > before[0] and dp_kernel.MASK_LAUNCHES > before[1]

@@ -394,14 +394,18 @@ def test_load_tables_piece_tables_drive_conv_phase1():
 
 
 def test_port_imports_without_jax():
-    """The card's machine has no JAX: the port and chip_smoke.py import
-    with JAX made unimportable."""
+    """The card's machine has no JAX: every module of the port, and
+    chip_smoke.py, import with JAX made unimportable."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
-        "import apm_torch, apm_torch.cli, chip_smoke\n"
-        "import apm_torch.ops.dp_kernel, apm_torch.ops.corr_fused\n"
-        "import apm_torch.ops._build\n"
-        "assert 'apm' not in sys.modules, 'the port imported apm'\n"
+        "import importlib, pkgutil\n"
+        "import apm_torch, chip_smoke\n"
+        "names = [m.name for m in pkgutil.walk_packages(apm_torch.__path__, 'apm_torch.')\n"
+        "         if m.name != 'apm_torch.__main__']  # runs the CLI\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert {'apm_torch.ops.fused', 'apm_torch.models.scanner', 'apm_torch.cli'} <= set(names)\n"
+        "assert not [m for m in sys.modules if m == 'apm' or m.startswith('apm.')], 'the port imported apm'\n"
         "print('ok')\n"
     )
     r = subprocess.run(
