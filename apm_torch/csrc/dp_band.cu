@@ -45,6 +45,16 @@
 // Both modes stay bound by integer issue, as the count mode: the batch
 // mode's per-tile flush adds two barriers per 256 windows, the mask's
 // bytes are ~1/100 of the DP's work at find's 512-row batches.
+//
+// A third C entry (apm_dp_band_dyn) replaces apm/ops/pallas_kernel.py::
+// scan_folded_pallas (kernel body _scan_kernel), the band with dynamic
+// lengths: the count mode with the lengths, and optionally the bound and
+// start, read from device memory, so the host never learns them. The step
+// loop of each pattern still ends at its own length (m <= m_max is the
+// loop's bound); the TPU kernel runs every pattern for all of m_max steps
+// and captures D[m][m] at step m, which is the same verdict. A length
+// outside [1, m_max] counts nothing in every mode, as the TPU kernel's
+// capture never fires for it.
 #include "scan_common.cuh"
 
 namespace {
@@ -74,6 +84,7 @@ struct DpArgs {
   int64_t out_stride;   // batch mode: slot b of the counts at out + b*stride
   uint8_t* mask;        // mask mode: verdicts, row r at mask + r*mask_stride
   int64_t mask_stride;  // mask mode: bytes per staged row (P_total * wf)
+  const int64_t* dstart = nullptr;  // optional device-side start
 };
 
 // Verdict D[m][m] <= k with the band in registers. `txt` points at the
@@ -171,6 +182,8 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
   // Phase-2 verification passes its bound in device memory; blocks whose
   // tiles lie past it skip them at once.
   const int64_t bound = a.dbound != nullptr ? *a.dbound : a.bound;
+  const int64_t start = a.dstart != nullptr ? *a.dstart : a.start;
+  const int m_max = (int)(a.pat_stride - 2 * a.k);
   const int64_t tiles_per_row = (a.wf + kTile - 1) / kTile;
   const int64_t n_tiles = a.n_rows * tiles_per_row;
   int32_t* cell = nullptr;
@@ -183,7 +196,7 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
     const int64_t lane0 = (t - r * tiles_per_row) * kTile;
     const int64_t limit =
         a.meta != nullptr ? apm::batch_limit(a.meta, r, a.wf)
-                          : apm::owned_limit(r, a.n_rows, a.wf, bound, a.start);
+                          : apm::owned_limit(r, a.n_rows, a.wf, bound, start);
     // Uniform over the block. Mask mode visits every tile: it writes the
     // zeros of windows past the bound too.
     if (lane0 >= limit && a.mask == nullptr) continue;
@@ -195,7 +208,7 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
                             : nullptr;
     for (int p = 0; p < a.n_pat; ++p) {
       const int m = a.plens[p];
-      if (m <= 0) {  // padding slot: no work
+      if (m <= 0 || m > m_max) {  // padding slot: no work
         if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = 0;
         continue;
       }
@@ -309,6 +322,31 @@ extern "C" int apm_dp_band_mask(const uint8_t* rows, int64_t n_rows,
                  plens, k,      ke,         wf,      bound, dbound,
                  start, out,    scratch,    nullptr, 0,     mask,
                  mask_stride};
+  return run(a, grid, stream);
+}
+
+// Dynamic lengths (the TPU's scan_folded_pallas): apm_dp_band_count with
+// `plens` in device memory, filled by the caller without the host reading
+// it, and `dstart`, when not null, an int64 window start in device memory
+// that replaces `start` (`dbound` likewise replaces `bound`). ke is
+// min(k, m_max) with m_max = pat_stride - 2k.
+extern "C" int apm_dp_band_dyn(const uint8_t* rows, int64_t n_rows,
+                               int64_t row_stride, const uint8_t* pat,
+                               int n_pat, int64_t pat_stride,
+                               const int32_t* plens, int k, int ke, int64_t wf,
+                               int64_t bound, const int64_t* dbound,
+                               int64_t start, const int64_t* dstart,
+                               int32_t* out, int32_t* scratch, int grid,
+                               void* stream) {
+  const int64_t m_max = pat_stride - 2 * (int64_t)k;
+  if (plens == nullptr || m_max <= 0 || ke != (k < m_max ? k : m_max)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  DpArgs a{rows,  n_rows, row_stride, pat,     n_pat, pat_stride,
+           plens, k,      ke,         wf,      bound, dbound,
+           start, out,    scratch,    nullptr, 0,     nullptr,
+           0};
+  a.dstart = dstart;
   return run(a, grid, stream);
 }
 

@@ -91,7 +91,9 @@ class Scanner:
         )
         self._alph = build_alphabet(self.scan_patterns.raw)
         self._fused_np = None  # (km, thr) NumPy tables, built on demand
+        self._corr_kern_np = None  # (kern, thr, stride) of the k = 0 conv
         self._fp1_np = None  # (plens_filter, (kern, thr, owner, stride))
+        self._fp1_fused_np = None  # (plens_filter, (km, thr, owner64))
         self._peq_np = None  # Myers-mode PEQ table, built on demand
         self._dev_tables: Dict[str, object] = {}  # device copies
 
@@ -161,6 +163,49 @@ class Scanner:
             )
         return self._fused_np
 
+    def _corr_kernel(self):
+        """``(kern, thr, stride)``: the k = 0 correlation conv's tables over
+        the real patterns (``apm``'s ``Scanner._corr_kernel``: padding rows
+        would only add all-zero channels), built on demand. The scan pads
+        its counts back to the pattern table's rows (``p_out``)."""
+        if self._corr_kern_np is None:
+            from ..ops.corr_engine import build_kernel, pick_stride
+
+            n_real = self.scan_patterns.num_patterns
+            stride = pick_stride(n_real)
+            kern, thr = build_kernel(
+                self._pat_raw[:n_real], self._plens_static[:n_real], self._alph,
+                stride=stride,
+            )
+            self._corr_kern_np = (kern, thr, stride)
+        return self._corr_kern_np
+
+    def _fp1_fused_tables(self, plens_filter: tuple):
+        """``(km, thr, owner64)``: the fused piece scan's tables for conv
+        phase 1 under ``corr_impl="fused"`` (``apm``'s
+        ``Scanner._fp1_fused_tables``, over the full padded ``_pat_raw``),
+        cached per split."""
+        if self._fp1_fused_np is not None and self._fp1_fused_np[0] == plens_filter:
+            return self._fp1_fused_np[1]
+        from ..ops.corr_fused import build_fused_piece_tables
+
+        tables = build_fused_piece_tables(
+            self._pat_raw, plens_filter, self.k, self._corr_alphabet()
+        )
+        self._fp1_fused_np = (plens_filter, tables)
+        return tables
+
+    def _fp1_fused_plens(self) -> Optional[tuple]:
+        """The filtration lengths of a scan whose conv phase 1 runs the
+        fused piece scan (``engine="auto"``, ``corr_impl="fused"``, m_max
+        <= 65 under the plan's 128-aligned staging), else None."""
+        from ..ops.corr_fused import M_MAX_PIECES
+
+        cfg = self.config
+        if cfg.engine != "auto" or cfg.corr_impl != "fused" or self.m_max > M_MAX_PIECES:
+            return None
+        return self._fp1_plens()
+
     def _fp1_kernel(self, plens_filter: tuple):
         """Piece-correlation tables for conv phase 1, ``(kern, thr, owner,
         stride)`` (``apm``'s ``Scanner._fp1_kernel``), cached per split."""
@@ -213,8 +258,10 @@ class Scanner:
         :meth:`load_tables` takes. ``km``/``thr`` only when the pattern set
         fits the fused correlation tables (m_max <= 97); ``pkern``,
         ``pthr``, ``owner`` and ``stride`` only when an ``engine="auto"``
-        scan runs conv phase 1; ``peq`` only when the bit-parallel band can
-        represent the table."""
+        scan runs conv phase 1; ``pieces_km``, ``pieces_thr`` and
+        ``pieces_owner64`` (``apm``'s ``_fp1_fused_tables``) only when that
+        phase runs the fused piece scan (:meth:`_fp1_fused_plens`); ``peq``
+        only when the bit-parallel band can represent the table."""
         from ..ops.corr_fused import M_MAX_FUSED
 
         out = {
@@ -231,6 +278,10 @@ class Scanner:
             kern, thr, owner, stride = self._fp1_kernel(plens)
             out["pkern"], out["pthr"], out["owner"] = kern, thr, owner
             out["stride"] = np.asarray(stride, dtype=np.int64)
+        plens = self._fp1_fused_plens()
+        if plens is not None:
+            km, thr, owner64 = self._fp1_fused_tables(plens)
+            out["pieces_km"], out["pieces_thr"], out["pieces_owner64"] = km, thr, owner64
         if self._myers_table_ok():
             out["peq"] = self._peq()
         return out
@@ -241,7 +292,9 @@ class Scanner:
         ``arrays`` holds ``pat`` (k-padded table), ``plen``, ``pat_raw``,
         ``alphabet`` and optionally ``km`` (bf16 cast to float32, or int8)
         and ``thr``, the piece tables ``pkern`` (bf16 cast to float32),
-        ``pthr``, ``owner`` and ``stride``, and ``peq`` — NumPy arrays, as
+        ``pthr``, ``owner`` and ``stride``, the fused piece tables
+        ``pieces_km`` (bf16 cast to float32, or int8), ``pieces_thr`` and
+        ``pieces_owner64``, and ``peq`` — NumPy arrays, as
         :meth:`tables` returns them. They replace this scanner's own tables
         and are moved to its device; a table whose shape or dtype does not
         fit this pattern set raises.
@@ -279,10 +332,31 @@ class Scanner:
                     f"table 'pkern': shape {kern.shape}, expected {own['pkern'].shape}"
                 )
             fp1 = (plens, (kern, take("pthr"), take("owner"), take("stride").item()))
+        fp1_fused = None
+        if "pieces_km" in arrays:
+            plens = self._fp1_fused_plens()
+            if plens is None:
+                raise ValueError("fused piece tables given, but no fused phase 1 runs")
+            km = np.asarray(arrays["pieces_km"])
+            if km.dtype != np.int8:
+                km = km.astype(np.float32)
+            if km.shape != own["pieces_km"].shape:
+                raise ValueError(
+                    f"table 'pieces_km': shape {km.shape}, expected {own['pieces_km'].shape}"
+                )
+            owner64 = np.ascontiguousarray(np.asarray(arrays["pieces_owner64"]), dtype=np.float32)
+            if owner64.shape != own["pieces_owner64"].shape:
+                raise ValueError(
+                    f"table 'pieces_owner64': shape {owner64.shape}, expected "
+                    f"{own['pieces_owner64'].shape}"
+                )
+            thr = np.ascontiguousarray(np.asarray(arrays["pieces_thr"]))
+            fp1_fused = (plens, (np.ascontiguousarray(km), thr, owner64))
         peq = take("peq") if "peq" in arrays else None
         self._pat, self._plen, self._pat_raw, self._alph = pat, plen, pat_raw, alph
         self._plens_static = tuple(int(x) for x in plen)
         self._fused_np, self._fp1_np, self._peq_np = fused, fp1, peq
+        self._fp1_fused_np, self._corr_kern_np = fp1_fused, None
         self._dev_tables = {}
         self._device_tables(fused_needed=fused is not None)
 
@@ -301,6 +375,31 @@ class Scanner:
                 km, thr, self._alph, pick_s(self.m_max), self.device
             )
         return t
+
+    def _device_corr_conv(self):
+        """The k = 0 correlation conv's tables on the device: ``(kern, thr,
+        stride)``."""
+        t = self._dev_tables
+        if "corr_conv" not in t:
+            kern, thr, stride = self._corr_kernel()
+            t["corr_conv"] = (
+                torch.from_numpy(kern).to(self.device),
+                torch.from_numpy(thr).to(self.device),
+                stride,
+            )
+        return t["corr_conv"]
+
+    def _device_fp1_fused(self, plens_filter: tuple):
+        """The fused piece scan's tables on the device
+        (:class:`~apm_torch.ops.corr_fused.PieceTables`)."""
+        t = self._dev_tables
+        if t.get("fp1_fused_key") != plens_filter:
+            from ..ops.corr_fused import PieceTables
+
+            km, thr, owner64 = self._fp1_fused_tables(plens_filter)
+            t["fp1_fused"] = PieceTables.from_numpy(km, thr, owner64, self._alph, self.device)
+            t["fp1_fused_key"] = plens_filter
+        return t["fp1_fused"]
 
     def _device_peq(self) -> torch.Tensor:
         t = self._dev_tables
@@ -358,60 +457,50 @@ class Scanner:
         )
 
     def _routes(self, plan):
-        """Which kernel scans which patterns: ``(fused_corr, plens_dp)``.
+        """Which kernel runs each part of a scan: ``(corr, fp1)``.
 
         Decided once per scan from apm's plan, as apm's ``_count_pallas``
-        decides. The correlation kernel takes the plan's correlation set
-        when apm's fused gate admits it; ``plan.plens_dp`` goes to the
-        banded DP; ``plan.plens_filter`` to filtration (:meth:`_count_device`).
-        One temporary route remains: the k = 0 sets apm sends to its XLA
-        conv (97 < m_max <= 512 under ``engine='auto'``) go to the banded
-        DP, which counts them exactly. Routes, not fallbacks on failure.
+        decides. ``corr`` is the route of the k = 0 correlation set
+        ``plan.plens_corr`` (:meth:`_corr_route`; None without one).
+        ``fp1`` is the route of filtration phase 1 when the plan runs it as
+        a correlation (``plan.fp1_conv``): "fused", the fused piece scan
+        (kernel #7), under ``corr_impl="fused"`` where apm's gate
+        ``fused_pieces_ok`` holds, else "conv", the piece conv, as apm's
+        ``_fp1_call`` (None otherwise: kernel D runs phase 1).
+        ``plan.plens_dp`` goes to the banded DP. Routes, not fallbacks on
+        failure: a kernel that fails to build or launch raises.
         """
         from ..ops.corr_fused import fused_pieces_ok
 
-        if plan.use_corr:
-            if self._corr_route(plan.wf, plan.halo):
-                return True, tuple(0 for _ in plan.plens_corr)
-            return False, plan.plens_corr
-        if (
-            plan.fp1_conv
-            and self.config.corr_impl == "fused"
-            and fused_pieces_ok(self.m_max, plan.wf, plan.halo)
-        ):
-            raise NotImplementedError(
-                "corr_impl='fused' at k >= 1 runs apm's fused piece scan "
-                "(scan_pieces_fused, TPU kernel #7), which is not ported yet "
-                "(ROADMAP.md, 'Queue 2' #7); corr_impl='auto' runs the piece conv"
+        corr = self._corr_route(plan.wf, plan.halo) if plan.use_corr else None
+        fp1 = None
+        if plan.fp1_conv:
+            fused = self.config.corr_impl == "fused" and fused_pieces_ok(
+                self.m_max, plan.wf, plan.halo
             )
-        return False, plan.plens_dp
+            fp1 = "fused" if fused else "conv"
+        return corr, fp1
 
-    def _corr_route(self, wf: int, halo: int) -> bool:
-        """Route of a k = 0 correlation set (``count`` and ``count_batch``):
-        True when the fused correlation kernel (kernel B, or its batch mode)
-        takes it under ``apm``'s fused gate; False for the temporary route
-        to the banded DP (97 < m_max <= 512 under ``engine="auto"``); raises
-        where ``apm`` would run its unported XLA conv or refuses."""
+    def _corr_route(self, wf: int, halo: int) -> str:
+        """Route of a k = 0 correlation set (``count`` and ``count_batch``),
+        ``apm``'s ``_use_fused_corr``: "fused" (kernel B, or its batch mode)
+        where ``apm``'s fused gate holds, unless ``corr_impl="conv"``; else
+        "conv" (``apm``'s XLA conv: ``scan_corr_mxu`` or
+        ``scan_corr_batch``, here ``conv1d``), or a ``ValueError`` under
+        ``corr_impl="fused"``, as in ``apm``."""
         from ..ops.corr_fused import fused_eligible
 
         impl = self.config.corr_impl
         if impl == "conv":
-            raise NotImplementedError(
-                f"corr_impl='conv' (the XLA correlation conv) is {_ROADMAP} #5"
-            )
+            return "conv"
         if fused_eligible(self.m_max, wf, halo):
-            return True
+            return "fused"
         if impl == "fused":
             raise ValueError(
                 "corr_impl='fused' requires m_max <= 97 and 128-aligned "
                 "staging (apm_torch.ops.corr_fused.fused_eligible)"
             )
-        if self.config.engine == "corr":
-            raise NotImplementedError(
-                "engine='corr' with 97 < m_max <= 512 runs apm's XLA "
-                f"correlation conv, which is {_ROADMAP} #5"
-            )
-        return False
+        return "conv"
 
     def _peq_for(self, plens: tuple) -> Optional[torch.Tensor]:
         """The device PEQ table when a DP scan of ``plens`` runs in Myers
@@ -471,10 +560,11 @@ class Scanner:
         ``(p_pad,)`` int64 counts per scan pattern slot, EOF tail included.
 
         Per chunk, every kernel is launched without synchronising: the
-        correlation kernel (``plan.use_corr``), the banded DP
-        (``plan.plens_dp``) and filtration (``plan.plens_filter``: kernel
-        D's exact counts at k = 0; at k >= 1 phase 1 through the piece conv
-        (``plan.fp1_conv``) or kernel D, then phase 2 on the device). All
+        k = 0 correlation (``plan.use_corr``: kernel B or the conv), the
+        banded DP (``plan.plens_dp``) and filtration (``plan.plens_filter``:
+        kernel D's exact counts at k = 0; at k >= 1 phase 1 through the
+        fused piece scan or the piece conv (``plan.fp1_conv``) or kernel D,
+        then phase 2 on the device; :meth:`_routes`). All
         per-chunk vectors come back in one fetch; then the filtration
         decision tree (:func:`apm_torch.models.pipeline.finalize_filtration`)
         and the EOF tail run on the host.
@@ -486,13 +576,13 @@ class Scanner:
         ``count_hot_batch`` and the ``rescan `` fold, copy and dp) and
         host ``EOF tail``.
         """
-        from ..ops import corr_fused, filter_kernel, fused
+        from ..ops import corr_engine, corr_fused, filter_kernel, fused
         from ..ops.corr_engine import _group_rows
         from .pipeline import FilterChunk, buf_reader, finalize_filtration, make_plan
 
         k = self.k
         plan = make_plan(self, n)
-        use_fused, plens_dp = self._routes(plan)
+        corr, fp1 = self._routes(plan)
         wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
         self.last_filtration = None
         p_pad = self._pat.shape[0]
@@ -505,12 +595,15 @@ class Scanner:
         plain = self.backend == "torch"
         spans = Spans(self.device, self.meter.trace)
         corr_fn = corr_fused.scan_corr_fused_ref if plain else corr_fused.scan_corr_fused
-        tabs = self._device_tables(fused_needed=use_fused)
+        tabs = self._device_tables(fused_needed=corr == "fused")
         chunk_win = max(
             plan.w,
             round_up(min(self.config.chunk_bytes, dev_bound), plan.w),
         )
         n_rows = chunk_win // wf
+        g_rows = _group_rows(wf + halo, len(self._alph), n_rows)
+        if corr == "conv":
+            ckern, cthr, cstride = self._device_corr_conv()
         max_hot = fused.pick_max_hot(n_rows, wf, plan.plens_filter, k)
         common = dict(
             k=k, m_max=self.m_max, wf=wf, halo=halo, plens=plan.plens_filter,
@@ -523,7 +616,7 @@ class Scanner:
         raw_chunks = []  # (c0, packed, rowmap, rows) of filtration chunks
         for c0 in range(0, dev_bound, chunk_win):
             drows = self._stage(buf, c0, n_rows, wf, halo, spans)
-            if use_fused:
+            if corr == "fused":
                 with spans.device("corr"):
                     handles.append(
                         corr_fn(
@@ -531,10 +624,19 @@ class Scanner:
                             wf=wf, halo=halo, n_rows=n_rows, p_out=p_pad,
                         )
                     )
-            if any(plens_dp):
+            elif corr == "conv":
+                with spans.device("corr"):
+                    handles.append(
+                        corr_engine.scan_corr_mxu(
+                            drows, ckern, cthr, tabs["alph"], dev_bound, c0,
+                            wf=wf, m_max=self.m_max, n_rows=n_rows, g_rows=g_rows,
+                            stride=cstride, p_out=p_pad,
+                        )
+                    )
+            if plan.any_dp:
                 with spans.device("dp"):
                     handles.append(
-                        self._scan_dp(drows, dev_bound, c0, plens_dp, wf=wf, halo=halo)
+                        self._scan_dp(drows, dev_bound, c0, plan.plens_dp, wf=wf, halo=halo)
                     )
             if not plan.any_filter:
                 continue
@@ -546,13 +648,17 @@ class Scanner:
                     )
                 handles.append(fcnt)
                 continue
-            if plan.fp1_conv:
+            if fp1 == "fused":
+                packed, rowmap = fused.filter_verify_chunk_fused(
+                    drows, self._device_fp1_fused(plan.plens_filter), tabs["pat"],
+                    dev_bound, c0, n_rows=n_rows, spans=spans, **common,
+                )
+            elif fp1 == "conv":
                 pkern, pthr, owner, stride = self._device_fp1(plan.plens_filter)
                 packed, rowmap = fused.filter_verify_chunk_conv(
                     drows, pkern, pthr, owner, tabs["alph"], tabs["pat"],
                     dev_bound, c0, w_kern=pkern.shape[0], n_rows=n_rows,
-                    g_rows=_group_rows(wf + halo, len(self._alph), n_rows),
-                    fp1_stride=stride, spans=spans, **common,
+                    g_rows=g_rows, fp1_stride=stride, spans=spans, **common,
                 )
             else:
                 packed, rowmap = fused.filter_verify_chunk(
@@ -672,14 +778,16 @@ class Scanner:
         ``config.batch_blocks`` and ``chunk_bytes``, a power of two) is one
         staging copy and one launch: at k = 0 the batch mode of the fused
         correlation kernel (per-row limits) where ``apm``'s fused gate
-        takes the set, else the batch mode of the banded DP (kernel A or
-        C). Every group is dispatched before one fetch of all per-block
+        takes the set, or the batched conv (``apm``'s ``scan_corr_batch``)
+        where ``apm`` runs it (:meth:`_corr_route`), else the batch mode of
+        the banded DP (kernel A or C). Every group is dispatched before one
+        fetch of all per-block
         counts; the EOF tails are counted on the host. Filtration stays
         out, as in ``apm``. Under ``backend="torch"`` the same layout runs
         on the plain versions.
         """
-        from ..ops import corr_fused, dp_kernel
-        from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, corr_eligible
+        from ..ops import corr_engine, corr_fused, dp_kernel
+        from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, _group_rows, corr_eligible
         from .pipeline import _FOLD, check_dp_dtype
 
         t0 = time.perf_counter()
@@ -718,7 +826,7 @@ class Scanner:
             )
         uniq = np.zeros((n_batch, p_pad), dtype=np.int64)
         if items:
-            use_fused = use_corr and self._corr_route(wf, halo)
+            corr = self._corr_route(wf, halo) if use_corr else None
             gmax = max(8, min(
                 len(items), self.config.batch_blocks or 128,
                 self.config.chunk_bytes // (fold * (wf + halo)),
@@ -726,8 +834,11 @@ class Scanner:
             # a power of two, rounded down: never past either cap
             gmax = max(8, 1 << (gmax.bit_length() - 1))
             plain = self.backend == "torch"
-            tabs = self._device_tables(fused_needed=use_fused)
-            peq = None if use_fused else self._peq_for(self._plens_static)
+            tabs = self._device_tables(fused_needed=corr == "fused")
+            peq = None if corr else self._peq_for(self._plens_static)
+            if corr == "conv":
+                ckern, cthr, cstride = self._device_corr_conv()
+                g_rows = _group_rows(wf + halo, len(self._alph), gmax * fold)
             row_in_blk = np.arange(fold, dtype=np.int64) * wf
             handles = []  # (group, (gmax, p_pad) device counts)
             for g0 in range(0, len(items), gmax):
@@ -743,10 +854,16 @@ class Scanner:
                     limits[sl] = np.clip(db - blk * w - row_in_blk, 0, wf)
                 rows_np[len(group) * fold :] = 0  # padding blocks, bound 0
                 drows = self._to_device(host)
-                if use_fused:
+                if corr == "fused":
                     cnts = corr_fused.scan_corr_batch_fused(
                         drows, tabs["fused"], self._to_device(torch.from_numpy(limits)),
                         wf=wf, halo=halo, fold=fold, p_out=p_pad, plain=plain,
+                    )
+                elif corr == "conv":
+                    cnts = corr_engine.scan_corr_batch(
+                        drows, ckern, cthr, tabs["alph"],
+                        self._to_device(torch.from_numpy(limits)), wf=wf, fold=fold,
+                        g_rows=g_rows, stride=cstride, p_out=p_pad,
                     )
                 else:
                     cnts = dp_kernel.scan_folded_dp_batch(

@@ -146,6 +146,14 @@ def library() -> ctypes.CDLL:
         p, i32, p,  # scratch, grid, stream
     ]
     lib.apm_dp_band_mask.restype = i32
+    lib.apm_dp_band_dyn.argtypes = [
+        p, i64, i64,  # rows, n_rows, row_stride
+        p, i32, i64, p,  # pat, n_pat, pat_stride, plens (device)
+        i32, i32, i64,  # k, ke, wf
+        i64, p, i64, p,  # bound, dbound, start, dstart
+        p, p, i32, p,  # out, scratch, grid, stream
+    ]
+    lib.apm_dp_band_dyn.restype = i32
     lib.apm_dp_band_reg_max.argtypes = []
     lib.apm_dp_band_reg_max.restype = i32
     lib.apm_corr_fused_count.argtypes = [
@@ -162,6 +170,15 @@ def library() -> ctypes.CDLL:
         p, i64, i32, p,  # out, out_stride, grid, stream
     ]
     lib.apm_corr_batch_count.restype = i32
+    lib.apm_pieces_fused_count.argtypes = [
+        p, i64, i64, i64,  # rows, n_staged, row_stride, n_rows
+        p, i32, i32, p, p,  # piece, n_piece, piece_stride, plen, owner
+        i32, i32,  # pat0, n_pat
+        i64, i64, i64,  # wf, bound, start
+        p, p, i64,  # fcnt, rowmap, rowmap_stride
+        i32, p,  # grid, stream
+    ]
+    lib.apm_pieces_fused_count.restype = i32
     myers_head = [
         p, i64, i64,  # rows, n_rows, row_stride
         p, i32, i32, i32, p, p,  # peq, n_pat, m_max, n_chan, alph, plens

@@ -56,3 +56,22 @@ def fold_corpus(
         out[r, len(seg) :] = 0
     out[max(n_full, n_data) :] = 0
     return out
+
+
+def cap_for(k: int) -> int:
+    """DP clamp value. ``min(dist, k+1)`` preserves the ``dist <= k`` verdict.
+
+    Clamping commutes with the min-plus Levenshtein recurrence: if every
+    input cell holds ``min(true, k+1)``, then ``min(min3(inputs)+cost,
+    k+1)`` equals ``min(true_output, k+1)`` (monotonicity of min and plus),
+    so every DP cell stays in ``[0, k+1]`` whatever the pattern length.
+    """
+    return k + 1
+
+
+def pad_corpus(buf: np.ndarray, n_pad: int, halo: int) -> np.ndarray:
+    """Zero-pad the corpus to ``n_pad + halo`` bytes (the reference
+    engine's block layout)."""
+    out = np.zeros(n_pad + halo, dtype=np.uint8)
+    out[: len(buf)] = buf
+    return out

@@ -5,10 +5,14 @@ At k = 0 approximate matching is exact matching. ``apm`` scores it as a
 pattern alphabet) is written as ``B = max(1, ceil(log2 C))`` planes of ±1
 (bytes outside the alphabet: all zero), and window ``j`` matches pattern
 ``p`` iff ``corr[j, p] == B * m_p``. The port keeps the gates and the
-table constructors so its plan and tables equal ``apm``'s; the k = 0 scan
-itself is the fused kernel in :mod:`apm_torch.ops.corr_fused`. The XLA
-conv of whole patterns (``scan_corr_mxu``, 97 < m_max <= 512) is not
-ported yet (``ROADMAP.md``).
+table constructors so its plan and tables equal ``apm``'s. At k = 0 the
+scan is the fused kernel in :mod:`apm_torch.ops.corr_fused` where ``apm``'s
+fused gate takes it, else ``apm``'s conv of whole patterns
+(:func:`scan_corr_mxu` for ``count``, :func:`scan_corr_batch` for
+``count_batch``; 97 < m_max <= 512, or ``corr_impl="conv"``), which ``apm``
+computes in XLA outside any Pallas kernel and the port with ``conv1d``.
+The conv runs in float32, never bf16: its scores reach ``B * m`` = 1536 at
+m = 512, where bf16 can no longer tell a match from the nearest miss.
 
 Conv phase 1 of filtration (k >= 1, :func:`scan_pieces_conv`) is the same
 correlation over exact-tier pieces: a piece hits where its correlation
@@ -132,6 +136,129 @@ def _fold_shifts(kern: np.ndarray, thr: np.ndarray, stride: int):
     for s in range(stride):
         ks[s : s + wk, :, s * n0 : (s + 1) * n0] = kern
     return ks, np.tile(thr, stride)
+
+
+def build_kernel(pat_raw: np.ndarray, plens, alphabet: np.ndarray, stride: int = 1):
+    """±1 bit-plane conv kernel of whole patterns ``(m_max + stride - 1, B,
+    P*stride)`` and thresholds ``(P*stride,)``, both float32 (``apm``'s
+    ``build_kernel`` casts the kernel to bf16; ±1/0 are exact in both).
+    Position ``i < m_p`` of pattern ``p`` carries the code bits of its byte;
+    the threshold is ``B * m_p``, and ``2**30`` (never reached) for padding
+    rows. ``stride`` shift-folds the kernel as ``apm``'s strided conv takes
+    it (:func:`_fold_shifts`)."""
+    P, m_max = pat_raw.shape
+    B = n_bitplanes(len(alphabet))
+    kern = np.zeros((m_max, B, P), dtype=np.float32)
+    thr = np.zeros((P,), dtype=np.float32)
+    for pi in range(P):
+        m = plens[pi]
+        thr[pi] = B * m if m > 0 else np.float32(2**30)
+        for i in range(min(m, m_max)):
+            ci = int(np.searchsorted(alphabet, pat_raw[pi, i]))
+            for b in range(B):
+                kern[i, b, pi] = 1.0 if (ci >> b) & 1 else -1.0
+    return _fold_shifts(kern, thr, stride)
+
+
+def _conv_row_counts(rows, kern, thr, alph, limit, *, wf, stride, g_rows):
+    """``(R, P)`` int64 exact-match counts per staged row, row ``r`` owning
+    lanes ``[0, limit[r])``, by ``apm``'s bit-plane conv.
+
+    ``apm`` runs an ``S``-strided conv against ``S`` shifted kernel copies
+    (output block ``jb``, channel ``s*P + p`` is window ``jb*S + s``). The
+    port unfolds the strided kernel into its base kernel (channel copy 0,
+    the first ``m_max`` rows) and runs one stride-1 ``conv1d``: the same
+    scores at 1/S of the multiplies. Both operands are ±1/0 and every sum
+    is an integer of magnitude <= B * m_max < 2**24: exact in float32, and
+    in TF32, which cuDNN may use for a float32 conv on the card."""
+    R, L = rows.shape
+    dev = rows.device
+    S = stride
+    n_base = kern.shape[2] // S
+    m_max = kern.shape[0] - S + 1
+    weight = kern[:m_max, :, :n_base].to(device=dev, dtype=torch.float32)
+    weight = weight.permute(2, 1, 0).contiguous()  # (P, B, m_max)
+    thr0 = thr[:n_base].to(device=dev, dtype=torch.float32)
+    b_planes = weight.shape[1]
+    alph = alph.to(dev)
+    col = torch.arange(wf, device=dev, dtype=torch.int64)
+    # float32 scores and planes, int64 byte indices, per staged row
+    per_row = (4 * (n_base + b_planes) + 8) * L
+    step = max(1, min(g_rows, _CONV_OUT_BYTES // per_row))
+    counts = torch.zeros((R, n_base), dtype=torch.int64, device=dev)
+    for r0 in range(0, R, step):
+        t = _encode_planes(rows[r0 : r0 + step], alph, b_planes)  # (g, B, L)
+        corr = torch.nn.functional.conv1d(t, weight)[:, :, :wf]  # (g, P, wf)
+        own = col[None, :] < limit[r0 : r0 + step, None]  # (g, wf)
+        match = (corr >= thr0[None, :, None]) & own[:, None, :]
+        counts[r0 : r0 + step] = match.sum(dim=2)
+    return counts
+
+
+def scan_corr_mxu(
+    rows: torch.Tensor,
+    kern: torch.Tensor,
+    thr: torch.Tensor,
+    alph: torch.Tensor,
+    bound,
+    start: int,
+    *,
+    wf: int,
+    m_max: int,
+    n_rows: int,
+    g_rows: int,
+    stride: int = 1,
+    p_out: int = 0,
+) -> torch.Tensor:
+    """``(max(P, p_out),)`` int32 exact-match counts of this chunk's
+    device-owned windows (``apm``'s ``scan_corr_mxu``): row ``r`` owns
+    windows ``[start + r*wf, start + (r+1)*wf)`` below ``bound``, and rows
+    at or past ``n_rows`` own nothing (the mask matters: a pattern that
+    holds a NUL byte matches the zero padding). ``kern``/``thr`` are
+    :func:`build_kernel`'s tables over the real patterns, on any float
+    dtype; ``stride`` is the one they were folded with."""
+    R, L = rows.shape
+    if wf % stride or kern.shape[0] != m_max + stride - 1 or L < wf + m_max - 1:
+        raise ValueError(f"wf {wf}, stride {stride}, kern {tuple(kern.shape)}, rows "
+                         f"{tuple(rows.shape)}: need S | wf, m_max + S - 1 kernel rows, "
+                         f"halo >= m_max - 1")
+    r = torch.arange(R, device=rows.device, dtype=torch.int64)
+    limit = torch.where(r < n_rows, (bound - start - r * wf).clamp(0, wf), 0)
+    counts = _conv_row_counts(rows, kern, thr, alph, limit, wf=wf, stride=stride,
+                              g_rows=g_rows).sum(dim=0)
+    out = torch.zeros((max(counts.shape[0], p_out),), dtype=torch.int32, device=rows.device)
+    out[: counts.shape[0]] = counts.to(torch.int32)
+    return out
+
+
+def scan_corr_batch(
+    rows: torch.Tensor,
+    kern: torch.Tensor,
+    thr: torch.Tensor,
+    alph: torch.Tensor,
+    limits: torch.Tensor,
+    *,
+    wf: int,
+    fold: int,
+    g_rows: int,
+    stride: int = 1,
+    p_out: int = 0,
+) -> torch.Tensor:
+    """Batched k = 0 correlation conv (``apm``'s ``scan_corr_batch``):
+    ``(R // fold, max(P, p_out))`` int32 per-block counts, row ``r`` owning
+    lanes ``[0, limits[r])`` (precomputed by the caller from each corpus's
+    bound; 0 for padding rows)."""
+    R, L = rows.shape
+    m_max = kern.shape[0] - stride + 1
+    if wf % stride or R % fold or L < wf + m_max - 1:
+        raise ValueError(f"wf {wf}, stride {stride}, rows {tuple(rows.shape)}, fold {fold}: "
+                         f"need S | wf, fold | R, halo >= m_max - 1")
+    per_row = _conv_row_counts(rows, kern, thr, alph, limits.to(torch.int64), wf=wf,
+                               stride=stride, g_rows=g_rows)
+    n_base = per_row.shape[1]
+    out = torch.zeros((R // fold, max(n_base, p_out)), dtype=torch.int32, device=rows.device)
+    out[:, :n_base] = per_row.reshape(R // fold, fold, n_base).sum(dim=1).to(torch.int32)
+    return out
 
 
 def _group_rows(L: int, C: int, n_rows: int) -> int:

@@ -24,6 +24,19 @@ Batch mode (:func:`scan_corr_batch_fused`, ``apm``'s
 k = 0): rows of many corpora, each row's ownership given as its owned
 lanes ``limits[r]`` (the caller resolves every corpus's bound), counts per
 block of ``fold`` rows, ``(R/fold, max(p, p_out))`` int32.
+
+Piece scan (:func:`scan_pieces_fused`, ``apm``'s ``scan_pieces_fused``,
+TPU kernel #7; filtration phase 1 under ``corr_impl="fused"`` at k >= 1):
+the exact-tier pieces of every pattern in ``apm``'s phase-folded piece
+tables (:func:`build_fused_piece_tables`). A staged row ``r`` is live iff
+``r < n_rows`` and ``start + r*wf < bound``; in a live row every piece is
+tested at every position ``j < wf + 64`` (``apm``'s coverage bound, not the
+ownership limit). Returns ``fcnt (P,)``, the hits summed over rows, and
+``rowmap (R, P)``, 1 where a row holds a hit of the pattern, both int32.
+The CUDA kernel (``csrc/corr_pieces.cu``) compares the piece bytes that
+:func:`decode_fused_piece_tables` recovers from the tables; the plain
+version (:func:`scan_pieces_fused_ref`) compares shifted slices of the
+rows.
 """
 
 from __future__ import annotations
@@ -35,13 +48,16 @@ import torch
 
 from .corr_engine import _encode_planes, n_bitplanes
 
-# Kernel launches made by scan_corr_fused, and by scan_corr_batch_fused.
+# Kernel launches made by scan_corr_fused, scan_corr_batch_fused and
+# scan_pieces_fused.
 LAUNCHES = 0
 BATCH_LAUNCHES = 0
+PIECE_LAUNCHES = 0
 
 S_FUSED = 64
 M_MAX_FUSED = 97  # m + 32 - 1 <= 128: one 128-byte K-tile per phase
-M_MAX_PIECES = 65  # apm's fused piece scan (kernel #7, not ported)
+M_MAX_PIECES = 65  # the fused piece scan's coverage proof (kernel #7)
+_PIECE_REACH = 64  # piece positions past wf that kernel #7 covers
 _SINGLE_MAX = 1536  # apm's column-chunking threshold (pads P when above)
 _INT8_MIN_SLOTS = 32  # apm's int8-operand threshold
 _SENTINEL = 2**30  # threshold of padding slots: never reached
@@ -71,9 +87,9 @@ def fused_eligible(m_max: int, wf: int, halo: int) -> bool:
 
 
 def fused_pieces_ok(m_max: int, wf: int, halo: int) -> bool:
-    """``apm``'s gate of its fused piece scan (``scan_pieces_fused``),
-    which ``corr_impl="fused"`` selects for conv phase 1; the port
-    refuses that route until the kernel is ported."""
+    """``apm``'s gate of its fused piece scan (:func:`scan_pieces_fused`),
+    which ``corr_impl="fused"`` selects for conv phase 1: the count gate and
+    m_max <= 65, which the piece coverage bound ``wf + 64`` needs."""
     return fused_eligible(m_max, wf, halo) and m_max <= M_MAX_PIECES
 
 
@@ -411,3 +427,250 @@ def scan_corr_batch_fused_ref(
     per_row = _corr_row_counts(rows, tables, limits.clamp(0, wf), wf)
     out[:, :p] = per_row.reshape(-1, fold, p).sum(dim=1).to(torch.int32)
     return out
+
+
+# -- kernel #7: the fused piece scan ------------------------------------------
+
+# Piece slots per launch of kernel #7: its shared memory holds the group's
+# piece bytes (<= 1024 x 65), lengths and owners, and two counters for each
+# of the group's <= _PAT_GROUP patterns.
+_PIECE_GROUP = 1024
+
+
+def build_fused_piece_tables(pat_raw: np.ndarray, plens, k: int, alphabet: np.ndarray):
+    """±1 phase-folded piece tables ``(km (B*128, 64*Np), thr (1, 64*Np),
+    owner64 (64*Np, P))``: NumPy port of ``apm``'s function of the same
+    name, ``km`` float32 (``apm`` casts it to bf16; ±1/0 are exact in both)
+    with float32 thresholds, or int8 with int32 thresholds from
+    ``_INT8_MIN_SLOTS`` slots up, as in ``apm``.
+
+    The pieces are the exact-tier pieces of every pattern in pattern order;
+    ``Np`` is their count, padded by one sentinel slot to an even count when
+    ``64 * Np > _SINGLE_MAX`` (``apm``'s column chunking). Slot ``n`` of
+    phase ``s`` (column ``s*Np + n``) holds the code bits of piece byte
+    ``i`` at rows ``b*128 + s + i``, its threshold ``B * length``
+    (``2**30`` for the sentinel) and its pattern's one-hot owner row.
+    """
+    from .filter_kernel import pieces_of_j, tier_of
+
+    P, _ = pat_raw.shape
+    if max(plens) > M_MAX_PIECES:
+        raise ValueError(f"patterns longer than {M_MAX_PIECES}: {max(plens)}")
+    B = n_bitplanes(len(alphabet))
+    pieces = []  # (pattern index, offset, length)
+    for pi in range(P):
+        m = plens[pi]
+        if m == 0:
+            continue
+        j, kp = tier_of(m, k)
+        if kp != 0:
+            raise ValueError("fused phase 1 is exact-tier only")
+        pieces.extend((pi, off, length) for off, length in pieces_of_j(m, j))
+    n = len(pieces)
+    n_pad = n + (n % 2 if S_FUSED * n > _SINGLE_MAX else 0)
+    km = np.zeros((B, 128, S_FUSED * n_pad), dtype=np.float32)
+    thr = np.full((1, S_FUSED * n_pad), np.float32(_SENTINEL), dtype=np.float32)
+    owner64 = np.zeros((S_FUSED * n_pad, P), dtype=np.float32)
+    for ni, (pi, off, length) in enumerate(pieces):
+        codes = np.searchsorted(alphabet, pat_raw[pi, off : off + length])
+        bits = np.where((codes[None, :] >> np.arange(B)[:, None]) & 1, 1.0, -1.0)
+        for s in range(S_FUSED):
+            col = s * n_pad + ni
+            thr[0, col] = B * length
+            owner64[col, pi] = 1.0
+            km[:, s : s + length, col] = bits
+    km2 = km.reshape(B * 128, S_FUSED * n_pad)
+    if n_pad >= _INT8_MIN_SLOTS:
+        return km2.astype(np.int8), thr.astype(np.int32), owner64
+    return km2, thr, owner64
+
+
+def decode_fused_piece_tables(km: np.ndarray, thr: np.ndarray, owner64: np.ndarray,
+                              alphabet: np.ndarray):
+    """Pieces held by the piece tables: ``(piece (Np, l_max) uint8, plen
+    (Np,) int32, owner (Np,) int32)``, ``plen = 0`` and ``owner = -1`` for
+    sentinel slots.
+
+    Phase ``s = 0`` of slot ``n`` holds the code bits of piece byte ``i`` at
+    rows ``b*128 + i`` (the code is the byte's rank in the sorted alphabet);
+    every other phase ``s`` repeats that column ``s`` rows down, with the
+    same threshold and owner row. Raises if the tables are not of that form.
+    """
+    km = np.asarray(km, dtype=np.float32)
+    thr = np.asarray(thr, dtype=np.float64).reshape(-1)
+    owner64 = np.asarray(owner64, dtype=np.float32)
+    alphabet = np.asarray(alphabet, dtype=np.uint8)
+    B = n_bitplanes(len(alphabet))
+    cols = km.shape[1]
+    if km.shape[0] != B * 128 or thr.shape[0] != cols or owner64.ndim != 2 or owner64.shape[0] != cols:
+        raise ValueError(f"km {km.shape} / thr {thr.shape} / owner64 {owner64.shape} / B {B} disagree")
+    if cols % S_FUSED:
+        raise ValueError(f"{cols} columns do not split into {S_FUSED} phases")
+    n = cols // S_FUSED
+    planes = km.reshape(B, 128, S_FUSED, n)
+    thr2 = thr.reshape(S_FUSED, n)
+    own = owner64.reshape(S_FUSED, n, owner64.shape[1])
+    for s in range(1, S_FUSED):
+        shifted = np.zeros_like(planes[:, :, 0])
+        shifted[:, s:] = planes[:, : 128 - s, 0]
+        if not (np.array_equal(planes[:, :, s], shifted) and np.array_equal(thr2[s], thr2[0])
+                and np.array_equal(own[s], own[0])):
+            raise ValueError(f"phase {s} is not phase 0 shifted by {s}")
+    lens = np.where(thr2[0] < _SENTINEL, thr2[0] / B, 0)
+    if np.any(lens != np.round(lens)) or np.any(lens < 0) or np.any(lens > M_MAX_PIECES):
+        raise ValueError(f"thresholds are not B * l with 0 < l <= {M_MAX_PIECES}")
+    plen = lens.astype(np.int32)
+    real = plen > 0
+    o = own[0]
+    if not np.all((o == 0) | (o == 1)) or np.any(o.sum(axis=1) != real):
+        raise ValueError("owner64 rows are not one-hot for pieces and zero for sentinels")
+    owner = np.where(real, o.argmax(axis=1), -1).astype(np.int32)
+    piece = np.zeros((n, max(int(plen.max(initial=0)), 1)), dtype=np.uint8)
+    weights = (1 << np.arange(B)).reshape(B, 1)
+    for q in range(n):
+        length = int(plen[q])
+        col = planes[:, :, 0, q]  # (B, 128)
+        if np.any(col[:, :length] == 0) or np.any(col[:, length:] != 0):
+            raise ValueError(f"slot {q}: code bits do not span its length {length}")
+        codes = ((col[:, :length] > 0) * weights).sum(axis=0)
+        if np.any(codes >= len(alphabet)):
+            raise ValueError(f"slot {q}: code outside the alphabet")
+        piece[q, :length] = alphabet[codes]
+    return piece, plen, owner
+
+
+def _piece_groups(plen: np.ndarray, owner: np.ndarray) -> tuple:
+    """Launch groups ``(q0, q1, p0, p1)`` of kernel #7: consecutive slot
+    ranges of at most ``_PIECE_GROUP`` slots whose real pieces' owners lie
+    in ``[p0, p1)``, ``p1 - p0 <= _PAT_GROUP``."""
+    groups = []
+    q0 = lo = hi = None
+    for q in np.flatnonzero(plen > 0):
+        o = int(owner[q])
+        if q0 is not None and (q - q0 >= _PIECE_GROUP or max(hi, o) - min(lo, o) >= _PAT_GROUP):
+            groups.append((q0, last + 1, lo, hi + 1))
+            q0 = None
+        if q0 is None:
+            q0, lo, hi = int(q), o, o
+        lo, hi, last = min(lo, o), max(hi, o), int(q)
+    if q0 is not None:
+        groups.append((q0, last + 1, lo, hi + 1))
+    return tuple(groups)
+
+
+@dataclass(frozen=True)
+class PieceTables:
+    """The piece tables on one device, as kernel #7 reads them (decoded from
+    ``km``/``thr``/``owner64`` once)."""
+
+    piece: torch.Tensor  # (Np, l_max) uint8 piece bytes
+    plen: torch.Tensor  # (Np,) int32 piece lengths, 0 = sentinel slot
+    owner: torch.Tensor  # (Np,) int32 owning pattern, -1 = sentinel slot
+    n_pat: int  # pattern columns of owner64 (the outputs' P)
+    groups: tuple  # (q0, q1, p0, p1) launch groups (_piece_groups)
+
+    @staticmethod
+    def from_numpy(km, thr, owner64, alph, device) -> "PieceTables":
+        piece, plen, owner = decode_fused_piece_tables(km, thr, owner64, alph)
+        dev = torch.device(device)
+        return PieceTables(
+            piece=torch.from_numpy(piece).to(dev),
+            plen=torch.from_numpy(plen).to(dev),
+            owner=torch.from_numpy(owner).to(dev),
+            n_pat=int(np.asarray(owner64).shape[1]),
+            groups=_piece_groups(plen, owner),
+        )
+
+
+def _check_piece_rows(rows, wf, halo, n_rows, tables) -> None:
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise ValueError(f"rows must be 2-D uint8, got {rows.dtype} {tuple(rows.shape)}")
+    if rows.shape[1] != wf + halo or rows.shape[0] <= 0 or wf <= 0:
+        raise ValueError(f"rows shape {tuple(rows.shape)} != (R, wf + halo = {wf + halo})")
+    reach = _PIECE_REACH - 1 + tables.piece.shape[1]
+    if halo < reach:
+        raise ValueError(f"halo {halo} < {reach}: pieces at positions < wf + 64 read past the row")
+    if n_rows < 0:
+        raise ValueError(f"n_rows {n_rows} < 0")
+    if tables.piece.device != rows.device:
+        raise ValueError(f"rows on {rows.device}, piece tables on {tables.piece.device}")
+
+
+def scan_pieces_fused(
+    rows: torch.Tensor,
+    tables: PieceTables,
+    bound: int,
+    start: int,
+    *,
+    wf: int,
+    halo: int,
+    n_rows: int,
+    plain: bool = False,
+):
+    """``(fcnt (P,) int32, rowmap (R, P) int32)`` of this chunk's piece
+    scan (module doc, piece scan). CUDA tensors go to kernel #7 (current
+    stream, no synchronisation); CPU tensors, and any tensor under
+    ``plain=True``, to :func:`scan_pieces_fused_ref`."""
+    _check_piece_rows(rows, wf, halo, n_rows, tables)
+    if plain or rows.device.type == "cpu":
+        return scan_pieces_fused_ref(rows, tables, bound, start, wf=wf, halo=halo, n_rows=n_rows)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no piece-scan kernel for device {rows.device}")
+    global PIECE_LAUNCHES
+    from ._build import check, library
+
+    lib = library()
+    dev = rows.device
+    rows = rows.contiguous()
+    r_rows, p = rows.shape[0], tables.n_pat
+    fcnt = torch.zeros((p,), dtype=torch.int32, device=dev)
+    rowmap = torch.zeros((r_rows, p), dtype=torch.int32, device=dev)
+    live_rows = min(n_rows, r_rows)
+    if live_rows == 0 or not tables.groups:
+        return fcnt, rowmap
+    grid = _grid(dev, live_rows, wf + _PIECE_REACH)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    piece, plen, owner = tables.piece, tables.plen, tables.owner
+    for q0, q1, p0, p1 in tables.groups:
+        err = lib.apm_pieces_fused_count(
+            rows.data_ptr(), r_rows, rows.shape[1], n_rows,
+            piece[q0].data_ptr(), q1 - q0, piece.shape[1], plen[q0].data_ptr(),
+            owner[q0].data_ptr(), p0, p1 - p0, wf, int(bound), int(start),
+            fcnt.data_ptr(), rowmap.data_ptr(), p, grid, stream,
+        )
+        check(err, "apm_pieces_fused_count")
+        PIECE_LAUNCHES += 1
+    return fcnt, rowmap
+
+
+def scan_pieces_fused_ref(
+    rows: torch.Tensor,
+    tables: PieceTables,
+    bound: int,
+    start: int,
+    *,
+    wf: int,
+    halo: int,
+    n_rows: int,
+):
+    """Plain PyTorch version of kernel #7: for each piece, the AND of its
+    bytes' compares against shifted slices of every row over the positions
+    ``[0, wf + 64)``, hits summed per row and pattern, non-live rows
+    zeroed."""
+    _check_piece_rows(rows, wf, halo, n_rows, tables)
+    dev = rows.device
+    r_rows = rows.shape[0]
+    width = wf + _PIECE_REACH
+    rowpat = torch.zeros((r_rows, tables.n_pat), dtype=torch.int64, device=dev)
+    piece = tables.piece.cpu().numpy()
+    for q, (length, o) in enumerate(zip(tables.plen.tolist(), tables.owner.tolist())):
+        if length <= 0:
+            continue
+        hit = rows[:, :width] == int(piece[q, 0])
+        for i in range(1, length):
+            hit &= rows[:, i : i + width] == int(piece[q, i])
+        rowpat[:, o] += hit.sum(dim=1)
+    r = torch.arange(r_rows, device=dev, dtype=torch.int64)
+    live = (r < n_rows) & (start + r * wf < bound)
+    rowpat *= live[:, None]
+    return rowpat.sum(dim=0).to(torch.int32), (rowpat > 0).to(torch.int32)

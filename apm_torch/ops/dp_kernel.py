@@ -26,6 +26,15 @@ Two more modes share the kernels (``Scanner.count_batch`` and
   (``apm``'s int8 mask after its transpose), 0 for padding patterns and
   windows past the bound.
 
+A fourth entry has dynamic lengths (:func:`scan_folded`, ``apm``'s
+``scan_folded_pallas``, TPU kernel #9; ``apm_torch.graft_entry.entry()``):
+the count of the module contract with the lengths as an ``(P,)`` integer
+tensor on the rows' device, which the card path never reads on the host,
+every staged row count a multiple of :data:`FOLD`, and ``bound`` and
+``start`` ints or 0-d tensors. It runs kernel A's count mode through a C
+entry of its own (``apm_dp_band_dyn``) and has its own plain version
+(:func:`scan_folded_ref`).
+
 The mode is ``apm``'s static dispatch (:func:`_myers_mode`): the
 bit-parallel band for 1 <= k <= 14 with a pattern alphabet of at most 8
 bytes and a PEQ table of at most 64 KB, under ``dp_impl="auto"`` only from
@@ -52,6 +61,7 @@ LAUNCHES = 0
 MYERS_LAUNCHES = 0
 BATCH_LAUNCHES = 0
 MASK_LAUNCHES = 0
+DYN_LAUNCHES = 0  # kernel A through the dynamic-length entry (#9)
 
 # apm's Myers-mode constants (measured on its TPU; copied so both packages
 # pick the same mode — re-measuring them on the H100 is open work).
@@ -404,6 +414,98 @@ def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet,
     return _result(out, vmask, plens)
 
 
+def _check_dyn(rows, pat, plen, bound, start, k, m_max, wf, halo) -> None:
+    """``scan_folded_pallas``'s asserts, as errors, and the tensor checks."""
+    if rows.dtype != torch.uint8 or rows.dim() != 2:
+        raise ValueError(f"rows must be 2-D uint8, got {rows.dtype} {tuple(rows.shape)}")
+    if rows.shape[1] != wf + halo or rows.shape[0] <= 0 or rows.shape[0] % FOLD:
+        raise ValueError(
+            f"rows shape {tuple(rows.shape)}: need (R, wf + halo = {wf + halo}), "
+            f"R a positive multiple of {FOLD}"
+        )
+    if halo < m_max - 1:
+        raise ValueError(f"halo {halo} < m_max - 1 = {m_max - 1}")
+    if pat.dtype != torch.uint8 or pat.dim() != 2 or pat.shape[1] != m_max + 2 * k:
+        raise ValueError(
+            f"pat must be uint8 (P, m_max + 2k = {m_max + 2 * k}), got "
+            f"{pat.dtype} {tuple(pat.shape)}"
+        )
+    if (
+        not isinstance(plen, torch.Tensor) or tuple(plen.shape) != (pat.shape[0],)
+        or plen.dtype not in (torch.int32, torch.int64)
+    ):
+        raise ValueError(f"plen must be an int32/int64 ({pat.shape[0]},) tensor")
+    for name, t in (("pat", pat), ("plen", plen)):
+        if t.device != rows.device:
+            raise ValueError(f"rows on {rows.device}, {name} on {t.device}")
+    for name, v in (("bound", bound), ("start", start)):
+        if isinstance(v, torch.Tensor) and (
+            v.numel() != 1 or v.device != rows.device
+            or v.dtype not in (torch.int32, torch.int64)
+        ):
+            raise ValueError(f"a tensor {name} must be one int32/int64 value on {rows.device}")
+
+
+def scan_folded(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    plen: torch.Tensor,
+    bound: Bound,
+    start: Union[int, torch.Tensor],
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+) -> torch.Tensor:
+    """(P,) int32 counts of windows in ``[start, bound)`` with dynamic
+    pattern lengths (module doc; ``apm``'s ``scan_folded_pallas``).
+
+    ``plen`` values must lie in ``[0, m_max]``: the plain version checks
+    it; the kernel cannot without a host sync, and counts nothing for a
+    length outside ``[1, m_max]``, as ``apm``'s kernel does. CUDA tensors
+    go to kernel A's dynamic-length entry (current stream, no
+    synchronisation, nothing read back to the host); CPU tensors to
+    :func:`scan_folded_ref`.
+    """
+    _check_dyn(rows, pat, plen, bound, start, k, m_max, wf, halo)
+    if rows.device.type == "cpu":
+        return scan_folded_ref(rows, pat, plen, bound, start, k=k, m_max=m_max, wf=wf, halo=halo)
+    if rows.device.type != "cuda":
+        raise ValueError(f"no banded-DP kernel for device {rows.device}")
+    global DYN_LAUNCHES
+    from ._build import check, library
+
+    lib = library()
+    dev = rows.device
+    rows = rows.contiguous()
+    pat = pat.contiguous()
+    dplen = plen.to(torch.int32).contiguous()
+    n_rows, n_pat = rows.shape[0], pat.shape[0]
+    out = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
+    bval, bptr, _keep_b = _bound_args(bound, dev)
+    sval, sptr, _keep_s = _bound_args(start, dev)
+    ke = min(k, m_max)
+    grid = _grid(dev, n_rows, wf)
+    scratch = None
+    if ke > lib.apm_dp_band_reg_max():
+        slab = (2 * ke + 1) * _TILE * 4
+        grid = max(1, min(grid, _SCRATCH_BYTES // slab))
+        scratch = torch.empty((grid * slab // 4,), dtype=torch.int32, device=dev)
+    sptr_scratch = scratch.data_ptr() if scratch is not None else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    for g0 in range(0, n_pat, _PAT_GROUP):
+        ng = min(_PAT_GROUP, n_pat - g0)
+        err = lib.apm_dp_band_dyn(
+            rows.data_ptr(), n_rows, rows.shape[1], pat[g0].data_ptr(), ng,
+            pat.shape[1], dplen[g0].data_ptr(), k, ke, wf, bval, bptr, sval,
+            sptr, out[g0].data_ptr(), sptr_scratch, grid, stream,
+        )
+        check(err, "apm_dp_band_dyn")
+        DYN_LAUNCHES += 1
+    return out
+
+
 # -- plain versions -----------------------------------------------------------
 
 
@@ -618,3 +720,29 @@ def scan_folded_dp_mask_ref(
     hits = _plain_verdicts(rows, pat, bound, k=k, m_max=m_max, wf=wf, halo=halo,
                            plens=plens, alphabet=alphabet, dp_impl=dp_impl, peq=peq)
     return _reduce(hits, rows, bound, start, None, True, wf)
+
+
+def scan_folded_ref(
+    rows: torch.Tensor,
+    pat: torch.Tensor,
+    plen: torch.Tensor,
+    bound: Bound,
+    start: Union[int, torch.Tensor],
+    *,
+    k: int,
+    m_max: int,
+    wf: int,
+    halo: int,
+) -> torch.Tensor:
+    """Plain PyTorch version of the dynamic-length count (TPU kernel #9),
+    on any device: the lengths are read from ``plen`` (and must lie in
+    ``[0, m_max]``), then the clamped band of :func:`_band_verdicts`."""
+    _check_dyn(rows, pat, plen, bound, start, k, m_max, wf, halo)
+    plens = tuple(int(m) for m in plen.tolist())
+    if any(m < 0 or m > m_max for m in plens):
+        raise ValueError(f"plen values must lie in [0, {m_max}]: {plens}")
+    start = int(start)
+    if isinstance(bound, torch.Tensor):
+        bound = int(bound)
+    return scan_folded_dp_ref(rows, pat, bound, start, k=k, m_max=m_max, wf=wf,
+                              halo=halo, plens=plens)

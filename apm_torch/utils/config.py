@@ -45,10 +45,14 @@ class ApmConfig:
     # piece kernel, never the piece conv), "dp" (banded DP only), "corr"
     # (demands the correlation engine).
     engine: str = "auto"
-    # Correlation implementation: "auto"/"fused" run the fused k = 0
-    # correlation kernel (m_max <= 97) and the piece conv as filtration
-    # phase 1; "conv" at k = 0, and "fused" where apm would run its fused
-    # piece scan (k >= 1), are not ported yet and raise.
+    # Correlation implementation, routed as apm routes it. At k = 0: "auto"
+    # runs the fused correlation kernel where its gate holds (m_max <= 97,
+    # 128-aligned staging) and the bit-plane conv otherwise (m_max <= 512);
+    # "fused" demands the fused kernel and raises where its gate fails;
+    # "conv" always runs the conv. At k >= 1, where the plan runs
+    # filtration phase 1 as a correlation: "auto" and "conv" run the piece
+    # conv; "fused" runs the fused piece scan where its gate holds (m_max
+    # <= 65, 128-aligned staging) and the piece conv otherwise.
     corr_impl: str = "auto"
     # DP cell dtype: only "int32" runs in the port (apm's int16/int8 are
     # interpreter-only layouts); other values raise.

@@ -51,18 +51,40 @@ Phases, one line each; any failure exits non-zero:
    verdicts byte for byte; the bit pack and per-row top-k timed;
 3c. kernel #8 (the batch mode of kernel B) against its plain version on the
    same kind of staging at P = 2, P = 64 (int8 tables) and m = 70, 80;
+2e. kernel #9 (kernel A's dynamic-length entry, ``scan_folded``) against
+   its plain version and against kernel A's count mode at 4096 rows: P = 8
+   with padding rows and mixed lengths, k in {0, 1, 3}, start > 0 and a
+   mid-row bound, lengths, start and bound in device memory, two length
+   vectors through one tensor;
+3d. kernel #7 (the fused piece scan, ``csrc/corr_pieces.cu``) against its
+   plain version, fcnt and row map cell for cell, on the Scanner's piece
+   tables of the reference-shaped set under ``corr_impl="fused"`` at
+   k = 1, 2 and 4, at 4096 rows and on the 32768 rows of a 256 MB chunk,
+   timed beside the piece conv that ``corr_impl="auto"`` runs;
+4b. (in phase 4, 256 MB) k = 0 through ``apm``'s correlation conv (plain
+   PyTorch ``conv1d``): ``corr_impl="conv"`` on the reference-shaped set
+   and ``auto`` at m_max = 120, gated like phase 4, MB/s beside kernel B
+   and ``engine="dp"``;
+5c. (in phase 5b) the 256 MB k = 1 and k = 2 cells under
+   ``corr_impl="fused"`` (kernel #7 as filtration phase 1), gated by the
+   same ``engine="dp", dp_impl="band"`` counts and 1 MB oracle prefix;
 7. ``Scanner.count_batch`` on 64 corpora of 0.5 to 8 MB, k = 0, 1 and 3,
    gated by ``count`` on each corpus and the oracle; MB/s and corpora/s
-   beside the loop of ``count``;
+   beside the loop of ``count``; at k = 0 also ``corr_impl="conv"`` (the
+   batched conv), gated by the kernel #8 route's counts;
 8. ``Scanner.find``: 256 MB k = 1 sparse (kernel D, then #6) and two 4 MB
    dense cells of a 9-byte pattern at k = 2 (the mask sweep: the ``gpos``
    decode on random text, the packed-mask fallback on all-A text), gated by
    ``count``, a 1 MB oracle prefix and a 32 MB cut under the plain versions;
-9. the CLI with ``--positions`` against lines built from the oracle.
+9. the CLI with ``--positions`` against lines built from the oracle;
+10. ``apm_torch.graft_entry.entry()``: ``fn(*args)`` on the card (kernel
+   #9), equal to its plain version and to the oracle over the device-owned
+   windows.
 
 The main path is the first ``Scanner.count`` of each end-to-end path of
-phases 4, 5 and 5b, and the first ``count_batch`` or ``find`` of each path
-of phases 7 and 8: every kernel launch counter is set to 0 just before it
+phases 4, 5 and 5b, the first ``count_batch`` or ``find`` of each path
+of phases 7 and 8, and the first ``fn(*args)`` of phase 10: every kernel
+launch counter is set to 0 just before it
 and read just after, and each path must have launched the kernels its
 route runs (gates, prefixes and timed repeats are not counted). The line
 before the last is a JSON object with each kernel's main-path launches,
@@ -209,15 +231,18 @@ def owned_lanes(n_rows, wf, bound, start=0):
     return np.clip(bound - start - r * wf, 0, wf)
 
 
-def compare_ops(rows, seqs, limits, wf) -> int:
+def compare_ops(rows, seqs, limits, wf, width=None) -> int:
     """Integer operations of early-exit byte compares over the owned
     windows of staged rows (the data decides where each exits): for each
     ``(bytes, offset)`` in ``seqs``, a window at lane ``l`` compares
-    ``bytes`` with the text at ``l + offset`` until the first mismatch."""
+    ``bytes`` with the text at ``l + offset`` until the first mismatch.
+    ``limits[r]`` lanes of row ``r`` are scanned, of ``width`` (default
+    ``wf``) positions per row."""
     import torch
 
     dev = rows.device
-    lane = torch.arange(wf, device=dev)
+    width = width or wf
+    lane = torch.arange(width, device=dev)
     own = lane[None, :] < torch.as_tensor(np.asarray(limits), device=dev)[:, None]
     total = 0
     for seq, off in seqs:
@@ -227,7 +252,7 @@ def compare_ops(rows, seqs, limits, wf) -> int:
             if n == 0:
                 break
             total += n
-            alive &= rows[:, off + i : off + i + wf] == int(b)
+            alive &= rows[:, off + i : off + i + width] == int(b)
     return total * COMPARE_OPS
 
 
@@ -257,8 +282,10 @@ class KernelRecord:
             f"(roofline share {100 * self.bound_ms / ms:.1f} %)")
 
     def json(self, launches):
-        # No single PyTorch call computes a banded Levenshtein verdict or an
-        # exact-window count: library_ms stays null for every kernel here.
+        # No single PyTorch call computes a banded Levenshtein verdict, an
+        # exact-window count or a piece-hit row map (a conv1d gives scores,
+        # which still need a threshold and a per-row reduction): library_ms
+        # stays null for every kernel here.
         return {
             "name": self.name, "route": "cuda", "source": self.source,
             "replaces": self.replaces, "launches": launches,
@@ -272,7 +299,8 @@ class MainPath:
     """Kernel launches of the main path. Before each counted run every
     counter is set to 0; after it the counts are read, the kernels the
     run's route must launch are checked, and the counts are added to the
-    totals the ``kernels`` line reports."""
+    totals the ``kernels`` line reports. A route of plain PyTorch only (the
+    k = 0 conv, which ``apm`` leaves to XLA) expects no launch."""
 
     def __init__(self):
         from apm_torch.ops import corr_fused, dp_kernel, filter_kernel
@@ -285,6 +313,8 @@ class MainPath:
             "dp_batch": (dp_kernel, "BATCH_LAUNCHES"),
             "dp_mask": (dp_kernel, "MASK_LAUNCHES"),
             "corr_batch": (corr_fused, "BATCH_LAUNCHES"),
+            "pieces_fused": (corr_fused, "PIECE_LAUNCHES"),
+            "dp_dyn": (dp_kernel, "DYN_LAUNCHES"),
         }
         self.total = dict.fromkeys(self.counters, 0)
 
@@ -745,6 +775,129 @@ def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int 
                          compare_ops(drows, [(p, 0) for p in pats], limits, wf), what)
 
 
+def phase_dyn(rec, dev, n_rows: int = 4096) -> None:
+    """Kernel #9 (kernel A's dynamic-length entry, ``scan_folded``) against
+    ``scan_folded_ref`` and against kernel A's count mode over the same
+    lengths: P = 8 (four padding rows), mixed lengths, k in {0, 1, 3},
+    start > 0 and a mid-row bound, with the lengths, start and bound in
+    device memory. Each k runs twice through one length tensor holding
+    different values: nothing about the lengths is kept on the host."""
+    import torch
+
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus
+
+    wf = 8192
+    corpus = random_corpus((n_rows + 3) * wf + 4096, seed=370)
+    rng = np.random.default_rng(371)
+    lens = [12, 30, 41, 64]
+    pats = [bytes(corpus[p : p + m]) for p, m in zip(rng.integers(0, n_rows * wf // 2, 4), lens)]
+    for i, p in enumerate(pats):
+        plant(corpus, np.frombuffer(p, np.uint8), range(900 + 313 * i, len(corpus) - 100, 50_021 + 17 * i),
+              k=1, seed=372 + i)
+    start = 3 * wf
+    bound = start + (n_rows - 5) * wf + 4321
+    for k in (0, 1, 3):
+        pat, _, plens, m_max = _pattern_table(pats, k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = staged(corpus, 3, n_rows, wf, halo, dev)
+        dpat = torch.from_numpy(pat).to(dev)
+        dplen = torch.zeros((len(plens),), dtype=torch.int32, device=dev)
+        dbound = torch.tensor(bound, dtype=torch.int32, device=dev)
+        dstart = torch.tensor(start, dtype=torch.int32, device=dev)
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo)
+        dyn = lambda: dp_kernel.scan_folded(rows, dpat, dplen, dbound, dstart, **kw)
+        plain = lambda: dp_kernel.scan_folded_ref(rows, dpat, dplen, dbound, dstart, **kw)
+        # the second vector drops two patterns and halves a third: a prefix
+        for now in (plens, (plens[0], 0, plens[2] // 2, plens[3], 0, 0, 0, 0)):
+            dplen.copy_(torch.tensor(now, dtype=torch.int32))
+            band = lambda: dp_kernel.scan_folded_dp(rows, dpat, bound, start, plens=tuple(now), **kw)
+            got = dyn()
+            torch.cuda.synchronize()
+            what = f"k={k} P=8 lengths {list(now)} R={n_rows} start>0 mid-row bound"
+            rec.compare(got, plain(), what + " vs plain")
+            rec.compare(got, band(), what + " vs kernel A")
+            need(int(got.sum()) > 0, f"kernel #9 {what}: no matches at all")
+            say(f"phase 2e kernel #9 {what}: equal to plain and to kernel A, counts {got.tolist()}")
+        ms, band_ms, plain_ms = cuda_ms(dyn, 5), cuda_ms(band, 5), cuda_ms(plain, 1)
+        say(f"phase 2e kernel #9 k={k} (last lengths): kernel {ms:.3f} ms, kernel A (static "
+            f"lengths) {band_ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if k == 1:
+            owned = int(owned_lanes(n_rows, wf, bound, start).sum())
+            # rows, table, lengths, bound and start in; the counts out
+            rec.measured(ms, plain_ms, rows.numel() + pat.nbytes + 4 * len(plens) + 8 + 4 * len(plens),
+                         band_k1_instr(owned, now), f"k=1 P=8 R={n_rows}")
+
+
+def phase_pieces(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
+    """Kernel #7 (the fused piece scan, ``csrc/corr_pieces.cu``) against
+    ``scan_pieces_fused_ref``, fcnt and row map cell for cell, on the
+    Scanner's own piece tables of the reference-shaped set (1 x 32 + 5 x
+    50) under ``corr_impl="fused"`` at k = 1, 2 and 4: 4096 rows with
+    start > 0, a mid-row bound and two staging-padding rows, and the 32768
+    rows of a 256 MB chunk. Each is timed beside the piece conv
+    (``scan_pieces_conv``, the phase 1 of ``corr_impl="auto"``) on the same
+    rows and pieces; that conv covers other positions past ``wf``, so its
+    totals are not compared."""
+    import torch
+
+    import apm_torch
+    from apm_torch.models.pipeline import make_plan
+    from apm_torch.ops import corr_engine, corr_fused
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    wf, halo = 8192, 128
+    p32, p50 = random_pattern(32, seed=11), random_pattern(50, seed=12)
+    ref_set = [p32.tobytes()] + [p50.tobytes()] * 5
+    corpus = random_corpus(main_rows * wf + 4096, seed=360)
+    plant(corpus, p50, range(5000, len(corpus) - 4096, 1 << 20), k=2, seed=361)
+    plant(corpus, p32, range(70_000, len(corpus) - 4096, 1 << 21), k=1, seed=362)
+    rows_main = staged(corpus, 0, main_rows, wf, halo, dev)
+    for k in (1, 2, 4):
+        sc = apm_torch.Scanner(ref_set, k, apm_torch.ApmConfig(device=str(dev), corr_impl="fused"))
+        plan = make_plan(sc, len(corpus))
+        need((plan.wf, plan.halo) == (wf, halo) and sc._routes(plan)[1] == "fused",
+             f"kernel #7 k={k}: the plan does not run the fused piece scan")
+        tabs = sc._device_fp1_fused(plan.plens_filter)
+        pkern, pthr, owner, stride = sc._device_fp1(plan.plens_filter)
+        alph = sc._device_tables(fused_needed=False)["alph"]
+        cases = (
+            (rows_main[3 : 3 + n_rows], 3 * wf, 3 * wf + (n_rows - 5) * wf + 4321, n_rows - 2,
+             f"k={k} R={n_rows} start>0 mid-row bound"),
+            (rows_main, 0, plan.dev_bound, main_rows, f"k={k} R={main_rows} (a 256 MB chunk)"),
+        )
+        for rows, start, bound, live_rows, what in cases:
+            kw = dict(wf=wf, halo=halo, n_rows=live_rows)
+            g_rows = corr_engine._group_rows(wf + halo, len(alph), live_rows)
+            kern = lambda: corr_fused.scan_pieces_fused(rows, tabs, bound, start, **kw)
+            plain = lambda: corr_fused.scan_pieces_fused_ref(rows, tabs, bound, start, **kw)
+            conv = lambda: corr_engine.scan_pieces_conv(
+                rows, pkern, pthr, owner, alph, bound, start, wf=wf, w_kern=pkern.shape[0],
+                n_rows=live_rows, g_rows=g_rows, stride=stride,
+            )
+            fcnt, rowmap = kern()
+            rf, rr = plain()
+            torch.cuda.synchronize()
+            rec.compare(fcnt, rf, what + " fcnt")
+            rec.compare(rowmap, rr, what + " rowmap")
+            need(int(fcnt.sum()) > 0, f"kernel #7 {what}: no piece hits at all")
+            ms, plain_ms, conv_ms = cuda_ms(kern, 5), cuda_ms(plain, 1), cuda_ms(conv, 3)
+            say(f"phase 3d kernel #7 {what}: piece lengths {tabs.plen.tolist()}, fcnt and rowmap "
+                f"equal, fcnt {fcnt[:2].tolist()}, hot rows {int((rowmap.sum(1) > 0).sum())}, "
+                f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, piece conv {conv_ms:.3f} ms")
+            if k == 1 and start == 0:  # the 256 MB k = 1 cell's chunk
+                r = np.arange(rows.shape[0])
+                live = (r < live_rows) & (start + r * wf < bound)
+                limits = np.where(live, wf + corr_fused._PIECE_REACH, 0)
+                piece = tabs.piece.cpu().numpy()
+                seqs = [(piece[q, :l], 0) for q, l in enumerate(tabs.plen.tolist()) if l > 0]
+                ops = compare_ops(rows, seqs, limits, wf, width=wf + corr_fused._PIECE_REACH)
+                out_bytes = 4 * tabs.n_pat * (1 + rows.shape[0])
+                in_bytes = rows.numel() + tabs.piece.numel() + 8 * tabs.plen.numel()
+                rec.measured(ms, plain_ms, in_bytes + out_bytes, ops, what)
+
+
 def phase_e2e_batch(main, dev, n_corpora: int = 64, lo: int = 1 << 19, hi: int = 8 << 20) -> None:
     """Scanner.count_batch end to end on 64 corpora of 0.5 to 8 MB, the
     reference-shaped set, k = 0, 1 and 3: each row equal to ``sc.count(c)``
@@ -784,6 +937,18 @@ def phase_e2e_batch(main, dev, n_corpora: int = 64, lo: int = 1 << 19, hi: int =
             f"(best of 2, {batch_s * 1e3:.1f} ms, of which the {n_corpora} EOF tails on the host "
             f"take {tail_ms:.1f} ms); loop of count {total / loop_s / 1e6:.1f} MB/s, "
             f"{n_corpora / loop_s:.1f} corpora/s (one pass)")
+        if k == 0:  # the batched conv (apm's scan_corr_batch), plain PyTorch
+            scc = apm_torch.Scanner(pats, 0, apm_torch.ApmConfig(device=str(dev), corr_impl="conv"))
+            gotc = main.run(f"count_batch {n_corpora} corpora k=0 corr_impl=conv", [],
+                            lambda: scc.count_batch(corpora))
+            need(gotc.tolist() == got.tolist(), "count_batch k=0 conv: differs from kernel #8's route")
+            secs = []
+            for _ in range(2):
+                t0 = time.perf_counter()
+                scc.count_batch(corpora)
+                secs.append(time.perf_counter() - t0)
+            say(f"phase 7 count_batch k=0 corr_impl=conv: == kernel #8's route, "
+                f"{total / min(secs) / 1e6:.1f} MB/s, {n_corpora / min(secs):.1f} corpora/s (best of 2)")
 
 
 def _prefix_positions(c, pat, k, n):
@@ -863,7 +1028,7 @@ def phase_e2e_find(main, dev, mb: int = 256, dense_mb: int = 4, cut_mb: int = 32
             f"positions == count, 1 MB prefix == oracle; branches {route}; {mbps:.1f} MB/s")
 
 
-def phase_e2e_k0(main, dev, mb: int = 256) -> None:
+def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False) -> None:
     import torch
 
     import apm_torch
@@ -899,6 +1064,33 @@ def phase_e2e_k0(main, dev, mb: int = 256) -> None:
     say(f"phase 4 e2e k=0 {mb} MB: gate ok, counts {counts.tolist()}, median "
         f"{mbps:.1f} MB/s over 3 reps (host fold + host-to-device copy "
         f"included; {torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev})")
+    if not conv:
+        return
+    # apm's XLA correlation conv (plain PyTorch conv1d here): pinned on the
+    # reference-shaped set, then auto past the fused kernel (m_max = 120)
+    from apm_torch.models.pipeline import make_plan
+
+    cfg = lambda **kw: apm_torch.ApmConfig(device=str(dev), **kw)
+    dp_mbps = _timed_counts(apm_torch.Scanner(pats, 0, cfg(engine="dp")), syn)
+    scc = apm_torch.Scanner(pats, 0, cfg(corr_impl="conv"))
+    got = main.run(f"{mb} MB k=0 corr_impl=conv", [], lambda: scc.count(syn))
+    need(got.tolist() == expected, f"{mb} MB k=0 conv: {got.tolist()} != {expected}")
+    say(f"phase 4b e2e k=0 {mb} MB corr_impl=conv: gate ok, median {_timed_counts(scc, syn):.1f} "
+        f"MB/s conv, {mbps:.1f} MB/s kernel B (auto), {dp_mbps:.1f} MB/s engine=dp")
+    p120 = syn[4096 : 4096 + 120].tobytes()  # a planted 50-mer and the 70 bytes after it
+    pats120 = [p32.tobytes(), p120]
+    sc120 = apm_torch.Scanner(pats120, 0, cfg())
+    need(sc120._routes(make_plan(sc120, len(syn)))[0] == "conv", "m_max 120: auto does not take the conv")
+    got = main.run(f"{mb} MB k=0 m_max=120 auto (conv)", [], lambda: sc120.count(syn))
+    bound120 = sc120.device_window_bound(len(syn))
+    tail = count_matches(syn[bound120:], pats120, 0)
+    syn_b = syn.tobytes()
+    want = [host_exact_count(syn_b[: bound120 + len(p) - 1], p) + t for p, t in zip(pats120, tail)]
+    del syn_b
+    need(got.tolist() == want and want[1] >= 1, f"{mb} MB k=0 m_max=120: {got.tolist()} != {want}")
+    dp120 = _timed_counts(apm_torch.Scanner(pats120, 0, cfg(engine="dp")), syn)
+    say(f"phase 4b e2e k=0 {mb} MB m_max=120 (auto: the conv): gate ok, counts {got.tolist()}, "
+        f"median {_timed_counts(sc120, syn):.1f} MB/s conv, {dp120:.1f} MB/s engine=dp")
 
 
 def phase_e2e_dp(main, dev, mb: int = 32) -> None:
@@ -1035,7 +1227,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
              f"{name}: auto {counts.tolist()} != engine=dp band {band.tolist()}")
         return counts
 
-    def cell(name, pats, k, planted, expect, route=None):
+    def cell(name, pats, k, planted, expect, route=None, fused=False):
         c = base.copy()
         for i, p in enumerate(planted):
             plant(c, np.frombuffer(p, np.uint8), every_mb(i), k=k, seed=13 + i)
@@ -1054,6 +1246,17 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
             f"{counts.tolist()}, route {info['route']}, n_hot {info.get('n_hot', '-')} "
             f"(bucket {info.get('max_hot', '-')}), median {auto_mbps:.1f} MB/s auto, "
             f"{dp_mbps:.1f} MB/s engine=dp")
+        if fused:  # phase 1 through kernel #7, gated by the same counts and prefix
+            scf = apm_torch.Scanner(pats, k, cfg(corr_impl="fused"))
+            got = main.run(f"{name} corr_impl=fused", ["pieces_fused"] + expect, lambda: scf.count(c))
+            need(got.tolist() == counts.tolist(),
+                 f"{name} fused: {got.tolist()} != engine=dp band {counts.tolist()}")
+            finfo = scf.last_filtration  # of the 256 MB count, not of the prefix
+            need(scf.count(prefix).tolist() == want, f"{name} fused 1 MB prefix != oracle {want}")
+            say(f"phase 5c {name} k={k} corr_impl=fused: == dp band, 1 MB prefix == oracle, route "
+                f"{finfo['route']}, n_hot {finfo.get('n_hot', '-')}, median "
+                f"{_timed_counts(scf, c):.1f} MB/s fused, {auto_mbps:.1f} MB/s auto (piece conv), "
+                f"{dp_mbps:.1f} MB/s engine=dp")
         return sc, c
 
     # The kernels each route must launch: kernel A verifies at k <= 2 and
@@ -1061,7 +1264,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     # where the piece conv is not.
     keep = []
     for k in (1, 2):
-        cell(f"{mb}mb_k{k}_planted", ref_set, k, [ref_set[1]], ["dp_band"], "device-verify")
+        cell(f"{mb}mb_k{k}_planted", ref_set, k, [ref_set[1]], ["dp_band"], "device-verify", fused=True)
     keep.append((f"{mb}mb_k3_planted",) + cell(
         f"{mb}mb_k3_planted", ref_set, 3, [ref_set[1]], ["filter_pieces", "dp_myers"]))
     cell(f"{mb}mb_k4_exact_tier", fifty, 4, fifty, ["dp_myers"])
@@ -1110,6 +1313,35 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
         f"band, counts {counts.tolist()}, route {info['route']}, n_hot {info['n_hot']} > "
         f"bucket {info['max_hot']}, median {_timed_counts(sc, over):.1f} MB/s")
     return keep
+
+
+def phase_entry(main, rec, dev) -> None:
+    """``apm_torch.graft_entry.entry()`` on the card: ``fn(*args)`` runs
+    kernel #9 on the example's staging; it must equal the plain version on
+    the same arguments and the oracle over the device-owned windows (the
+    window set of ``apm``'s TPU branch)."""
+    import torch
+
+    from apm_torch import graft_entry
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.oracle import banded_distances
+
+    fn, args = graft_entry.entry()
+    need(all(a.device == dev for a in args), "entry(): arguments not on the card")
+    got = main.run("entry()", ["dp_dyn"], lambda: fn(*args))
+    k, m_max = graft_entry.K, graft_entry.example_tables()[2]
+    kw = dict(k=k, m_max=m_max, wf=graft_entry.W // dp_kernel.FOLD, halo=round_up(m_max, 128))
+    plain = dp_kernel.scan_folded_ref(*args, **kw)
+    torch.cuda.synchronize()
+    rec.compare(got, plain, "entry()")
+    corpus, bound = graft_entry.example_corpus(), int(args[3])
+    owned = [int((banded_distances(corpus, p, k)[:bound] <= k).sum()) for p in graft_entry.PATTERNS]
+    need(got.tolist()[:2] == owned and sum(owned) > 0, f"entry(): {got.tolist()} != oracle {owned}")
+    need(got.tolist()[2:] == [0] * 6, "entry(): a padding row counted")
+    ms = cuda_ms(lambda: fn(*args), 5)
+    say(f"phase 10 entry(): fn(*args) on the card == plain == oracle over the {bound} device-owned "
+        f"windows, counts {got.tolist()[:2]}, {ms:.3f} ms a call")
 
 
 def phase_cli(device: str = "cuda") -> None:
@@ -1175,7 +1407,7 @@ def run(t_start: float) -> dict:
     say(f"phase 1 environment: torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
         f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
-    for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
+    for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel", "pieces_fused_kernel"):
         say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
     dev = torch.device("cuda", 0)
 
@@ -1194,6 +1426,10 @@ def run(t_start: float) -> dict:
                                 "apm/ops/pallas_kernel.py:799"),
         "corr_batch": KernelRecord("corr_batch", "apm_torch/csrc/corr_fused.cu",
                                    "apm/ops/corr_fused.py:764"),
+        "pieces_fused": KernelRecord("pieces_fused", "apm_torch/csrc/corr_pieces.cu",
+                                     "apm/ops/corr_fused.py:555"),
+        "dp_dyn": KernelRecord("dp_dyn", "apm_torch/csrc/dp_band.cu",
+                               "apm/ops/pallas_kernel.py:898"),
     }
     phase_dp(recs["dp_band"], dev)
     phase_myers(recs["dp_myers"], dev)
@@ -1202,14 +1438,17 @@ def run(t_start: float) -> dict:
     phase_corr(recs["corr_fused"], dev)
     phase_corr_batch(recs["corr_batch"], dev)
     phase_filter(recs["filter_pieces"], dev)
+    phase_dyn(recs["dp_dyn"], dev)
+    phase_pieces(recs["pieces_fused"], dev)
 
     main = MainPath()
     for mb in (256, 512):  # one chunk, then two
-        phase_e2e_k0(main, dev, mb)
+        phase_e2e_k0(main, dev, mb, conv=mb == 256)
     phase_e2e_dp(main, dev)
     keep = phase_e2e_filter(main, dev)
     phase_e2e_batch(main, dev)
     phase_e2e_find(main, dev)
+    phase_entry(main, recs["dp_dyn"], dev)
     launches = main.total
     need(all(v > 0 for v in launches.values()), f"a kernel never launched on the main path: {launches}")
     say(f"main path launches, all paths: {launches}")

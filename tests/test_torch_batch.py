@@ -7,8 +7,9 @@ the plain batch mode of the correlation (TPU kernel #8) against
 ``apm.ops.corr_fused.scan_corr_batch_fused``, on the same staged rows, meta
 and limits. Entry level: ``count_batch`` three ways (port, apm, oracle) at
 several k and engines, with several groups, short and empty corpora and
-duplicate patterns, and the refusals. Every output is an integer count:
-the tolerance is 0.
+duplicate patterns, the k = 0 conv route (``apm``'s ``scan_corr_batch``)
+under ``corr_impl="conv"`` and past the fused kernel, and the refusals.
+Every output is an integer count: the tolerance is 0.
 """
 
 import numpy as np
@@ -223,12 +224,39 @@ def test_count_batch_torch_backend_runs_the_batched_layout(monkeypatch):
     assert tsc.count_batch(corpora).tolist() == [count_matches(c, pats, 1) for c in corpora]
 
 
-def test_count_batch_temporary_dp_route():
-    # k = 0 with 97 < m_max <= 512 under "auto": apm's XLA conv, here the
-    # batched DP (the temporary route count() takes too)
+def _conv_calls(monkeypatch):
+    from apm_torch.ops import corr_engine
+
+    calls = []
+    fn = corr_engine.scan_corr_batch
+    monkeypatch.setattr(corr_engine, "scan_corr_batch",
+                        lambda *a, **kw: calls.append(1) or fn(*a, **kw))
+    return calls
+
+
+def test_count_batch_conv_route(monkeypatch):
+    # k = 0 with 97 < m_max <= 512 under "auto": apm's XLA conv
+    # (scan_corr_batch), in the port conv1d
+    calls = _conv_calls(monkeypatch)
     pats = _patterns([100, 20], 790)
     corpora = _corpora(791, 0, pats[0])
-    _three_way_batch(pats, 0, corpora)
+    _, got = _three_way_batch(pats, 0, corpora)
+    assert calls and got[1, 0] >= 4
+
+
+@pytest.mark.parametrize(
+    "lengths,cfg",
+    [
+        ([50] * 9, dict(corr_impl="conv")),  # the fused gate holds; conv pinned
+        ([100], dict(engine="corr")),  # past the fused kernel
+    ],
+)
+def test_count_batch_conv_options(lengths, cfg, monkeypatch):
+    calls = _conv_calls(monkeypatch)
+    pats = _patterns(lengths, 801)
+    corpora = _corpora(802, 0, pats[0]) + [_corpus(2000, 800)]
+    _, got = _three_way_batch(pats, 0, corpora, batch_blocks=8, **cfg)
+    assert len(calls) == 2 and got[1, 0] >= 4
 
 
 def test_count_batch_refusals():
@@ -238,13 +266,10 @@ def test_count_batch_refusals():
                      (apm, JaxConfig(engine="corr", **PALLAS))):
         with pytest.raises(ValueError, match="corr"):
             pkg.Scanner([wide], 0, cfg).count_batch(corpora)
-    pats = _patterns([50] * 9, 801)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        apm_torch.Scanner(pats, 0, ApmConfig(device="cpu", corr_impl="conv")).count_batch(corpora)
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        apm_torch.Scanner(_patterns([100], 802), 0, ApmConfig(device="cpu", engine="corr")).count_batch(corpora)
-    with pytest.raises(ValueError, match="fused"):
-        apm_torch.Scanner(_patterns([100], 803), 0, ApmConfig(device="cpu", corr_impl="fused")).count_batch(corpora)
+    for pkg, cfg in ((apm_torch, ApmConfig(device="cpu", corr_impl="fused")),
+                     (apm, JaxConfig(corr_impl="fused", **PALLAS))):
+        with pytest.raises(ValueError, match="fused"):
+            pkg.Scanner(_patterns([100], 803), 0, cfg).count_batch(corpora)
 
 
 def test_batch_wrappers_check_their_inputs():

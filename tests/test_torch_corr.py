@@ -6,6 +6,11 @@ it for CPU tensors) must give exactly the counts of
 staged rows and tables, on the cases of ``tests/test_corr_fused.py``.
 Counts are integers: tolerance 0. The CUDA kernel is compared with the same
 plain version on the card (``chip_smoke.py`` phase 3).
+
+Also ``apm``'s XLA correlation conv at k = 0, which the port computes with
+``conv1d`` in float32: ``scan_corr_mxu`` and ``scan_corr_batch`` against
+``apm.ops.corr_engine``'s, at stride 1 and > 1, m up to 512, ``p_out``
+padding and the NUL-pattern ``n_rows`` mask.
 """
 
 import numpy as np
@@ -164,3 +169,146 @@ def test_corr_wrapper_checks_its_inputs():
     before = corr_fused.LAUNCHES
     corr_fused.scan_corr_fused(rows, tabs, 100, 0, **kw)
     assert corr_fused.LAUNCHES == before
+
+
+# -- apm's XLA correlation conv at k = 0 (scan_corr_mxu, scan_corr_batch) ----
+
+
+def _conv_tables(pats, n_pad=None):
+    """Port and apm conv tables over the real patterns (as the Scanners
+    build them), with the stride each picks; the tables must be equal."""
+    from apm.ops.corr_engine import build_kernel as jbuild
+    from apm_torch.ops import corr_engine
+
+    plens = [len(p) for p in pats]
+    m_max = max(plens)
+    raw = np.zeros((len(pats), m_max), np.uint8)
+    for i, p in enumerate(pats):
+        raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+    alph = build_alphabet(pats)
+    stride = corr_engine.pick_stride(len(pats))
+    kern, thr = corr_engine.build_kernel(raw, plens, alph, stride=stride)
+    jkern, jthr = jbuild(raw, plens, alph, stride=stride)
+    assert kern.dtype == np.float32 and np.array_equal(kern, np.asarray(jkern, np.float32))
+    assert np.array_equal(thr, jthr)
+    return kern, thr, jkern, jthr, alph, stride, m_max
+
+
+@pytest.mark.parametrize(
+    "lengths,nul",
+    [
+        ([50, 32], False),  # stride 32 (2 patterns)
+        ([120, 20, 64], False),  # stride 32, m past the fused kernel
+        ([40] * 30, False),  # stride 1 (> 24 patterns)
+        ([512, 300], False),  # m = 512: scores up to B * m = 1024
+        ([12, 40], True),  # NUL in the alphabet: the n_rows mask
+    ],
+)
+def test_scan_corr_mxu_matches_apm(lengths, nul):
+    import jax.numpy as jnp
+
+    from apm.ops.corr_engine import _group_rows as jgroup, scan_corr_mxu as jscan
+    from apm_torch.ops import corr_engine
+
+    alphabet = b"\x00\x01\x02" if nul else b"ACGT"
+    m_max = max(lengths)
+    wf = 512
+    halo = -(-(m_max - 1) // 128) * 128
+    n_rows = 11
+    corpus = _corpus((n_rows + 4) * wf + halo, 400 + m_max, alphabet)
+    pats = [b"\x00" * lengths[0]] if nul else []
+    pats += [bytes(_corpus(m, 410 + i, alphabet)) for i, m in enumerate(lengths[len(pats):])]
+    for i, p in enumerate(pats):
+        for pos in range(37 + 101 * i, len(corpus) - len(p), 1300 + 7 * i):
+            corpus[pos : pos + len(p)] = np.frombuffer(p, np.uint8)
+    if nul:
+        corpus[(n_rows - 1) * wf :] = 0  # zeros up to and past the staged rows
+    kern, thr, jkern, jthr, alph, stride, _ = _conv_tables(pats)
+    start = 2 * wf
+    rows = _rows_of(corpus[start:], wf, halo, n_rows + 3)  # 3 staging-padding rows
+    bound = start + (n_rows - 2) * wf + 171  # mid-row
+    p_out = -(-len(pats) // 8) * 8 + 8
+    g_rows = corr_engine._group_rows(wf + halo, len(alph), n_rows + 3)
+    assert g_rows == jgroup(wf + halo, len(alph), n_rows + 3)
+    want = np.asarray(jscan(
+        jnp.asarray(rows), jkern, jnp.asarray(jthr), jnp.asarray(alph),
+        jnp.asarray(bound, jnp.int32), jnp.asarray(start, jnp.int32),
+        wf=wf, m_max=m_max, n_rows=n_rows, g_rows=g_rows, stride=stride, p_out=p_out,
+    ))
+    got = corr_engine.scan_corr_mxu(
+        torch.from_numpy(rows), torch.from_numpy(kern), torch.from_numpy(thr),
+        torch.from_numpy(alph), bound, start, wf=wf, m_max=m_max, n_rows=n_rows,
+        g_rows=g_rows, stride=stride, p_out=p_out,
+    )
+    assert got.dtype == torch.int32 and got.shape == (p_out,)
+    assert got.tolist() == want.tolist()
+    # plants may overwrite each other; the padding columns count nothing
+    assert int(got.sum()) >= len(pats) and not got[len(pats):].any()
+
+
+def test_scan_corr_mxu_bf16_would_merge_a_miss_at_m512():
+    # the trap the port avoids: at m = 512 with B = 3 planes the threshold
+    # B * m = 1536 and the nearest miss 1534 are one bf16 value
+    t = torch.tensor([1536.0, 1534.0]).to(torch.bfloat16)
+    assert t[0] == t[1]
+    pat = bytes(_corpus(512, 430, b"ACGTN"))
+    kern, thr, *_ = _conv_tables([pat])
+    assert thr[0] == 3 * 512
+    from apm_torch.ops import corr_engine
+
+    wf, halo = 128, 512
+    corpus = _corpus(4 * wf + halo, 431, b"ACGTN")
+    corpus[10 : 10 + 512] = np.frombuffer(pat, np.uint8)
+    corpus[10 + 300] = ord("N") if pat[300] != ord("N") else ord("A")  # one substitution
+    corpus[140 : 140 + 512] = np.frombuffer(pat, np.uint8)
+    rows = torch.from_numpy(_rows_of(corpus, wf, halo, 4))
+    alph = torch.from_numpy(build_alphabet([pat]))
+    got = corr_engine.scan_corr_mxu(
+        rows, torch.from_numpy(kern), torch.from_numpy(thr), alph, 4 * wf, 0,
+        wf=wf, m_max=512, n_rows=4, g_rows=4, stride=kern.shape[2],
+    )
+    assert got.tolist() == [1]
+
+
+@pytest.mark.parametrize("lengths", [[50, 32], [40] * 30, [200, 100]])
+def test_scan_corr_batch_matches_apm(lengths):
+    import jax.numpy as jnp
+
+    from apm.ops.corr_engine import scan_corr_batch as jscan
+    from apm_torch.ops import corr_engine
+
+    m_max = max(lengths)
+    wf, fold = 256, 8
+    halo = -(-(m_max - 1) // 128) * 128
+    pats = [bytes(_corpus(m, 440 + i)) for i, m in enumerate(lengths)]
+    corpora = [_corpus(n, 450 + i) for i, n in enumerate([3000, 700, 5000])]
+    for i, p in enumerate(pats):
+        c = corpora[i % 3]
+        for pos in range(13 * i, len(c) - len(p), 997):
+            c[pos : pos + len(p)] = np.frombuffer(p, np.uint8)
+    kern, thr, jkern, jthr, alph, stride, _ = _conv_tables(pats)
+    w = fold * wf
+    rows = np.zeros((8 * fold, wf + halo), np.uint8)
+    limits = np.zeros((8 * fold,), np.int32)
+    slot = 0
+    for c in corpora:
+        db = len(c) - m_max + 1
+        for blk in range(-(-db // w)):
+            rows[slot * fold : (slot + 1) * fold] = _rows_of(c[blk * w :], wf, halo, fold)
+            limits[slot * fold : (slot + 1) * fold] = np.clip(db - blk * w - np.arange(fold) * wf, 0, wf)
+            slot += 1
+    assert slot < 8  # padding blocks (limits 0) last
+    p_out = 48
+    g_rows = 24  # groups do not divide the 64 rows: apm pads the last
+    want = np.asarray(jscan(
+        jnp.asarray(rows), jkern, jnp.asarray(jthr), jnp.asarray(alph), jnp.asarray(limits),
+        wf=wf, fold=fold, g_rows=g_rows, stride=stride, p_out=p_out,
+    ))
+    got = corr_engine.scan_corr_batch(
+        torch.from_numpy(rows), torch.from_numpy(kern), torch.from_numpy(thr),
+        torch.from_numpy(alph), torch.from_numpy(limits), wf=wf, fold=fold,
+        g_rows=g_rows, stride=stride, p_out=p_out,
+    )
+    assert got.dtype == torch.int32 and got.shape == (8, p_out)
+    assert got.tolist() == want.tolist()
+    assert int(got.sum()) >= len(pats) and not got[-1].any()

@@ -336,3 +336,114 @@ def test_find_on_card_matches_oracle(dev, k):
     for pi, p in enumerate(pats):
         assert got[pi].tolist() == np.nonzero(banded_distances(c, p, k) <= k)[0].tolist()
     assert filter_kernel.LAUNCHES > before[0] and dp_kernel.MASK_LAUNCHES > before[1]
+
+
+@pytest.mark.parametrize("k,lengths", [(1, [32, 50, 50]), (2, [32, 50, 50]), (4, [32, 50, 50]), (1, [20] * 17)])
+def test_pieces_kernel_matches_plain(dev, k, lengths):
+    # TPU kernel #7: the fused piece scan, fcnt and rowmap cell for cell
+    from apm_torch.ops import corr_fused
+    from apm_torch.ops.common import fold_corpus
+    from apm_torch.ops.corr_engine import build_alphabet
+    from apm_torch.ops.filter_kernel import tier_of
+    from apm_torch.utils.corpus import plant
+
+    wf, halo, n_rows = 1024, 128, 48
+    corpus = _corpus(n_rows * wf + 2048, 130 + k)
+    pats = [bytes(_corpus(m, 140 + i)) for i, m in enumerate(lengths)]
+    for i, p in enumerate(pats):
+        plant(corpus, np.frombuffer(p, np.uint8), range(300 + 97 * i, len(corpus) - 200, 5003),
+              k=k, seed=i)
+    _, raw, _, _, _ = _tables(pats, k, n_pad=-(-len(pats) // 8) * 8)
+    plens = tuple(len(p) if tier_of(len(p), k) else 0 for p in pats)
+    plens += (0,) * (raw.shape[0] - len(pats))
+    alph = build_alphabet(pats)
+    km, thr, owner64 = corr_fused.build_fused_piece_tables(raw, plens, k, alph)
+    tabs = corr_fused.PieceTables.from_numpy(km, thr, owner64, alph, dev)
+    rows = torch.from_numpy(fold_corpus(corpus, wf, n_rows, wf, halo)).to(dev)
+    kw = dict(wf=wf, halo=halo, n_rows=n_rows - 2)
+    bound = wf + (n_rows - 5) * wf + 611
+    before = corr_fused.PIECE_LAUNCHES
+    fcnt, rowmap = corr_fused.scan_pieces_fused(rows, tabs, bound, wf, **kw)
+    rf, rr = corr_fused.scan_pieces_fused_ref(rows, tabs, bound, wf, **kw)
+    assert corr_fused.PIECE_LAUNCHES == before + len(tabs.groups)
+    assert torch.equal(fcnt, rf) and torch.equal(rowmap, rr)
+    assert int(fcnt.sum()) > 0 and int(rowmap[n_rows - 4 :].sum()) == 0
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 20])
+def test_dyn_kernel_matches_plain_and_band(dev, k):
+    # TPU kernel #9: the band with the lengths in device memory, two length
+    # vectors through the same tensor, a device start and bound
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import fold_corpus
+
+    wf, n_rows = 1024, 64
+    corpus = _corpus(n_rows * wf + 512, 150 + k)
+    pats = [bytes(corpus[100:130]), bytes(corpus[5000:5041]), b"ACGTTGCA", bytes(corpus[9000:9012])]
+    pat, _, plens, m_max, halo = _tables(pats, k)
+    rows = torch.from_numpy(fold_corpus(corpus, 2 * wf, n_rows, wf, halo)).to(dev)
+    dpat = torch.from_numpy(pat).to(dev)
+    bound = 2 * wf + (n_rows - 3) * wf + 333
+    dplen = torch.zeros((8,), dtype=torch.int32, device=dev)
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo)
+    for lens in (plens, (0, 41, 8, 0, 12, 0, 0, 0)):
+        dplen.copy_(torch.tensor(lens, dtype=torch.int32))
+        before = dp_kernel.DYN_LAUNCHES
+        got = dp_kernel.scan_folded(rows, dpat, dplen, torch.tensor(bound, device=dev),
+                                    torch.tensor(2 * wf, device=dev), **kw)
+        assert dp_kernel.DYN_LAUNCHES == before + 1
+        ref = dp_kernel.scan_folded_ref(rows, dpat, dplen, bound, 2 * wf, **kw)
+        band = dp_kernel.scan_folded_dp(rows, dpat, bound, 2 * wf, plens=tuple(lens), **kw)
+        assert got.tolist() == ref.tolist() == band.tolist()
+        assert int(got.sum()) > 0
+
+
+def test_entry_on_card_matches_plain_and_oracle(dev):
+    from apm_torch import graft_entry
+    from apm_torch.ops import dp_kernel
+    from apm_torch.utils.oracle import banded_distances
+
+    fn, args = graft_entry.entry()
+    assert all(a.device.type == "cuda" for a in args)
+    got = fn(*args)
+    assert got.shape == (8,) and got.dtype == torch.int32
+    ref = dp_kernel.scan_folded_ref(*args, k=graft_entry.K, m_max=12,
+                                    wf=graft_entry.W // 8, halo=128)
+    corpus = graft_entry.example_corpus()
+    bound = int(args[3])
+    owned = [int((banded_distances(corpus, p, graft_entry.K)[:bound] <= graft_entry.K).sum())
+             for p in graft_entry.PATTERNS]
+    assert got.tolist() == ref.tolist() and got.tolist()[:2] == owned and sum(owned) > 0
+
+
+@pytest.mark.parametrize("k", [1, 2])
+def test_scanner_fused_phase1_on_card_matches_oracle(dev, k):
+    import apm_torch
+    from apm_torch.ops import corr_fused
+    from apm_torch.utils.corpus import plant
+    from apm_torch.utils.oracle import count_matches
+
+    c = _corpus(300_000, 160 + k, b"ACGT\n")
+    pats = [bytes(_corpus(32, 161)), bytes(_corpus(50, 162))]
+    plant(c, np.frombuffer(pats[1], np.uint8), range(1000, len(c) - 200, 20_000), k=k, seed=k)
+    before = corr_fused.PIECE_LAUNCHES
+    sc = apm_torch.Scanner(pats, k, apm_torch.ApmConfig(corr_impl="fused"))
+    assert sc.count(c).tolist() == count_matches(c, pats, k)
+    assert corr_fused.PIECE_LAUNCHES > before
+
+
+@pytest.mark.parametrize("lengths,cfg", [([32, 50], dict(corr_impl="conv")), ([120, 20], {})])
+def test_scanner_conv_k0_on_card_matches_oracle(dev, lengths, cfg):
+    import apm_torch
+    from apm_torch.utils.oracle import count_matches
+
+    c = _corpus(200_000, 170, b"ACGT\n")
+    pats = [bytes(_corpus(m, 171 + i)) for i, m in enumerate(lengths)]
+    for i, p in enumerate(pats):
+        for pos in range(500 + 77 * i, len(c) - 200, 30_011):
+            c[pos : pos + len(p)] = np.frombuffer(p, np.uint8)
+    sc = apm_torch.Scanner(pats, 0, apm_torch.ApmConfig(**cfg))
+    assert sc.count(c).tolist() == count_matches(c, pats, 0)
+    corpora = [c[:70_000], c[70_000:70_100], c[100_000:]]
+    got = sc.count_batch(corpora)
+    assert [g.tolist() for g in got] == [count_matches(x, pats, 0) for x in corpora]

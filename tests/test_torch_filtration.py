@@ -183,19 +183,19 @@ def _port_routes(tsc, n):
     from apm_torch.ops.dp_kernel import _is_myers
 
     plan = make_plan(tsc, n)
-    use_fused, plens_dp = tsc._routes(plan)
+    corr, fp1 = tsc._routes(plan)
     mode = lambda plens: "dp_myers" if _is_myers(
         tsc.k, tsc.m_max, plens, tsc._dp_alphabet(), tsc.config.dp_impl
     ) else "dp_band"
     out = []
     for i in range(len(plan.fmask)):
-        if use_fused and plan.plens_corr[i]:
-            out.append("corr_fused")
+        if corr and plan.plens_corr[i]:
+            out.append(f"corr_{corr}")
         elif plan.plens_filter[i]:
-            phase1 = "piece_conv" if plan.fp1_conv else "filter_pieces"
+            phase1 = {"conv": "piece_conv", "fused": "pieces_fused", None: "filter_pieces"}[fp1]
             out.append(phase1 if tsc.k == 0 else f"{phase1}+{mode(plan.plens_filter)}")
-        elif plens_dp[i]:
-            out.append(mode(plens_dp))
+        elif plan.plens_dp[i]:
+            out.append(mode(plan.plens_dp))
         else:
             out.append("-")
     return out
@@ -214,9 +214,6 @@ def test_routes_name_apms_kernels():
                     tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", **cfg))
                     want = _apm_routes(jsc, 1 << 22)
                     seen.update(want)
-                    # the one temporary route: apm's XLA conv at k = 0 and
-                    # 97 < m_max <= 512 is not ported; kernel A counts it
-                    want = ["dp_band" if r == "corr_conv" else r for r in want]
                     assert _port_routes(tsc, 1 << 22) == want, (lengths, k, cfg)
     assert {"corr_fused", "corr_conv", "dp_band", "dp_myers", "filter_pieces",
             "piece_conv+dp_band", "piece_conv+dp_myers",

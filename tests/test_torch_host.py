@@ -91,6 +91,17 @@ def test_fold_corpus_matches_apm(n, offset, n_rows, wf, halo):
     assert np.array_equal(out, want)
 
 
+@pytest.mark.parametrize("n,n_pad,halo", [(5000, 5120, 12), (0, 1024, 50), (1023, 1024, 0)])
+def test_pad_corpus_and_cap_match_apm(n, n_pad, halo):
+    from apm.ops.common import cap_for as jcap, pad_corpus as jpad
+    from apm_torch.ops.common import cap_for as tcap, pad_corpus as tpad
+
+    c = _corpus(n, 8)
+    got, want = tpad(c, n_pad, halo), jpad(c, n_pad, halo)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert [tcap(k) for k in range(20)] == [jcap(k) for k in range(20)]
+
+
 def test_block_windows_and_tiers_match_apm():
     from apm.ops import corr_engine as jce, filter_kernel as jfk
     from apm.parallel.plan import choose_block_windows as jcbw
@@ -404,7 +415,8 @@ def test_port_imports_without_jax():
         "         if m.name != 'apm_torch.__main__']  # runs the CLI\n"
         "for name in names:\n"
         "    importlib.import_module(name)\n"
-        "assert {'apm_torch.ops.fused', 'apm_torch.models.scanner', 'apm_torch.cli'} <= set(names)\n"
+        "assert {'apm_torch.ops.fused', 'apm_torch.models.scanner', 'apm_torch.cli',\n"
+        "        'apm_torch.graft_entry', 'apm_torch.ops.torch_engine'} <= set(names)\n"
         "assert not [m for m in sys.modules if m == 'apm' or m.startswith('apm.')], 'the port imported apm'\n"
         "print('ok')\n"
     )

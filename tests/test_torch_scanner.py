@@ -3,8 +3,8 @@
 ``apm_torch.Scanner(..., ApmConfig(device="cpu"))`` (plain PyTorch
 versions of the kernels), ``apm.Scanner`` (its Pallas kernels in interpret
 mode) and ``apm.utils.oracle.count_matches`` must give the same counts —
-integers, tolerance 0. Also: the routing decisions of this slice, and the
-options the port refuses instead of degrading quietly.
+integers, tolerance 0. Also: the routing decisions (``corr_impl`` at every
+k), and the options the port refuses instead of degrading quietly.
 """
 
 import numpy as np
@@ -35,15 +35,15 @@ def _corpus(n, seed, alphabet=b"ACGT\n"):
     return a[rng.integers(0, len(a), size=n)]
 
 
-def _three_way(corpus, pats, k, engine="auto"):
+def _three_way(corpus, pats, k, engine="auto", **cfg):
     want = count_matches(corpus, pats, k)
     jsc = apm.Scanner(
         pats, k,
         JaxConfig(backend="pallas", interpret=True, block_windows=1024,
-                  engine=engine),
+                  engine=engine, **cfg),
     )
     tsc = apm_torch.Scanner(
-        pats, k, ApmConfig(device="cpu", block_windows=1024, engine=engine)
+        pats, k, ApmConfig(device="cpu", block_windows=1024, engine=engine, **cfg)
     )
     got_j = jsc.count(corpus).tolist()
     got_t = tsc.count(corpus).tolist()
@@ -77,12 +77,12 @@ def test_scanner_corr_route_at_k0():
     tsc = _three_way(c, pats, 0)
     plan = make_plan(tsc, len(c))
     assert plan.use_corr
-    assert tsc._routes(plan) == (True, tuple(0 for _ in plan.plens_corr))
+    assert tsc._routes(plan) == ("fused", None)
 
 
-def test_scanner_long_patterns_k0_route_to_dp():
-    # 97 < m_max <= 512 at k = 0: apm's XLA conv is not ported; under
-    # engine='auto' the banded-DP path counts these exactly.
+def test_scanner_long_patterns_k0_route_to_conv():
+    # 97 < m_max <= 512 at k = 0 under engine='auto': past the fused
+    # kernel, apm runs its XLA conv; the port runs the same conv in conv1d
     from apm_torch.models.pipeline import make_plan
 
     c = _corpus(20_000, 8, b"ACGT")
@@ -90,7 +90,27 @@ def test_scanner_long_patterns_k0_route_to_dp():
     tsc = _three_way(c, pats, 0)
     plan = make_plan(tsc, len(c))
     assert plan.use_corr
-    assert tsc._routes(plan) == (False, plan.plens_corr)
+    assert tsc._routes(plan) == ("conv", None)
+
+
+@pytest.mark.parametrize("k", [0, 1])
+@pytest.mark.parametrize("corr_impl", ["auto", "conv", "fused"])
+def test_scanner_corr_impl_three_way(corr_impl, k):
+    # every corr_impl at k = 0 (kernel B or the conv) and k = 1 (conv phase
+    # 1: the piece conv, or kernel #7 under "fused"), with planted copies
+    from apm_torch.models.pipeline import make_plan
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(40_000, 500 + k)
+    p50, p32 = bytes(_corpus(50, 501, b"ACGT")), bytes(_corpus(32, 502, b"ACGT"))
+    plant(c, np.frombuffer(p50, np.uint8), [2000, 19_000, 30_001], k=k, seed=503)
+    plant(c, np.frombuffer(p32, np.uint8), [9000], k=0)
+    tsc = _three_way(c, [p32, p50], k, corr_impl=corr_impl)
+    corr, fp1 = tsc._routes(make_plan(tsc, len(c)))
+    if k == 0:
+        assert (corr, fp1) == ("conv" if corr_impl == "conv" else "fused", None)
+    else:
+        assert (corr, fp1) == (None, "fused" if corr_impl == "fused" else "conv")
 
 
 def test_scanner_tiny_corpora():
@@ -120,10 +140,6 @@ _P50 = bytes(_corpus(50, 13, b"ACGT"))
 @pytest.mark.parametrize(
     "cfg,k,pats,exc",
     [
-        # corr_impl="fused" at k >= 1 runs apm's fused piece scan (TPU
-        # kernel #7), not ported: refused whatever dp_impl asks for
-        (dict(corr_impl="fused"), 1, [_P32, _P50], NotImplementedError),
-        (dict(corr_impl="fused", dp_impl="myers"), 3, [_P50, _P50[::-1]], NotImplementedError),
         (dict(dp_dtype="int16"), 1, [b"ACGTACGTAC"], NotImplementedError),
         (dict(strategy="database_over_devices"), 0, [b"ACGT"], NotImplementedError),
         (dict(strategy="patterns_over_devices"), 0, [b"ACGT"], NotImplementedError),
@@ -134,6 +150,23 @@ def test_scanner_refuses_unported_options(cfg, k, pats, exc):
     c = _corpus(5_000, 11, b"ACGT")
     with pytest.raises(exc, match="ROADMAP|int32"):
         apm_torch.Scanner(pats, k, ApmConfig(device="cpu", **cfg)).count(c)
+
+
+@pytest.mark.parametrize(
+    "cfg,k,pats",
+    [
+        # corr_impl="fused" at k >= 1: conv phase 1 through the fused piece
+        # scan (TPU kernel #7), whatever dp_impl verifies with
+        (dict(corr_impl="fused"), 1, [_P32, _P50]),
+        (dict(corr_impl="fused", dp_impl="myers"), 3, [_P50, _P50[::-1]]),
+    ],
+)
+def test_scanner_fused_phase1_options(cfg, k, pats):
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(20_000, 11, b"ACGT")
+    plant(c, np.frombuffer(_P50, np.uint8), [1500, 12_000], k=k, seed=4)
+    _three_way(c, pats, k, **cfg)
 
 
 @pytest.mark.parametrize(
@@ -159,18 +192,26 @@ def test_scanner_runs_filter_engine_and_myers(cfg, k):
 @pytest.mark.parametrize(
     "cfg,exc",
     [
-        (dict(corr_impl="conv"), NotImplementedError),
+        (dict(corr_impl="conv"), None),
         (dict(engine="corr", corr_impl="fused"), ValueError),
-        (dict(engine="corr"), NotImplementedError),
+        (dict(engine="corr"), None),
     ],
 )
-def test_scanner_refuses_unported_correlation_routes(cfg, exc):
+def test_scanner_correlation_routes(cfg, exc):
+    # corr_impl="conv" and engine="corr" at m_max 120 run apm's conv
+    # (port == apm == oracle); "fused" past m_max 97 is refused by both
     c = _corpus(5_000, 10, b"ACGT")
     long_pat = [bytes(c[100:220])]  # m_max 120: past the fused kernel
     pats = long_pat if "engine" in cfg else [bytes(c[100:150])]
-    sc = apm_torch.Scanner(pats, 0, ApmConfig(device="cpu", **cfg))
-    with pytest.raises(exc):
-        sc.count(c)
+    c[3000 : 3000 + len(pats[0])] = np.frombuffer(pats[0], np.uint8)
+    if exc is None:
+        tsc = _three_way(c, pats, 0, **cfg)
+        assert tsc.count(c).tolist()[0] >= 2
+        return
+    for pkg, config in ((apm_torch, ApmConfig(device="cpu", **cfg)),
+                        (apm, JaxConfig(backend="pallas", interpret=True, **cfg))):
+        with pytest.raises(exc, match="fused"):
+            pkg.Scanner(pats, 0, config).count(c)
 
 
 @pytest.mark.parametrize(
