@@ -9,74 +9,130 @@
 // bytes outside the pattern alphabet encode to zero planes there and can
 // never reach the threshold, and the pattern bytes are the alphabet.
 // Sentinel slots (threshold 2^30 on the TPU) arrive here with m_p = 0 and
-// never count. The pattern bytes are decoded on the host from the TPU
-// tables (km, thr, alphabet), so loaded tables drive this kernel too.
+// never count. The pattern bytes, and each slot's 8-byte prefix word and
+// mask, are decoded on the host from the TPU tables (km, thr, alphabet), so
+// loaded tables drive this kernel too.
 //
-// What bounds it on an H100: memory and issue are both light. A window
-// costs about 1 + 1/|alphabet| byte compares per pattern on random text
-// before the first mismatch, so at a few patterns the kernel is bound by
-// reading the staged rows once (HBM) and by the per-pattern loop overhead.
+// What bounds it on an H100: at a few patterns, reading the staged rows
+// once (a 256 MB chunk: 0.08 ms at 3.35 TB/s) and the instructions around
+// each test (loads, prefix words, the slot loop), which a design of one
+// thread per window, a byte compare chain and a warp reduction per window
+// and pattern left at 2.8 % of the byte bound; at tens of patterns, the
+// integer compares, since every window is tested against every slot (at
+// P = 64 the loop over slots sets the time, 13-15 times P = 2's).
 //
-// Design: the TPU formulation (phase-split im2col, ±1 bit-planes, a matmul
-// per 128-byte K-tile) exists to feed the MXU; a per-window compare with
-// early exit needs none of it. One thread per window, text bytes read
-// through L1 (consecutive threads on consecutive bytes), pattern bytes the
-// same address for the whole block, counts reduced per pattern in shared
-// memory. A tensor-core formulation is later work. Staging padding (rows
-// at or past n_rows, windows past the bound) is masked by ownership, which
-// keeps a NUL byte in the alphabet exact.
+// Design (exact_scan.cuh): each thread owns 32 consecutive windows, read
+// with two 16-byte loads (the next item's loads in flight during this
+// item's compares); a window's 8-byte prefix is built from registers with
+// funnel shifts and tested against each slot's prefix word in three
+// instructions; only a prefix match reads the slot's remaining bytes; hits
+// are summed per slot in a register and reach the block's shared counter
+// only when nonzero, and the block's counters reach out[] with one atomic
+// per nonzero (block, pattern). The slots' prefix words, masks and lengths
+// sit in shared memory, loaded once per block; a launch holds up to 8192
+// slots (the wrapper's group), 24 bytes each. Staging padding (rows at or
+// past n_rows, windows past the bound) is masked by ownership, which keeps
+// a NUL byte in the alphabet exact.
 //
-// Batch mode (apm_corr_batch_count) replaces
+// Batch mode (kernel #8, apm_corr_batch_count) replaces
 // apm/ops/corr_fused.py::scan_corr_batch_fused (kernel body
-// _fused_batch_kernel): rows of many corpora, each row's ownership given
-// as limits[r] (its owned lanes, precomputed by the caller from the
-// corpus's bound), counts per block of `fold` rows into an
-// (R/fold, max(P, p_out)) output. A block's tiles belong to different row
-// blocks, so it flushes its shared counters into the tile's slot after
-// every tile (one atomic per nonzero slot and pattern); the TPU kernel
-// instead folds per-128-byte chunks with an owner matmul and sums them
-// outside the kernel. Bound as kernel B: a batch group (1024 rows, 8.5 MB)
-// is read once, so at that size the launch and the per-tile barriers, not
-// HBM, set its time.
+// _fused_batch_kernel) and keeps the first design: rows of many corpora,
+// each row's ownership given as limits[r] (its owned lanes, precomputed by
+// the caller from the corpus's bound), counts per block of `fold` rows into
+// an (R/fold, max(P, p_out)) output. One thread per window of a 256-window
+// tile; a block's tiles belong to different row blocks, so it flushes its
+// shared counters into the tile's slot after every tile (one atomic per
+// nonzero slot and pattern); the TPU kernel instead folds per-128-byte
+// chunks with an owner matmul and sums them outside the kernel. A batch
+// group (1024 rows, 8.5 MB) is read once, so at that size the launch and
+// the per-tile barriers, not HBM, set its time.
+#include "exact_scan.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
 using apm::kTile;
+namespace ex = apm::exact;
 
-struct CorrArgs {
+struct CountArgs {
+  const uint8_t* rows;  // (n_staged, row_stride) staged corpus rows
+  int64_t n_staged;
+  int64_t row_stride;   // wf + halo, a multiple of 16
+  int64_t n_rows;       // rows carrying real windows
+  const uint8_t* pat;   // (n_pat, pat_stride) pattern bytes
+  int64_t pat_stride;
+  const uint4* prefix;  // (n_pat,) prefix word lo, hi, mask lo, hi
+  const int32_t* plens; // (n_pat,) pattern lengths, 0 = sentinel slot
+  int n_pat;
+  int64_t wf;
+  int64_t bound;
+  int64_t start;
+  int32_t* out;         // (n_pat,) counts, accumulated with atomics
+};
+
+// 2 blocks an SM (ops/corr_fused.py's _EXACT_BLOCKS_PER_SM sizes the grid
+// to match).
+__global__ void __launch_bounds__(ex::kMaxThreads, 2)
+    corr_count_kernel(CountArgs a) {
+  extern __shared__ uint4 smem4[];
+  uint4* s_pre = smem4;                                       // (n_pat,)
+  int* s_cnt = reinterpret_cast<int*>(s_pre + a.n_pat);       // (n_pat,)
+  int* s_len = s_cnt + a.n_pat;                               // (n_pat,)
+  for (int i = threadIdx.x; i < a.n_pat; i += blockDim.x) {
+    s_pre[i] = a.prefix[i];
+    s_len[i] = a.plens[i];
+    s_cnt[i] = 0;
+  }
+  __syncthreads();
+
+  const int64_t rows = a.n_rows < a.n_staged ? a.n_rows : a.n_staged;
+  auto live = [=](int64_t r) {
+    return apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+  };
+  auto slots = [=](const ex::Chunk& ch, const uint32_t (&v)[ex::kW + 4],
+                   uint32_t own) {
+    const uint8_t* txt = a.rows + ch.r * a.row_stride + ch.j0;
+    for (int p = 0; p < a.n_pat; ++p) {
+      const int m = s_len[p];
+      if (m <= 0) continue;  // sentinel slot: uniform over the block
+      const uint32_t bits = ex::match_bits(v, s_pre[p]) & own;
+      if (bits != 0) {
+        const int c = ex::count_tails(bits, txt, a.pat + p * a.pat_stride, m);
+        if (c != 0) atomicAdd(&s_cnt[p], c);
+      }
+    }
+  };
+  ex::walk(a.rows, a.row_stride, rows, a.wf, live, slots, [](int64_t) {});
+  __syncthreads();
+  apm::flush_counts(s_cnt, a.out, a.n_pat);
+}
+
+struct BatchArgs {
   const uint8_t* rows;  // (n_staged, row_stride) staged corpus rows
   int64_t n_staged;
   int64_t row_stride;   // wf + halo
-  int64_t n_rows;       // rows carrying real windows
   const uint8_t* pat;   // (n_pat, pat_stride) pattern bytes
   int n_pat;
   int64_t pat_stride;
   const int32_t* plens; // (n_pat,) pattern lengths, 0 = sentinel slot
   int64_t wf;
-  int64_t bound;
-  int64_t start;
-  int32_t* out;         // (n_pat,) counts, accumulated with atomics
-  const int32_t* limits;  // batch mode: (n_staged,) owned lanes per row
-  int fold;             // batch mode: rows per count slot
-  int64_t out_stride;   // batch mode: slot b of the counts at out + b*stride
+  const int32_t* limits;  // (n_staged,) owned lanes per row
+  int fold;             // rows per count slot
+  int64_t out_stride;   // slot b of the counts at out + b*stride
+  int32_t* out;
 };
 
-__global__ void __launch_bounds__(kTile) corr_fused_kernel(CorrArgs a) {
+__global__ void __launch_bounds__(kTile) corr_batch_kernel(BatchArgs a) {
   extern __shared__ int s_cnt[];
   apm::zero_counts(s_cnt, a.n_pat);
   __syncthreads();
 
-  const int64_t rows = a.n_rows < a.n_staged ? a.n_rows : a.n_staged;
   const int64_t tiles_per_row = (a.wf + kTile - 1) / kTile;
-  const int64_t n_tiles = rows * tiles_per_row;
+  const int64_t n_tiles = a.n_staged * tiles_per_row;
   for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
     const int64_t r = t / tiles_per_row;
     const int64_t lane0 = (t - r * tiles_per_row) * kTile;
-    const int64_t limit =
-        a.limits != nullptr
-            ? apm::clip_lanes(a.limits[r], a.wf)
-            : apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+    const int64_t limit = apm::clip_lanes(a.limits[r], a.wf);
     if (lane0 >= limit) continue;  // uniform over the block
     const int64_t lane = lane0 + threadIdx.x;
     const bool own = lane < limit;
@@ -93,40 +149,43 @@ __global__ void __launch_bounds__(kTile) corr_fused_kernel(CorrArgs a) {
       }
       apm::add_hits(s_cnt, p, hit);
     }
-    if (a.limits != nullptr) {
-      __syncthreads();
-      apm::flush_and_reset(s_cnt, a.out + (r / a.fold) * a.out_stride,
-                           a.n_pat);
-      __syncthreads();
-    }
-  }
-  if (a.limits == nullptr) {
     __syncthreads();
-    apm::flush_counts(s_cnt, a.out, a.n_pat);
+    apm::flush_and_reset(s_cnt, a.out + (r / a.fold) * a.out_stride, a.n_pat);
+    __syncthreads();
   }
-}
-
-int run(const CorrArgs& a, int grid, void* stream) {
-  if (grid <= 0 || a.n_pat <= 0) return (int)cudaErrorInvalidValue;
-  corr_fused_kernel<<<grid, kTile, a.n_pat * sizeof(int),
-                      (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Adds each slot's exact-match count to out[p] (the caller zeroes out).
-// Returns the launch's cudaError_t (0 on success).
+// rows and row_stride must be multiples of 16 bytes, prefix 16-byte
+// aligned; `grid` blocks walk the rows grid-stride. Returns the launch's
+// cudaError_t (0 on success).
 extern "C" int apm_corr_fused_count(const uint8_t* rows, int64_t n_staged,
                                     int64_t row_stride, int64_t n_rows,
                                     const uint8_t* pat, int n_pat,
                                     int64_t pat_stride, const int32_t* plens,
-                                    int64_t wf, int64_t bound, int64_t start,
-                                    int32_t* out, int grid, void* stream) {
-  const CorrArgs a{rows,  n_staged, row_stride, n_rows, pat,     n_pat,
-                   pat_stride, plens, wf,       bound,  start,   out,
-                   nullptr, 1,     0};
-  return run(a, grid, stream);
+                                    const void* prefix, int64_t wf,
+                                    int64_t bound, int64_t start, int32_t* out,
+                                    int grid, void* stream) {
+  if (grid <= 0 || n_pat <= 0 || wf <= 0 || (uintptr_t)rows % 16 != 0 ||
+      row_stride % 16 != 0 || (uintptr_t)prefix % 16 != 0 ||
+      row_stride < wf + ex::kW + 8) {
+    return (int)cudaErrorInvalidValue;
+  }
+  const CountArgs a{rows,  n_staged, row_stride, n_rows,
+                    pat,   pat_stride, static_cast<const uint4*>(prefix),
+                    plens, n_pat,    wf,         bound, start, out};
+  const size_t smem = (size_t)n_pat * (sizeof(uint4) + 2 * sizeof(int));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        corr_count_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  corr_count_kernel<<<grid, ex::threads_for(wf), smem,
+                      (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 // Batch mode: row r owns lanes [0, limits[r]) and its counts are added to
@@ -139,12 +198,13 @@ extern "C" int apm_corr_batch_count(const uint8_t* rows, int64_t n_staged,
                                     const int32_t* limits, int fold,
                                     int32_t* out, int64_t out_stride,
                                     int grid, void* stream) {
-  if (limits == nullptr || fold <= 0 || n_staged % fold != 0 ||
-      out_stride < n_pat) {
+  if (grid <= 0 || n_pat <= 0 || limits == nullptr || fold <= 0 ||
+      n_staged % fold != 0 || out_stride < n_pat) {
     return (int)cudaErrorInvalidValue;
   }
-  const CorrArgs a{rows,  n_staged, row_stride, n_staged, pat,  n_pat,
-                   pat_stride, plens, wf,       0,        0,    out,
-                   limits, fold,   out_stride};
-  return run(a, grid, stream);
+  const BatchArgs a{rows,  n_staged, row_stride, pat,  n_pat,      pat_stride,
+                    plens, wf,       limits,     fold, out_stride, out};
+  corr_batch_kernel<<<grid, kTile, a.n_pat * sizeof(int),
+                      (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
 }

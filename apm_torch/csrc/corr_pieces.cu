@@ -3,13 +3,14 @@
 // Replaces apm/ops/corr_fused.py::scan_pieces_fused (kernel body
 // _fused_pieces_kernel). Same contract: staged rows (R, wf + halo) uint8,
 // the global window bound and start, n_rows, and the exact-tier pieces of
-// every pattern (bytes, length, owning pattern), decoded on the host from
-// the TPU's tables (km, thr, owner64). A staged row r is live iff
-// r < n_rows and start + r*wf < bound. For each live row, each piece q and
-// each position j in [0, wf + 64), the piece hits when the l_q text bytes
-// at j equal its bytes. rowpat[r, p] is the number of hits of p's pieces in
-// row r; the outputs are fcnt[p] = sum over rows of rowpat[r, p] and
-// rowmap[r, p] = (rowpat[r, p] > 0), both int32.
+// every pattern (bytes, length, owning pattern, 8-byte prefix word and
+// mask), decoded on the host from the TPU's tables (km, thr, owner64). A
+// staged row r is live iff r < n_rows and start + r*wf < bound. For each
+// live row, each piece q and each position j in [0, wf + 64), the piece
+// hits when the l_q text bytes at j equal its bytes. rowpat[r, p] is the
+// number of hits of p's pieces in row r; the outputs are fcnt[p] = sum
+// over rows of rowpat[r, p] and rowmap[r, p] = (rowpat[r, p] > 0), both
+// int32.
 //
 // The position bound wf + 64 is the TPU kernel's coverage bound (its two
 // 64-window phases per 128-byte chunk, masked by j < wf + 64), not the
@@ -18,32 +19,37 @@
 // (the wrapper checks halo >= 63 + l_max). The ±1 bit-plane matmul of the
 // TPU is its way to test byte equality (a byte outside the alphabet encodes
 // to zero planes and never reaches the threshold; piece bytes are alphabet
-// bytes), so a byte compare with early exit is the same function.
+// bytes), so a byte compare is the same function.
 //
-// What bounds it on an H100: instruction issue. On random DNA text a
-// piece's compare chain stops after one or two bytes, so a position costs a
-// few shared-memory loads and compares per piece, plus the piece loop and
-// one warp reduction per piece (~25 SASS instructions per piece and
-// position besides the compares); the staged rows are read once (HBM). At
-// 3 instructions per compare it reaches ~3 % of that bound: the per-piece
-// overhead, not the compares, is where a faster design has to cut.
+// What bounds it on an H100: instruction issue, every position tested
+// against every piece; the staged rows are read once (HBM). The
+// instructions around each test count as much as the test: a design of
+// one thread per position with a byte compare chain and one warp
+// reduction per piece and position (~25 SASS instructions per piece and
+// position besides the compares) reached 3.2 % of the bound.
 //
-// Design: the TPU's phase split, its roll of the text by 64 lanes and the
-// owner64 matmul feed the MXU and have no use here. A block walks tiles of
-// 256 positions of one row, grid-stride, one position per thread; it
-// stages the tile's text (256 + l_max - 1 bytes) and, once per launch, the
-// pieces (bytes, lengths, owners) in shared memory. Hits are reduced per
-// warp and counted per pattern in shared memory; after each tile a nonzero
-// counter sets rowmap[r, p] = 1 (a plain store: every writer stores the
-// same value) and adds to the block's totals, which reach fcnt with one
-// atomic per nonzero (block, pattern). Non-live rows are skipped whole.
-// Pieces and patterns come in launch groups (piece0, pat0) sized by the
-// wrapper so that shared memory holds them.
+// Design (exact_scan.cuh, shared with kernel B's count mode): a block
+// takes one staged row per item, 9 warps of 32 positions per thread
+// covering its wf + 64 positions at wf = 8192; each thread reads its text
+// with two 16-byte loads (the next row's loads in flight during this row's
+// compares) and tests each position's 8-byte prefix, built in registers,
+// against each piece's prefix word in three instructions. Exact-tier
+// pieces are at least 8 bytes at every k (filter_kernel.tier_of), so only
+// a prefix match reads the piece's remaining bytes. A thread sums a
+// piece's hits over its 32 positions in a register and adds the sum to the
+// row's shared counter of the piece's pattern only when nonzero. After the
+// row a nonzero counter sets rowmap[r, p] = 1 (a plain store: every writer
+// stores the same value) and adds to the block's totals, which reach fcnt
+// with one atomic per nonzero (block, pattern); the row counters come in
+// two halves, by row parity, so a row costs one barrier. Non-live rows
+// load and test nothing. Pieces and patterns come in launch groups
+// (piece0, pat0) sized by the wrapper so that shared memory holds them.
+#include "exact_scan.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
-using apm::kTile;
+namespace ex = apm::exact;
 
 // Positions past wf that the TPU kernel's second phase covers.
 constexpr int kReach = 64;
@@ -51,13 +57,14 @@ constexpr int kReach = 64;
 struct PieceArgs {
   const uint8_t* rows;   // (n_staged, row_stride) staged corpus rows
   int64_t n_staged;
-  int64_t row_stride;    // wf + halo
+  int64_t row_stride;    // wf + halo, a multiple of 16
   int64_t n_rows;        // rows carrying real windows
   const uint8_t* piece;  // (n_piece, piece_stride) piece bytes
   int n_piece;
-  int piece_stride;      // l_max of this group
+  int piece_stride;      // l_max of the tables
   const int32_t* plen;   // (n_piece,) piece lengths, <= 0 = padding slot
   const int32_t* owner;  // (n_piece,) owning pattern, in [pat0, pat0+n_pat)
+  const uint4* prefix;   // (n_piece,) prefix word lo, hi, mask lo, hi
   int pat0;
   int n_pat;
   int64_t wf;
@@ -68,66 +75,63 @@ struct PieceArgs {
   int64_t rowmap_stride;
 };
 
-__global__ void __launch_bounds__(kTile) pieces_fused_kernel(PieceArgs a) {
-  extern __shared__ int smem[];
-  int* s_tot = smem;                 // (n_pat,) block totals
-  int* s_tile = smem + a.n_pat;      // (n_pat,) this tile's hits
-  int* s_plen = smem + 2 * a.n_pat;  // (n_piece,)
-  int* s_own = s_plen + a.n_piece;   // (n_piece,) local pattern index
-  uint8_t* s_piece = reinterpret_cast<uint8_t*>(s_own + a.n_piece);
-  uint8_t* s_txt = s_piece + (int64_t)a.n_piece * a.piece_stride;
-
-  for (int i = threadIdx.x; i < 2 * a.n_pat; i += blockDim.x) smem[i] = 0;
+// 2 blocks an SM (ops/corr_fused.py's _EXACT_BLOCKS_PER_SM sizes the grid
+// to match; 3 an SM read no faster).
+__global__ void __launch_bounds__(ex::kMaxThreads, 2)
+    pieces_fused_kernel(PieceArgs a) {
+  extern __shared__ uint4 smem4[];
+  uint4* s_pre = smem4;                                        // (n_piece,)
+  int* s_len = reinterpret_cast<int*>(s_pre + a.n_piece);      // (n_piece,)
+  int* s_own = s_len + a.n_piece;    // (n_piece,) local pattern index
+  int* s_tot = s_own + a.n_piece;    // (n_pat,) block totals
+  // (2, n_pat) a row's hits, by the parity of the block's item: a row
+  // counts into one half while the other half, the previous row's, is
+  // flushed, so one barrier per row suffices
+  int* s_rows = s_tot + a.n_pat;
   for (int i = threadIdx.x; i < a.n_piece; i += blockDim.x) {
-    s_plen[i] = a.plen[i];
+    s_pre[i] = a.prefix[i];
+    s_len[i] = a.plen[i];
     s_own[i] = a.owner[i] - a.pat0;
   }
-  for (int i = threadIdx.x; i < a.n_piece * a.piece_stride; i += blockDim.x) {
-    s_piece[i] = a.piece[i];
-  }
+  for (int i = threadIdx.x; i < 3 * a.n_pat; i += blockDim.x) s_tot[i] = 0;
   __syncthreads();
+  int half = 0;  // the half this row counts into
 
-  const int64_t span = a.wf + kReach;  // positions per row
-  const int64_t tiles_per_row = (span + kTile - 1) / kTile;
   const int64_t rows = a.n_rows < a.n_staged ? a.n_rows : a.n_staged;
-  const int64_t n_tiles = rows * tiles_per_row;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t r = t / tiles_per_row;
-    if (a.start + r * a.wf >= a.bound) continue;  // not live: uniform
-    const int64_t j0 = (t - r * tiles_per_row) * kTile;
-
-    const uint8_t* row = a.rows + r * a.row_stride + j0;
-    const int64_t rest = a.row_stride - j0;
-    const int64_t want = kTile + a.piece_stride - 1;
-    const int n_txt = (int)(want < rest ? want : rest);
-    for (int i = threadIdx.x; i < n_txt; i += blockDim.x) s_txt[i] = row[i];
-    __syncthreads();
-
-    const bool active = j0 + threadIdx.x < span;
-    const uint8_t* txt = s_txt + threadIdx.x;
+  const int64_t span = a.wf + kReach;  // positions per row
+  auto live = [=](int64_t r) -> int64_t {
+    return a.start + r * a.wf < a.bound ? span : 0;
+  };
+  auto slots = [=, &half](const ex::Chunk& ch, const uint32_t (&v)[ex::kW + 4],
+                          uint32_t own) {
+    int* s_row = s_rows + half * a.n_pat;
+    const uint8_t* txt = a.rows + ch.r * a.row_stride + ch.j0;
     for (int q = 0; q < a.n_piece; ++q) {
-      const int l = s_plen[q];
+      const int l = s_len[q];
       if (l <= 0) continue;  // padding slot: uniform over the block
-      int hit = 0;
-      if (active) {
-        const uint8_t* pc = s_piece + (int64_t)q * a.piece_stride;
-        int i = 0;
-        while (i < l && txt[i] == pc[i]) ++i;
-        hit = i == l ? 1 : 0;
+      const uint32_t bits = ex::match_bits(v, s_pre[q]) & own;
+      if (bits != 0) {
+        const int c = ex::count_tails(
+            bits, txt, a.piece + (int64_t)q * a.piece_stride, l);
+        if (c != 0) atomicAdd(&s_row[s_own[q]], c);
       }
-      apm::add_hits(s_tile, s_own[q], hit);
     }
-    __syncthreads();
+  };
+  auto after = [=, &half](int64_t r) {
+    __syncthreads();  // this row's counts are in; the other half is zero
+    int* s_row = s_rows + half * a.n_pat;
     for (int p = threadIdx.x; p < a.n_pat; p += blockDim.x) {
-      const int v = s_tile[p];
+      const int v = s_row[p];
       if (v != 0) {
         a.rowmap[r * a.rowmap_stride + p] = 1;
         s_tot[p] += v;
-        s_tile[p] = 0;
+        s_row[p] = 0;
       }
     }
-    __syncthreads();  // counters reset and staged text free again
-  }
+    half ^= 1;
+  };
+  ex::walk(a.rows, a.row_stride, rows, span, live, slots, after);
+  __syncthreads();
   apm::flush_counts(s_tot, a.fcnt, a.n_pat);
 }
 
@@ -135,29 +139,35 @@ __global__ void __launch_bounds__(kTile) pieces_fused_kernel(PieceArgs a) {
 
 // Adds piece-hit totals to fcnt[pat0 + p] and sets rowmap[r * rowmap_stride
 // + pat0 + p] = 1 where row r holds a hit of pattern pat0 + p (the caller
-// zeroes both). Returns the launch's cudaError_t (0 on success).
+// zeroes both). rows and row_stride must be multiples of 16 bytes, prefix
+// 16-byte aligned; `grid` blocks walk the rows grid-stride. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int apm_pieces_fused_count(
     const uint8_t* rows, int64_t n_staged, int64_t row_stride, int64_t n_rows,
     const uint8_t* piece, int n_piece, int piece_stride, const int32_t* plen,
-    const int32_t* owner, int pat0, int n_pat, int64_t wf, int64_t bound,
-    int64_t start, int32_t* fcnt, int32_t* rowmap, int64_t rowmap_stride,
-    int grid, void* stream) {
+    const int32_t* owner, const void* prefix, int pat0, int n_pat, int64_t wf,
+    int64_t bound, int64_t start, int32_t* fcnt, int32_t* rowmap,
+    int64_t rowmap_stride, int grid, void* stream) {
   if (grid <= 0 || n_piece <= 0 || n_pat <= 0 || piece_stride <= 0 ||
-      row_stride < wf + kReach + piece_stride - 1) {
+      wf <= 0 || (uintptr_t)rows % 16 != 0 || row_stride % 16 != 0 ||
+      (uintptr_t)prefix % 16 != 0 ||
+      row_stride < wf + kReach + piece_stride - 1 ||
+      row_stride < wf + kReach + ex::kW + 8) {
     return (int)cudaErrorInvalidValue;
   }
   const PieceArgs a{rows,  n_staged, row_stride, n_rows, piece,
-                    n_piece, piece_stride, plen, owner, pat0,
-                    n_pat, wf,       bound,      start,  fcnt + pat0,
-                    rowmap + pat0, rowmap_stride};
-  const size_t smem = sizeof(int) * (2 * (size_t)n_pat + 2 * (size_t)n_piece) +
-                      (size_t)n_piece * piece_stride + kTile + piece_stride;
+                    n_piece, piece_stride, plen, owner,
+                    static_cast<const uint4*>(prefix), pat0, n_pat, wf,
+                    bound, start, fcnt + pat0, rowmap + pat0, rowmap_stride};
+  const size_t smem = (size_t)n_piece * (sizeof(uint4) + 2 * sizeof(int)) +
+                      3 * (size_t)n_pat * sizeof(int);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         pieces_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  pieces_fused_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(a);
+  pieces_fused_kernel<<<grid, ex::threads_for(wf + kReach), smem,
+                        (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -158,7 +158,7 @@ def library() -> ctypes.CDLL:
     lib.apm_dp_band_reg_max.restype = i32
     lib.apm_corr_fused_count.argtypes = [
         p, i64, i64, i64,  # rows, n_staged, row_stride, n_rows
-        p, i32, i64, p,  # pat, n_pat, pat_stride, plens
+        p, i32, i64, p, p,  # pat, n_pat, pat_stride, plens, prefix
         i64, i64, i64,  # wf, bound, start
         p, i32, p,  # out, grid, stream
     ]
@@ -172,7 +172,7 @@ def library() -> ctypes.CDLL:
     lib.apm_corr_batch_count.restype = i32
     lib.apm_pieces_fused_count.argtypes = [
         p, i64, i64, i64,  # rows, n_staged, row_stride, n_rows
-        p, i32, i32, p, p,  # piece, n_piece, piece_stride, plen, owner
+        p, i32, i32, p, p, p,  # piece, n_piece, piece_stride, plen, owner, prefix
         i32, i32,  # pat0, n_pat
         i64, i64, i64,  # wf, bound, start
         p, p, i64,  # fcnt, rowmap, rowmap_stride

@@ -17,7 +17,8 @@ version (:func:`scan_corr_fused_ref`) runs that TPU formulation itself:
 ±1 bit-plane encode, a float32 matmul against ``km``, threshold, per-row
 ownership, phase fold. The CUDA kernel (``csrc/corr_fused.cu``) compares
 bytes instead, from the pattern bytes :func:`decode_fused_tables` recovers
-from the same tables; the two compute the count two different ways.
+from the same tables and their 8-byte prefix words (:func:`prefix_words`);
+the two compute the count two different ways.
 
 Batch mode (:func:`scan_corr_batch_fused`, ``apm``'s
 ``scan_corr_batch_fused``, TPU kernel #8; ``Scanner.count_batch`` at
@@ -34,9 +35,14 @@ tested at every position ``j < wf + 64`` (``apm``'s coverage bound, not the
 ownership limit). Returns ``fcnt (P,)``, the hits summed over rows, and
 ``rowmap (R, P)``, 1 where a row holds a hit of the pattern, both int32.
 The CUDA kernel (``csrc/corr_pieces.cu``) compares the piece bytes that
-:func:`decode_fused_piece_tables` recovers from the tables; the plain
-version (:func:`scan_pieces_fused_ref`) compares shifted slices of the
-rows.
+:func:`decode_fused_piece_tables` recovers from the tables, prefix words
+first; the plain version (:func:`scan_pieces_fused_ref`) compares shifted
+slices of the rows.
+
+Both kernels read the staged rows with 16-byte vector loads: on the card
+the rows' pointer and row stride must be multiples of 16 bytes
+(:func:`check_aligned_rows`); a view at a row offset of staged rows
+(``rows[3:]``) is, since ``wf + halo`` is a multiple of 128.
 """
 
 from __future__ import annotations
@@ -62,9 +68,18 @@ _SINGLE_MAX = 1536  # apm's column-chunking threshold (pads P when above)
 _INT8_MIN_SLOTS = 32  # apm's int8-operand threshold
 _SENTINEL = 2**30  # threshold of padding slots: never reached
 
-_PAT_GROUP = 8192  # slots per launch (32 KB of shared counters)
-_BLOCKS_PER_SM = 8
+# Slots per launch. A block holds the group in shared memory, within the
+# 227 KB a block may take: kernel B's count mode 24 bytes a slot (prefix
+# word and mask, length, counter: 192 KB), its batch mode (#8) a 4-byte
+# counter; kernel #7 12 bytes a pattern (_PIECE_GROUP).
+_PAT_GROUP = 8192
+_BLOCKS_PER_SM = 8  # kernel #8: 256-thread blocks, one window a thread
 _TILE = 256
+# Kernels B (count mode) and #7 (csrc/exact_scan.cuh): a block covers at
+# most 288 threads x 32 windows of a row per grid-stride item, and their
+# __launch_bounds__ fit 2 blocks on an SM.
+_EXACT_SEG = 288 * 32
+_EXACT_BLOCKS_PER_SM = 2
 # Staged rows per matmul group of the plain version (bounds its memory).
 _REF_GROUP_BYTES = 256 << 20
 
@@ -176,16 +191,55 @@ def decode_fused_tables(
     return pat, plen
 
 
+def prefix_words(pat: np.ndarray, plen) -> np.ndarray:
+    """``(P, 2)`` uint64: each slot's 8-byte prefix word and its mask, as
+    kernels B and #7 test them.
+
+    The word packs the slot's first ``min(m, 8)`` bytes little-endian (byte
+    ``i`` in bits ``8i .. 8i + 7``), the mask holds 0xff in those bytes and
+    0 above them; a sentinel slot (``m = 0``) has word and mask 0. In
+    memory a row is four little-endian uint32: word lo, word hi, mask lo,
+    mask hi.
+    """
+    pat = np.asarray(pat, dtype=np.uint8).reshape(len(plen), -1)
+    n = np.minimum(np.asarray(plen, dtype=np.int64), 8)
+    keep = np.arange(8)[None, :] < n[:, None]  # (P, 8)
+    head = np.zeros((len(n), 8), dtype=np.uint8)
+    w = min(8, pat.shape[1])
+    head[:, :w] = pat[:, :w]
+    out = np.empty((len(n), 2), dtype=np.uint64)
+    out[:, 0] = np.where(keep, head, 0).astype(np.uint8).view("<u8")[:, 0]
+    out[:, 1] = np.where(keep, 0xFF, 0).astype(np.uint8).view("<u8")[:, 0]
+    return out
+
+
+def _prefix_tensor(pat, plen, dev) -> torch.Tensor:
+    """:func:`prefix_words` as a ``(P, 2)`` int64 tensor (the same bits)."""
+    return torch.from_numpy(prefix_words(pat, plen).view(np.int64)).to(dev)
+
+
+def check_aligned_rows(rows: torch.Tensor) -> None:
+    """Raise unless kernels B and #7 can read ``rows`` with 16-byte vector
+    loads: unit column stride, and the data pointer and the row stride
+    multiples of 16 bytes. No copy is made in their stead."""
+    if rows.stride(1) != 1 or rows.data_ptr() % 16 or rows.stride(0) % 16:
+        raise ValueError(
+            f"rows at {rows.data_ptr():#x} with strides {tuple(rows.stride())}: the "
+            "kernel needs unit column stride and a 16-byte aligned pointer and row stride"
+        )
+
+
 @dataclass(frozen=True)
 class FusedTables:
-    """The fused tables on one device, with the pattern bytes kernel B
-    reads (decoded from ``km``/``thr``/``alph`` once)."""
+    """The fused tables on one device, with the pattern bytes and prefix
+    words kernel B reads (decoded from ``km``/``thr``/``alph`` once)."""
 
     km: torch.Tensor  # (B*128, s_ph*p) float32 or int8
     thr: torch.Tensor  # (1, s_ph*p) float32 or int32
     alph: torch.Tensor  # (C,) uint8, sorted pattern alphabet
     pat: torch.Tensor  # (p, m) uint8 decoded pattern bytes
     plen: torch.Tensor  # (p,) int32 decoded lengths, 0 = sentinel slot
+    prefix: torch.Tensor  # (p, 2) int64 prefix words and masks (prefix_words)
     s_ph: int
     b_planes: int
 
@@ -206,6 +260,7 @@ class FusedTables:
             alph=torch.from_numpy(np.asarray(alph, dtype=np.uint8).copy()).to(dev),
             pat=torch.from_numpy(pat).to(dev),
             plen=torch.from_numpy(plen).to(dev),
+            prefix=_prefix_tensor(pat, plen, dev),
             s_ph=s_ph,
             b_planes=n_bitplanes(len(alph)),
         )
@@ -251,33 +306,33 @@ def scan_corr_fused(
     return _launch(rows, tables, int(bound), int(start), wf, n_rows, p_out)
 
 
-def _grid(dev, n_rows: int, wf: int) -> int:
-    n_tiles = n_rows * -(-wf // _TILE)
+def _grid(dev, n_items: int, per_sm: int) -> int:
+    """Blocks of a grid-stride launch: ``per_sm`` on every SM, at most one
+    per item."""
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+    return max(1, min(n_items, sms * per_sm))
 
 
 def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
     global LAUNCHES
     from ._build import check, library
 
+    check_aligned_rows(rows)
     lib = library()
     dev = rows.device
-    rows = rows.contiguous()
     p = tables.p
     out = torch.zeros((max(p, p_out),), dtype=torch.int32, device=dev)
-    live_rows = min(n_rows, rows.shape[0])
-    if live_rows == 0:
+    if min(n_rows, rows.shape[0]) == 0:
         return out
-    grid = _grid(dev, live_rows, wf)
+    grid = _grid(dev, min(n_rows, rows.shape[0]) * -(-wf // _EXACT_SEG), _EXACT_BLOCKS_PER_SM)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    pat, plen = tables.pat, tables.plen
+    pat, plen, prefix = tables.pat, tables.plen, tables.prefix
     for g0 in range(0, p, _PAT_GROUP):
         ng = min(_PAT_GROUP, p - g0)
         err = lib.apm_corr_fused_count(
-            rows.data_ptr(), rows.shape[0], rows.shape[1], n_rows,
+            rows.data_ptr(), rows.shape[0], rows.stride(0), n_rows,
             pat[g0].data_ptr(), ng, pat.shape[1], plen[g0].data_ptr(),
-            wf, bound, start, out[g0].data_ptr(), grid, stream,
+            prefix[g0].data_ptr(), wf, bound, start, out[g0].data_ptr(), grid, stream,
         )
         check(err, "apm_corr_fused_count")
         LAUNCHES += 1
@@ -326,7 +381,7 @@ def scan_corr_batch_fused(
     p = tables.p
     width = max(p, p_out)
     out = torch.zeros((rows.shape[0] // fold, width), dtype=torch.int32, device=dev)
-    grid = _grid(dev, rows.shape[0], wf)
+    grid = _grid(dev, rows.shape[0] * -(-wf // _TILE), _BLOCKS_PER_SM)
     stream = torch.cuda.current_stream(dev).cuda_stream
     pat, plen = tables.pat, tables.plen
     for g0 in range(0, p, _PAT_GROUP):
@@ -431,9 +486,10 @@ def scan_corr_batch_fused_ref(
 
 # -- kernel #7: the fused piece scan ------------------------------------------
 
-# Piece slots per launch of kernel #7: its shared memory holds the group's
-# piece bytes (<= 1024 x 65), lengths and owners, and two counters for each
-# of the group's <= _PAT_GROUP patterns.
+# Piece slots per launch of kernel #7: its shared memory holds 24 bytes a
+# piece (prefix word and mask, length, owner) and 12 a pattern (the block's
+# total and a row's count in two halves) for the group's <= _PAT_GROUP
+# patterns: 120 KB at most, within the 227 KB a block may take.
 _PIECE_GROUP = 1024
 
 
@@ -561,11 +617,12 @@ def _piece_groups(plen: np.ndarray, owner: np.ndarray) -> tuple:
 @dataclass(frozen=True)
 class PieceTables:
     """The piece tables on one device, as kernel #7 reads them (decoded from
-    ``km``/``thr``/``owner64`` once)."""
+    ``km``/``thr``/``owner64`` once, with the pieces' prefix words)."""
 
     piece: torch.Tensor  # (Np, l_max) uint8 piece bytes
     plen: torch.Tensor  # (Np,) int32 piece lengths, 0 = sentinel slot
     owner: torch.Tensor  # (Np,) int32 owning pattern, -1 = sentinel slot
+    prefix: torch.Tensor  # (Np, 2) int64 prefix words and masks (prefix_words)
     n_pat: int  # pattern columns of owner64 (the outputs' P)
     groups: tuple  # (q0, q1, p0, p1) launch groups (_piece_groups)
 
@@ -577,6 +634,7 @@ class PieceTables:
             piece=torch.from_numpy(piece).to(dev),
             plen=torch.from_numpy(plen).to(dev),
             owner=torch.from_numpy(owner).to(dev),
+            prefix=_prefix_tensor(piece, plen, dev),
             n_pat=int(np.asarray(owner64).shape[1]),
             groups=_piece_groups(plen, owner),
         )
@@ -619,24 +677,24 @@ def scan_pieces_fused(
     global PIECE_LAUNCHES
     from ._build import check, library
 
+    check_aligned_rows(rows)
     lib = library()
     dev = rows.device
-    rows = rows.contiguous()
     r_rows, p = rows.shape[0], tables.n_pat
     fcnt = torch.zeros((p,), dtype=torch.int32, device=dev)
     rowmap = torch.zeros((r_rows, p), dtype=torch.int32, device=dev)
-    live_rows = min(n_rows, r_rows)
-    if live_rows == 0 or not tables.groups:
+    if min(n_rows, r_rows) == 0 or not tables.groups:
         return fcnt, rowmap
-    grid = _grid(dev, live_rows, wf + _PIECE_REACH)
+    span = wf + _PIECE_REACH
+    grid = _grid(dev, min(n_rows, r_rows) * -(-span // _EXACT_SEG), _EXACT_BLOCKS_PER_SM)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    piece, plen, owner = tables.piece, tables.plen, tables.owner
+    piece, plen, owner, prefix = tables.piece, tables.plen, tables.owner, tables.prefix
     for q0, q1, p0, p1 in tables.groups:
         err = lib.apm_pieces_fused_count(
-            rows.data_ptr(), r_rows, rows.shape[1], n_rows,
+            rows.data_ptr(), r_rows, rows.stride(0), n_rows,
             piece[q0].data_ptr(), q1 - q0, piece.shape[1], plen[q0].data_ptr(),
-            owner[q0].data_ptr(), p0, p1 - p0, wf, int(bound), int(start),
-            fcnt.data_ptr(), rowmap.data_ptr(), p, grid, stream,
+            owner[q0].data_ptr(), prefix[q0].data_ptr(), p0, p1 - p0, wf,
+            int(bound), int(start), fcnt.data_ptr(), rowmap.data_ptr(), p, grid, stream,
         )
         check(err, "apm_pieces_fused_count")
         PIECE_LAUNCHES += 1

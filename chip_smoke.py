@@ -20,8 +20,11 @@ Phases, one line each; any failure exits non-zero:
    256 MB chunk;
 3. kernel B (fused k = 0 correlation, ``csrc/corr_fused.cu``) against its
    plain version (the TPU's bit-plane matmul formulation) at P = 2, P = 64
-   (int8 tables) and m = 80 (32-phase tables), and at P = 2 on the 32768
-   rows of a 256 MB main-path chunk;
+   (int8 tables) and m = 80 (32-phase tables), and at P = 2 and P = 64 on
+   the 32768 rows of a 256 MB main-path chunk; its edge cases at small
+   size: patterns of 1, 3 and 7 bytes and m = 97, all-A text against A^m
+   patterns (every window hits), rows taken as a view at a row offset with
+   start > 0 and a bound inside a thread's tile of windows;
 3b. kernel D (shift-OR piece filter, ``csrc/filter_pieces.cu``) against its
    plain version, candidate totals and row maps cell for cell: k = 0 on a
    short set, k = 1 and k = 3 exact tier, k = 8 and k = 16 banded tier,
@@ -60,7 +63,9 @@ Phases, one line each; any failure exits non-zero:
    plain version, fcnt and row map cell for cell, on the Scanner's piece
    tables of the reference-shaped set under ``corr_impl="fused"`` at
    k = 1, 2 and 4, at 4096 rows and on the 32768 rows of a 256 MB chunk,
-   timed beside the piece conv that ``corr_impl="auto"`` runs;
+   timed beside the piece conv that ``corr_impl="auto"`` runs; its edge
+   cases at small size: 8- and 9-byte pieces and m = 65, all-A text (every
+   position hits), and P = 64 (128 pieces, also timed at 4096 rows);
 4b. (in phase 4, 256 MB) k = 0 through ``apm``'s correlation conv (plain
    PyTorch ``conv1d``): ``corr_impl="conv"`` on the reference-shaped set
    and ``auto`` at m_max = 120, gated like phase 4, MB/s beside kernel B
@@ -165,11 +170,10 @@ INT_ISSUE_PER_S = 132 * 128 * 1.98e9
 # sass_loops; loads, address arithmetic and loop overhead included): kernel A's k = 1 step loop (dp_band.cu, KE = 1)
 # issues 80 instructions per 4 unrolled steps of 3 band cells; kernel C's
 # static and moving loops (dp_myers.cu) 103 and 125 per 4 unrolled steps.
-# The early-exit byte compares (corr_fused.cu, filter_pieces.cu) are
-# counted as 3 (load, compare, branch; the SASS loop issues 6.5 per compare
-# with its address arithmetic, so the bound stays below the true floor),
-# kernel D's shift OR per window and shift as 2 (a shared-memory load and
-# an or).
+# The early-exit byte compares an exact scan needs (bytes compared up to
+# the first mismatch: the work of kernels B, #7 and D, however a kernel
+# does it) are counted as 3 each (load, compare, branch), kernel D's shift
+# OR per window and shift as 2 (a shared-memory load and an or).
 BAND_K1_STEP_INSTR = 20
 MYERS_STATIC_STEP_INSTR = 103 / 4
 MYERS_MOVING_STEP_INSTR = 125 / 4
@@ -190,11 +194,12 @@ def myers_instr(owned: int, plens, k: int) -> int:
     return int(owned * per_window)
 
 
-def sass_loops(lib_path: str, kernel: str) -> str:
+def sass_loops(lib_path: str, kernel: str, nested: bool = False) -> str:
     """Instruction counts of the innermost loops of ``kernel`` in the built
     library's SASS (``cuobjdump -sass``), the source of the per-step counts
     above: ``start-end: N instructions, L global and S shared loads`` for
-    each backward branch that encloses no other."""
+    each backward branch that encloses no other. ``nested``: every loop
+    instead, each counted without the loops inside it."""
     import re
     import shutil
 
@@ -209,13 +214,28 @@ def sass_loops(lib_path: str, kernel: str) -> str:
         m = re.search(r"BRA\s+.*?0x([0-9a-f]+)", op)
         if m and int(m.group(1), 16) < a:
             loops.append((int(m.group(1), 16), a, i))
-    inner = [l for l in loops if not any(o != l and l[0] <= o[0] and o[1] <= l[1] for o in loops)]
+    inside = lambda l, o: o != l and l[0] <= o[0] and o[1] <= l[1]  # o in l
+    inner = [l for l in loops if nested or not any(inside(l, o) for o in loops)]
     out = []
     for t, a, i in inner:
-        body = [op for b, op in ins[: i + 1] if b >= t]
+        holes = [o for o in loops if inside((t, a, i), o)]
+        body = [op for b, op in ins[: i + 1]
+                if b >= t and not any(o[0] <= b <= o[1] for o in holes)]
         out.append(f"{t:#x}-{a:#x}: {len(body)} instructions, "
                    f"{sum('LDG' in op for op in body)} global and {sum('LDS' in op for op in body)} shared loads")
     return "; ".join(out) or "no loop found"
+
+
+def ptxas_of(log: str, kernel: str) -> str:
+    """Registers, spills and shared memory of ``kernel`` in the ``nvcc
+    -Xptxas -v`` output of the build."""
+    out, inside = [], False
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            inside = kernel in line
+        elif inside and ("spill" in line or "registers" in line):
+            out.append(line.split(":", 1)[-1].strip() if "registers" in line else line.strip())
+    return "; ".join(out) or "not found"
 
 
 def bound_of(n_bytes: float, ops: float):
@@ -422,7 +442,7 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     rows_main = staged(corpus, 0, main_rows, wf, halo, dev)
     rows = rows_main[:n_rows]  # leading rows: a contiguous view
 
-    def case(pats, what, rows=rows, reps=5, plain_reps=2, record=False):
+    def case(pats, what, rows=rows, reps=5, plain_reps=2, record=False, start=0, bound=None):
         n_rows = rows.shape[0]
         m_max = max(len(p) for p in pats)
         pat_raw = np.zeros((len(pats), m_max), np.uint8)
@@ -431,15 +451,16 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         alph = build_alphabet(pats)
         km, thr = corr_fused.build_fused_tables(pat_raw, [len(p) for p in pats], alph)
         tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(m_max), dev)
-        bound = n_rows * wf - m_max + 1 - 333
+        if bound is None:
+            bound = n_rows * wf - m_max + 1 - 333
         kw = dict(wf=wf, halo=halo, n_rows=n_rows, p_out=8)
-        got = corr_fused.scan_corr_fused(rows, tabs, bound, 0, **kw)
-        ref = corr_fused.scan_corr_fused_ref(rows, tabs, bound, 0, **kw)
+        got = corr_fused.scan_corr_fused(rows, tabs, bound, start, **kw)
+        ref = corr_fused.scan_corr_fused_ref(rows, tabs, bound, start, **kw)
         torch.cuda.synchronize()
         rec.compare(got, ref, what)
         need(int(got.sum()) >= len(pats), f"kernel B {what}: planted copies not found")
-        ms = cuda_ms(lambda: corr_fused.scan_corr_fused(rows, tabs, bound, 0, **kw), reps)
-        plain = cuda_ms(lambda: corr_fused.scan_corr_fused_ref(rows, tabs, bound, 0, **kw), plain_reps)
+        ms = cuda_ms(lambda: corr_fused.scan_corr_fused(rows, tabs, bound, start, **kw), reps)
+        plain = cuda_ms(lambda: corr_fused.scan_corr_fused_ref(rows, tabs, bound, start, **kw), plain_reps)
         say(f"phase 3 kernel B {what} R={n_rows} ({km.dtype} tables, s_ph={tabs.s_ph}): equal, "
             f"total {int(got.sum())}, kernel {ms:.3f} ms, plain {plain:.3f} ms")
         if record:
@@ -458,11 +479,21 @@ def phase_corr(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     pair = [random_pattern(32, seed=1).tobytes(), random_pattern(50, seed=2).tobytes()]
     wide = [random_pattern(50, seed=100 + i).tobytes() for i in range(64)]
     mid = [random_pattern(80, seed=200).tobytes(), random_pattern(70, seed=201).tobytes()]
-    planted(pair + wide + mid)
+    short = [random_pattern(m, seed=210 + m).tobytes() for m in (1, 3, 7, 97)]
+    planted(pair + wide + mid + short)
     case(pair, "P=2 m=32,50")
     case(pair, "P=2 m=32,50 (a 256 MB chunk)", rows=rows_main, record=True)
     case(wide, "P=64 m=50")
+    case(wide, "P=64 m=50 (a 256 MB chunk)", rows=rows_main, reps=3, plain_reps=1)
     case(mid, "P=2 m=70,80")
+    # edge cases, small: masked prefixes and m = 97; a view at a row offset
+    # with start > 0 and a bound 17 windows into a thread's tile
+    case(short, "P=4 m=1,3,7,97", rows=rows[:512], reps=2, plain_reps=1)
+    case(pair, "P=2 rows[3:515] start>0 bound inside a tile", rows=rows_main[3:515], reps=2,
+         plain_reps=1, start=3 * wf, bound=3 * wf + 500 * wf + 17)
+    dense = torch.full((64, wf + halo), ord("A"), dtype=torch.uint8, device=dev)
+    case([b"A" * m for m in (1, 3, 8, 50, 97)], "all-A text, A^m patterns (every window hits)",
+         rows=dense, reps=2, plain_reps=1)
 
 
 def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
@@ -896,6 +927,50 @@ def phase_pieces(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
                 out_bytes = 4 * tabs.n_pat * (1 + rows.shape[0])
                 in_bytes = rows.numel() + tabs.piece.numel() + 8 * tabs.plen.numel()
                 rec.measured(ms, plain_ms, in_bytes + out_bytes, ops, what)
+
+    # edge cases on tables built from pattern sets directly: 8- and 9-byte
+    # pieces and m = 65 (k = 1 pieces of 16, 17 and 65 bytes; the 1-, 3-
+    # and 7-byte patterns have none), all-A text where every position hits,
+    # and P = 64 (128 pieces), timed at 4096 rows
+    from apm_torch.ops.filter_kernel import tier_of
+
+    dense = torch.full((64, wf + halo), ord("A"), dtype=torch.uint8, device=dev)
+    edges = (
+        ([random_pattern(m, seed=380 + m).tobytes() for m in (1, 3, 7, 16, 17, 65)],
+         rows_main[5:517], "k=1 m=1,3,7,16,17,65 R=512"),
+        ([b"A" * 32, b"A" * 50], dense, "k=1 all-A text, A^32 and A^50 (every position hits)"),
+        ([random_pattern(50, seed=400 + i).tobytes() for i in range(64)], rows_main[:n_rows],
+         f"k=1 P=64 m=50 R={n_rows}"),
+    )
+    for pats, rows, what in edges:
+        host = rows.cpu().numpy()
+        for i, p in enumerate(pats):  # one exact copy each, a few rows apart
+            r, lane = (3 + 7 * i) % rows.shape[0], 200 + 61 * i
+            host[r, lane : lane + len(p)] = np.frombuffer(p, np.uint8)
+        rows = torch.from_numpy(host).to(dev)
+        m_max = max(len(p) for p in pats)
+        p_pad = -(-len(pats) // 8) * 8
+        raw = np.zeros((p_pad, m_max), np.uint8)
+        for i, p in enumerate(pats):
+            raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+        plens = tuple(len(p) if tier_of(len(p), 1) else 0 for p in pats) + (0,) * (p_pad - len(pats))
+        alph = corr_engine.build_alphabet(pats)
+        tabs = corr_fused.PieceTables.from_numpy(
+            *corr_fused.build_fused_piece_tables(raw, plens, 1, alph), alph, dev)
+        bound, kw = rows.shape[0] * wf - 999, dict(wf=wf, halo=halo, n_rows=rows.shape[0])
+        kern = lambda: corr_fused.scan_pieces_fused(rows, tabs, bound, 0, **kw)
+        plain = lambda: corr_fused.scan_pieces_fused_ref(rows, tabs, bound, 0, **kw)
+        fcnt, rowmap = kern()
+        rf, rr = plain()
+        torch.cuda.synchronize()
+        rec.compare(fcnt, rf, what + " fcnt")
+        rec.compare(rowmap, rr, what + " rowmap")
+        need(int((fcnt[: len(pats)] > 0).sum()) == sum(1 for m in plens if m),
+             f"kernel #7 {what}: a pattern's planted copy was not found")
+        ms, plain_ms = cuda_ms(kern, 3), cuda_ms(plain, 1)
+        say(f"phase 3d kernel #7 {what}: {int((tabs.plen > 0).sum())} pieces of lengths "
+            f"{sorted(set(tabs.plen[tabs.plen > 0].tolist()))}, fcnt and rowmap equal, fcnt total "
+            f"{int(fcnt.sum())}, kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
 
 
 def phase_e2e_batch(main, dev, n_corpora: int = 64, lo: int = 1 << 19, hi: int = 8 << 20) -> None:
@@ -1407,8 +1482,12 @@ def run(t_start: float) -> dict:
     say(f"phase 1 environment: torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
         f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
-    for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel", "pieces_fused_kernel"):
+    for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
         say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
+    for kernel in ("corr_count_kernel", "pieces_fused_kernel"):  # the exact-scan kernels
+        say(f"phase 1 SASS loops of {kernel} (each without the loops inside it): "
+            f"{sass_loops(str(_build.build()), kernel, nested=True)}")
+        say(f"phase 1 ptxas of {kernel}: {ptxas_of(_build.build_log(), kernel)}")
     dev = torch.device("cuda", 0)
 
     recs = {

@@ -312,3 +312,77 @@ def test_scan_corr_batch_matches_apm(lengths):
     assert got.dtype == torch.int32 and got.shape == (8, p_out)
     assert got.tolist() == want.tolist()
     assert int(got.sum()) >= len(pats) and not got[-1].any()
+
+
+# -- the prefix words of kernels B and #7 --------------------------------------
+
+
+def _packed(b: bytes):
+    """Little-endian word of a slot's first min(m, 8) bytes, and its mask."""
+    n = min(len(b), 8)
+    return int.from_bytes(b[:n], "little"), (1 << 8 * n) - 1
+
+
+@pytest.mark.parametrize("m", range(1, corr_fused.M_MAX_FUSED + 1))
+def test_prefix_words_of_every_pattern_length(m):
+    # a NUL byte inside the pattern, a sentinel slot, and the words the
+    # tables carry after the round trip through apm's ±1 layout
+    rng = np.random.default_rng(600 + m)
+    pat = bytearray(_corpus(m, 700 + m).tobytes())
+    pat[(m - 1) // 2] = 0
+    pat = bytes(pat)
+    short = pat[: max(1, m // 3)]
+    raw = np.zeros((3, m), np.uint8)
+    raw[0] = np.frombuffer(pat, np.uint8)
+    raw[2, : len(short)] = np.frombuffer(short, np.uint8)
+    raw[1] = rng.integers(0, 256, m)  # bytes of a sentinel slot are ignored
+    got = corr_fused.prefix_words(raw, [m, 0, len(short)])
+    assert got.dtype == np.uint64 and got.shape == (3, 2)
+    assert [int(x) for x in got[0]] == list(_packed(pat))
+    assert [int(x) for x in got[1]] == [0, 0]
+    assert [int(x) for x in got[2]] == list(_packed(short))
+    pats = [pat, short]
+    alph = build_alphabet(pats)
+    km, thr = corr_fused.build_fused_tables(raw[[0, 2]], [m, len(short)], alph)
+    tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(m), "cpu")
+    words = tabs.prefix.numpy().view(np.uint64)
+    assert [[int(x) for x in row] for row in words] == [list(_packed(p)) for p in pats]
+
+
+def test_fused_tables_from_apm_carry_prefix_words():
+    # an apm.Scanner's own k = 0 tables, loaded into the port, give kernel B
+    # the prefix words of the patterns they hold (1, 3 and 7 bytes too)
+    from apm import ApmConfig as JaxConfig, Scanner as JaxScanner
+
+    import apm_torch
+
+    pats = [bytes(_corpus(m, 800 + m)) for m in (1, 3, 7, 8, 50)]
+    jsc = JaxScanner(pats, 0, JaxConfig(backend="pallas", interpret=True))
+    km, thr = jsc._corr_fused_tables()
+    tsc = apm_torch.Scanner(pats, 0, apm_torch.ApmConfig(device="cpu"))
+    arrays = {**tsc.tables(), "km": np.asarray(km, np.float32), "thr": np.asarray(thr)}
+    tsc.load_tables(arrays)
+    tabs = tsc._device_tables(fused_needed=True)["fused"]
+    words = tabs.prefix.numpy().view(np.uint64)
+    want = [_packed(p) for p in pats] + [(0, 0)] * (tabs.p - len(pats))
+    assert [tuple(int(x) for x in row) for row in words] == want
+
+
+@pytest.mark.parametrize(
+    "make,ok",
+    [
+        (lambda: torch.zeros((6, 640), dtype=torch.uint8), True),
+        (lambda: torch.zeros((6, 640), dtype=torch.uint8)[3:], True),  # a row offset
+        (lambda: torch.zeros((6, 656), dtype=torch.uint8)[:, :640], True),  # stride 656
+        (lambda: torch.zeros(6 * 640 + 16, dtype=torch.uint8)[1:6 * 640 + 1].view(6, 640), False),
+        (lambda: torch.zeros((6, 648), dtype=torch.uint8)[:, :640], False),  # stride 648
+        (lambda: torch.zeros((640, 6), dtype=torch.uint8).t(), False),  # column stride 6
+    ],
+)
+def test_kernel_rows_must_be_16_byte_aligned(make, ok):
+    rows = make()
+    if ok:
+        corr_fused.check_aligned_rows(rows)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            corr_fused.check_aligned_rows(rows)

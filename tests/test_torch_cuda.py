@@ -54,17 +54,35 @@ def test_dp_kernel_matches_plain(dev, k):
     assert got.tolist() == ref.tolist()
 
 
-@pytest.mark.parametrize("lengths", [[32, 50], [20] * 40, [70, 80]])
-def test_corr_kernel_matches_plain(dev, lengths):
+@pytest.mark.parametrize(
+    "lengths,text,row_off,bound_off",
+    [
+        ([32, 50], "random", 0, 500),
+        ([20] * 40, "random", 0, 500),
+        ([70, 80], "random", 0, 500),
+        ([1, 3, 7, 97], "random", 0, 500),  # masked prefixes, and m = 97
+        ([1, 3, 8, 50, 97], "all-A", 0, 500),  # every window hits
+        ([32, 50], "random", 3, 17),  # rows[3:]; the bound ends inside a tile
+        ([50] * 64, "random", 0, 500),  # P = 64
+    ],
+)
+def test_corr_kernel_matches_plain(dev, lengths, text, row_off, bound_off):
     from apm_torch.ops import corr_fused
     from apm_torch.ops.corr_engine import build_alphabet
     from apm_torch.ops.common import fold_corpus
 
     wf, halo, n_rows = 1024, 128, 48
-    corpus = _corpus(n_rows * wf + 512, 9)
-    pats = [bytes(_corpus(m, 50 + i)) for i, m in enumerate(lengths)]
+    if text == "all-A":
+        corpus = np.full(n_rows * wf + 512, ord("A"), np.uint8)
+        pats = [b"A" * m for m in lengths]
+    else:
+        corpus = _corpus(n_rows * wf + 512, 9)
+        pats = [bytes(_corpus(m, 50 + i)) for i, m in enumerate(lengths)]
+    step = min(997, (n_rows - 4) * wf // len(pats))
+    start = row_off * wf  # the view's first row
     for i, p in enumerate(pats):
-        corpus[300 + 997 * i : 300 + 997 * i + len(p)] = np.frombuffer(p, np.uint8)
+        pos = start + 300 + step * i
+        corpus[pos : pos + len(p)] = np.frombuffer(p, np.uint8)
     m_max = max(lengths)
     pat_raw = np.zeros((len(pats), m_max), np.uint8)
     for i, p in enumerate(pats):
@@ -74,13 +92,20 @@ def test_corr_kernel_matches_plain(dev, lengths):
     tabs = corr_fused.FusedTables.from_numpy(
         km, thr, alph, corr_fused.pick_s(m_max), dev
     )
-    rows = torch.from_numpy(fold_corpus(corpus, 0, n_rows, wf, halo)).to(dev)
+    staged = torch.from_numpy(fold_corpus(corpus, 0, n_rows + row_off, wf, halo)).to(dev)
+    rows = staged[row_off:]
     kw = dict(wf=wf, halo=halo, n_rows=n_rows - 2, p_out=8)
-    bound = (n_rows - 3) * wf + 500
-    got = corr_fused.scan_corr_fused(rows, tabs, bound, 0, **kw)
-    ref = corr_fused.scan_corr_fused_ref(rows, tabs, bound, 0, **kw)
+    bound = start + (n_rows - 3) * wf + bound_off
+    before = corr_fused.LAUNCHES
+    got = corr_fused.scan_corr_fused(rows, tabs, bound, start, **kw)
+    ref = corr_fused.scan_corr_fused_ref(rows, tabs, bound, start, **kw)
+    assert corr_fused.LAUNCHES == before + 1
     assert got.tolist() == ref.tolist()
     assert int(got.sum()) >= len(pats)
+    with pytest.raises(ValueError, match="16-byte"):  # no copy in its stead
+        n = rows.shape[0] - 1  # a row short, so the shifted view fits
+        flat = staged.reshape(-1)[1 : 1 + n * rows.shape[1]].view(n, rows.shape[1])
+        corr_fused.scan_corr_fused(flat, tabs, bound, start, **kw)
 
 
 @pytest.mark.parametrize("k", [0, 2])
@@ -338,8 +363,20 @@ def test_find_on_card_matches_oracle(dev, k):
     assert filter_kernel.LAUNCHES > before[0] and dp_kernel.MASK_LAUNCHES > before[1]
 
 
-@pytest.mark.parametrize("k,lengths", [(1, [32, 50, 50]), (2, [32, 50, 50]), (4, [32, 50, 50]), (1, [20] * 17)])
-def test_pieces_kernel_matches_plain(dev, k, lengths):
+@pytest.mark.parametrize(
+    "k,lengths,text,row_off",
+    [
+        (1, [32, 50, 50], "random", 0),
+        (2, [32, 50, 50], "random", 0),
+        (4, [32, 50, 50], "random", 0),
+        (1, [20] * 17, "random", 0),
+        (1, [1, 3, 7, 16, 17, 65], "random", 0),  # 8- and 9-byte pieces, m = 65
+        (1, [32, 50], "all-A", 0),  # every position hits
+        (2, [32, 50, 50], "random", 3),  # rows[3:]
+        (1, [50] * 64, "random", 0),  # P = 64, 128 pieces
+    ],
+)
+def test_pieces_kernel_matches_plain(dev, k, lengths, text, row_off):
     # TPU kernel #7: the fused piece scan, fcnt and rowmap cell for cell
     from apm_torch.ops import corr_fused
     from apm_torch.ops.common import fold_corpus
@@ -348,18 +385,23 @@ def test_pieces_kernel_matches_plain(dev, k, lengths):
     from apm_torch.utils.corpus import plant
 
     wf, halo, n_rows = 1024, 128, 48
-    corpus = _corpus(n_rows * wf + 2048, 130 + k)
-    pats = [bytes(_corpus(m, 140 + i)) for i, m in enumerate(lengths)]
-    for i, p in enumerate(pats):
-        plant(corpus, np.frombuffer(p, np.uint8), range(300 + 97 * i, len(corpus) - 200, 5003),
-              k=k, seed=i)
+    if text == "all-A":
+        corpus = np.full(n_rows * wf + 2048, ord("A"), np.uint8)
+        pats = [b"A" * m for m in lengths]
+    else:
+        corpus = _corpus(n_rows * wf + 2048, 130 + k)
+        pats = [bytes(_corpus(m, 140 + i)) for i, m in enumerate(lengths)]
+        for i, p in enumerate(pats):
+            plant(corpus, np.frombuffer(p, np.uint8), range(300 + 97 * i, len(corpus) - 200, 5003),
+                  k=k, seed=i)
     _, raw, _, _, _ = _tables(pats, k, n_pad=-(-len(pats) // 8) * 8)
     plens = tuple(len(p) if tier_of(len(p), k) else 0 for p in pats)
     plens += (0,) * (raw.shape[0] - len(pats))
     alph = build_alphabet(pats)
     km, thr, owner64 = corr_fused.build_fused_piece_tables(raw, plens, k, alph)
     tabs = corr_fused.PieceTables.from_numpy(km, thr, owner64, alph, dev)
-    rows = torch.from_numpy(fold_corpus(corpus, wf, n_rows, wf, halo)).to(dev)
+    staged = torch.from_numpy(fold_corpus(corpus, wf, n_rows + row_off, wf, halo)).to(dev)
+    rows = staged[row_off:]
     kw = dict(wf=wf, halo=halo, n_rows=n_rows - 2)
     bound = wf + (n_rows - 5) * wf + 611
     before = corr_fused.PIECE_LAUNCHES
@@ -368,6 +410,10 @@ def test_pieces_kernel_matches_plain(dev, k, lengths):
     assert corr_fused.PIECE_LAUNCHES == before + len(tabs.groups)
     assert torch.equal(fcnt, rf) and torch.equal(rowmap, rr)
     assert int(fcnt.sum()) > 0 and int(rowmap[n_rows - 4 :].sum()) == 0
+    with pytest.raises(ValueError, match="16-byte"):  # no copy in its stead
+        n = rows.shape[0] - 1  # a row short, so the shifted view fits
+        flat = staged.reshape(-1)[1 : 1 + n * rows.shape[1]].view(n, rows.shape[1])
+        corr_fused.scan_pieces_fused(flat, tabs, bound, wf, **kw)
 
 
 @pytest.mark.parametrize("k", [0, 1, 3, 20])

@@ -296,3 +296,41 @@ def test_load_tables_carries_the_fused_piece_tables():
     assert tsc.last_filtration["route"] == "zero-candidates"
     with pytest.raises(ValueError):
         tsc.load_tables({**arrays, "pieces_km": arrays["pieces_km"][:, 1:]})
+
+
+@pytest.mark.parametrize("length", range(8, corr_fused.M_MAX_PIECES + 1))
+def test_piece_prefix_words_of_every_piece_length(length):
+    # exact-tier pieces are at least 8 bytes: the mask keeps all 8 prefix
+    # bytes. A k = 0 pattern is one piece of its own length; the NUL byte
+    # and the sentinel slot padding the tables to an even count stay exact.
+    piece = bytearray(_corpus(length, 900 + length).tobytes())
+    piece[3] = 0
+    pats = [bytes(piece), bytes(_corpus(40, 901))]
+    raw, plens = _table(pats, 0)
+    alph = build_alphabet(pats)
+    km, thr, owner64 = corr_fused.build_fused_piece_tables(raw, plens, 0, alph)
+    tabs = corr_fused.PieceTables.from_numpy(km, thr, owner64, alph, "cpu")
+    words = tabs.prefix.numpy().view(np.uint64)
+    want = [(int.from_bytes(p[:8], "little"), 2**64 - 1) for p in pats]
+    want += [(0, 0)] * (len(words) - len(pats))
+    assert [tuple(int(x) for x in row) for row in words] == want
+    assert np.array_equal(words, corr_fused.prefix_words(tabs.piece.numpy(), tabs.plen.numpy()))
+
+
+def test_piece_tables_from_apm_carry_prefix_words():
+    # an apm.Scanner's fused piece tables, loaded into the port, give kernel
+    # #7 the prefix words of the pieces they hold
+    k = 1
+    pats = [bytes(_corpus(32, 910)), bytes(_corpus(50, 911))]
+    jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True, corr_impl="fused"))
+    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", corr_impl="fused"))
+    km, thr, owner64 = jsc._fp1_fused_tables(tsc._fp1_plens())
+    tsc.load_tables({**tsc.tables(), "pieces_km": np.asarray(km, np.float32)})
+    tabs = tsc._device_fp1_fused(tsc._fp1_plens())
+    words = tabs.prefix.numpy().view(np.uint64)
+    got = [(int(o), tuple(int(x) for x in w)) for o, w in zip(tabs.owner.tolist(), words)]
+    from apm_torch.ops.filter_kernel import pieces_of_j
+
+    want = [(pi, (int.from_bytes(p[off : off + 8], "little"), 2**64 - 1))
+            for pi, p in enumerate(pats) for off, _ in pieces_of_j(len(p), tier_of(len(p), k)[0])]
+    assert got[: len(want)] == want and all(w == (0, 0) for _, w in got[len(want):])
