@@ -36,22 +36,26 @@
 //
 // Batch mode (kernel #8, apm_corr_batch_count) replaces
 // apm/ops/corr_fused.py::scan_corr_batch_fused (kernel body
-// _fused_batch_kernel) and keeps the first design: rows of many corpora,
-// each row's ownership given as limits[r] (its owned lanes, precomputed by
-// the caller from the corpus's bound), counts per block of `fold` rows into
-// an (R/fold, max(P, p_out)) output. One thread per window of a 256-window
-// tile; a block's tiles belong to different row blocks, so it flushes its
-// shared counters into the tile's slot after every tile (one atomic per
-// nonzero slot and pattern); the TPU kernel instead folds per-128-byte
-// chunks with an owner matmul and sums them outside the kernel. A batch
-// group (1024 rows, 8.5 MB) is read once, so at that size the launch and
-// the per-tile barriers, not HBM, set its time.
+// _fused_batch_kernel): rows of many corpora, each row's ownership given as
+// limits[r] (its owned lanes, precomputed by the caller from the corpus's
+// bound), counts per block of `fold` rows into an (R/fold, max(P, p_out))
+// output. It runs the count mode's design on exact_scan.cuh with
+// live(r) = clip(limits[r], 0, wf), and credits a thread's nonzero count
+// of a slot straight to the row block's output with one global atomic:
+// hits are rare (every window of all-A text against A^m is the exception),
+// so no shared counter, barrier or flush per item is needed. The TPU kernel
+// instead folds per-128-byte chunks with an owner matmul and sums them
+// outside the kernel. A batch group (1024 rows, 8.5 MB) is read once in
+// 2.5 us at 3.35 TB/s, below the cost of a launch: at that size the
+// launch, not HBM or the compares, bounds it (chip_smoke.py phase 3c times
+// an empty launch beside it). A design of one thread per window with a
+// byte compare chain and a barrier and flush after every 256-window tile
+// took 0.13-0.21 ms a group.
 #include "exact_scan.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
-using apm::kTile;
 namespace ex = apm::exact;
 
 struct CountArgs {
@@ -110,11 +114,12 @@ __global__ void __launch_bounds__(ex::kMaxThreads, 2)
 struct BatchArgs {
   const uint8_t* rows;  // (n_staged, row_stride) staged corpus rows
   int64_t n_staged;
-  int64_t row_stride;   // wf + halo
+  int64_t row_stride;   // wf + halo, a multiple of 16
   const uint8_t* pat;   // (n_pat, pat_stride) pattern bytes
-  int n_pat;
   int64_t pat_stride;
+  const uint4* prefix;  // (n_pat,) prefix word lo, hi, mask lo, hi
   const int32_t* plens; // (n_pat,) pattern lengths, 0 = sentinel slot
+  int n_pat;
   int64_t wf;
   const int32_t* limits;  // (n_staged,) owned lanes per row
   int fold;             // rows per count slot
@@ -122,38 +127,37 @@ struct BatchArgs {
   int32_t* out;
 };
 
-__global__ void __launch_bounds__(kTile) corr_batch_kernel(BatchArgs a) {
-  extern __shared__ int s_cnt[];
-  apm::zero_counts(s_cnt, a.n_pat);
+// 2 blocks an SM, like the count mode (_EXACT_BLOCKS_PER_SM).
+__global__ void __launch_bounds__(ex::kMaxThreads, 2)
+    corr_batch_kernel(BatchArgs a) {
+  extern __shared__ uint4 smem4[];
+  uint4* s_pre = smem4;                                  // (n_pat,)
+  int* s_len = reinterpret_cast<int*>(s_pre + a.n_pat);  // (n_pat,)
+  for (int i = threadIdx.x; i < a.n_pat; i += blockDim.x) {
+    s_pre[i] = a.prefix[i];
+    s_len[i] = a.plens[i];
+  }
   __syncthreads();
 
-  const int64_t tiles_per_row = (a.wf + kTile - 1) / kTile;
-  const int64_t n_tiles = a.n_staged * tiles_per_row;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t r = t / tiles_per_row;
-    const int64_t lane0 = (t - r * tiles_per_row) * kTile;
-    const int64_t limit = apm::clip_lanes(a.limits[r], a.wf);
-    if (lane0 >= limit) continue;  // uniform over the block
-    const int64_t lane = lane0 + threadIdx.x;
-    const bool own = lane < limit;
-    const uint8_t* __restrict__ txt = a.rows + r * a.row_stride + lane;
+  auto live = [=](int64_t r) { return apm::clip_lanes(a.limits[r], a.wf); };
+  auto slots = [=](const ex::Chunk& ch, const uint32_t (&v)[ex::kW + 4],
+                   uint32_t own) {
+    const uint8_t* txt = a.rows + ch.r * a.row_stride + ch.j0;
+    int32_t* out = a.out + (ch.r / a.fold) * a.out_stride;
     for (int p = 0; p < a.n_pat; ++p) {
-      const int m = a.plens[p];
-      if (m <= 0) continue;  // sentinel slot: never counts
-      int hit = 0;
-      if (own) {
-        const uint8_t* __restrict__ pp = a.pat + (int64_t)p * a.pat_stride;
-        int i = 0;
-        while (i < m && txt[i] == pp[i]) ++i;
-        hit = i == m ? 1 : 0;
+      const int m = s_len[p];
+      if (m <= 0) continue;  // sentinel slot: uniform over the block
+      const uint32_t bits = ex::match_bits(v, s_pre[p]) & own;
+      if (bits != 0) {
+        const int c = ex::count_tails(bits, txt, a.pat + p * a.pat_stride, m);
+        if (c != 0) atomicAdd(&out[p], c);
       }
-      apm::add_hits(s_cnt, p, hit);
     }
-    __syncthreads();
-    apm::flush_and_reset(s_cnt, a.out + (r / a.fold) * a.out_stride, a.n_pat);
-    __syncthreads();
-  }
+  };
+  ex::walk(a.rows, a.row_stride, a.n_staged, a.wf, live, slots, [](int64_t) {});
 }
+
+__global__ void empty_kernel() {}
 
 }  // namespace
 
@@ -190,21 +194,39 @@ extern "C" int apm_corr_fused_count(const uint8_t* rows, int64_t n_staged,
 
 // Batch mode: row r owns lanes [0, limits[r]) and its counts are added to
 // out[(r / fold) * out_stride + p]; n_staged is a multiple of fold and the
-// caller zeroes out.
+// caller zeroes out. rows and row_stride must be multiples of 16 bytes,
+// prefix 16-byte aligned.
 extern "C" int apm_corr_batch_count(const uint8_t* rows, int64_t n_staged,
                                     int64_t row_stride, const uint8_t* pat,
                                     int n_pat, int64_t pat_stride,
-                                    const int32_t* plens, int64_t wf,
-                                    const int32_t* limits, int fold,
+                                    const int32_t* plens, const void* prefix,
+                                    int64_t wf, const int32_t* limits, int fold,
                                     int32_t* out, int64_t out_stride,
                                     int grid, void* stream) {
-  if (grid <= 0 || n_pat <= 0 || limits == nullptr || fold <= 0 ||
-      n_staged % fold != 0 || out_stride < n_pat) {
+  if (grid <= 0 || n_pat <= 0 || wf <= 0 || limits == nullptr || fold <= 0 ||
+      n_staged % fold != 0 || out_stride < n_pat || (uintptr_t)rows % 16 != 0 ||
+      row_stride % 16 != 0 || (uintptr_t)prefix % 16 != 0 ||
+      row_stride < wf + ex::kW + 8) {
     return (int)cudaErrorInvalidValue;
   }
-  const BatchArgs a{rows,  n_staged, row_stride, pat,  n_pat,      pat_stride,
-                    plens, wf,       limits,     fold, out_stride, out};
-  corr_batch_kernel<<<grid, kTile, a.n_pat * sizeof(int),
-                      (cudaStream_t)stream>>>(a);
+  const BatchArgs a{rows,  n_staged, row_stride, pat, pat_stride,
+                    static_cast<const uint4*>(prefix), plens, n_pat, wf,
+                    limits, fold, out_stride, out};
+  const size_t smem = (size_t)n_pat * (sizeof(uint4) + sizeof(int));
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        corr_batch_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  corr_batch_kernel<<<grid, ex::threads_for(wf), smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// A kernel that does nothing, launched as kernel #8 is (`grid` blocks of
+// the threads of wf-window rows): what a launch alone costs.
+extern "C" int apm_empty_launch(int64_t wf, int grid, void* stream) {
+  if (grid <= 0 || wf <= 0) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<grid, ex::threads_for(wf), 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,6 @@
-// Exact-window scan shared by kernel B's count mode (corr_fused.cu) and
-// kernel #7 (corr_pieces.cu): a tile of windows per thread, compares on
-// packed 8-byte words, no reduction per window.
+// Exact-window scan shared by kernel B's count and batch modes (kernels B
+// and #8, corr_fused.cu) and kernel #7 (corr_pieces.cu): a tile of windows
+// per thread, compares on packed 8-byte words, no reduction per window.
 //
 // Both kernels ask, for every window j of a staged row and every slot (a
 // pattern or a piece of m bytes), whether the m text bytes at j equal the

@@ -16,74 +16,160 @@
 // fcnt (P,) candidate totals (exact match counts at k = 0) and rowmap
 // (R, P), the number of candidate windows of each row.
 //
-// What bounds it on an H100: on random text a piece's compare chain or
-// band stops after one or two bytes (a mismatch, or every band cell past
-// kp), so the kernel costs a few shared-memory reads and integer
-// operations per piece and position; the staged rows are read once.
+// What bounds it on an H100: integer instructions. The staged rows are
+// read once (a 256 MB chunk: 0.08 ms at 3.35 TB/s), but every text
+// position a window can reach is tested against every piece, and on random
+// text almost every test fails within one or two bytes. A design of one
+// thread per position, a byte compare chain against an int32 table in
+// global memory and a byte hit map per piece in shared memory (two
+// barriers per piece and tile, span + 1 shared loads per window and piece)
+// reached 4.4 % of the bound.
 //
-// Design: the TPU kernel rolls two text tiles one lane per step, carries
-// every live piece's band as (fold, wf + 2k) tiles, and ORs shifted
-// slices of each piece's hit tile. Here a block takes tiles of 256 windows
-// of one row and stages the tile's text (256 + halo bytes) in shared
-// memory. For each piece the block computes the hit bit of every position
-// the tile's windows can reach (256 + span positions, span = s_hi - s_lo),
-// once, into shared memory; each thread then ORs its window's span + 1
-// hits. Every piece's chain or band exits as soon as it cannot hit, which
-// the TPU's lockstep tiles cannot do. Candidate windows are counted per
-// pattern in shared memory and added to rowmap and fcnt with one atomic
-// per nonzero (tile, pattern) and (block, pattern): rows without
-// candidates cost no global atomics.
+// Design (the ideas of exact_scan.cuh: a tile of 32 windows per thread,
+// compares on packed words, no reduction per window):
+// - One staging of the text per item (a row segment of blockDim.x * 32
+//   windows and its halo), by cp.async into one of three shared buffers:
+//   the next item's text loads while this item's pieces run, and three
+//   buffers make one barrier per item enough. Bytes past the row's end are
+//   zero-filled by the copy itself, so no word read leaves the buffer. The
+//   buffer keeps a 4-byte gap after every 32 text bytes: thread t reads
+//   from byte 32t on, and a 36-byte stride puts the 32 lanes of a warp on
+//   32 different banks.
+// - Per piece, a thread builds the 4-byte text words at the positions its
+//   windows reach (aligned word loads, then __funnelshift_r) and tests the
+//   piece's 8-byte head word at each: one hit bit per position, 32 + span
+//   positions in a 64-bit mask. Only set bits read the rest of the piece.
+//   A window is a candidate when a hit lies in [w, w + span]: the OR of the
+//   mask shifted by 0..span, done by doubling on one register per thread
+//   and piece, not per window.
+// - Banded tier (kp = 1, li >= 14): one edit leaves one half of the piece
+//   intact, so a hit at T needs the first h = min(8, li/2) bytes at T or
+//   the last h' = min(8, ceil(li/2)) bytes at T + li - h' + d, d in
+//   {-1, 0, 1} (the three drifts are one tail-word mask shifted by 0, 1
+//   and 2). Only positions that pass run the band (hit_banded), so the hit
+//   bit is the band's own and the test only drops positions that cannot
+//   hit.
+// - A thread counts a pattern's candidates over its 32 windows with one
+//   popc and adds the sum to the item's shared row counter only when
+//   nonzero; a row counter reaches rowmap with one atomic per nonzero (row,
+//   pattern), the block's totals reach fcnt with one per nonzero (block,
+//   pattern). Row counters come in two halves by item parity, so the flush
+//   of one item overlaps the count of the next under the same barrier.
+// Tensor cores do not apply: the work is integer equality tests with early
+// exit, not a product (the TPU's bit-plane matmul was its way to compare
+// bytes on a matrix unit).
+#include <algorithm>
+
 #include "scan_common.cuh"
 
 namespace {
 
-using apm::kTile;
+constexpr int kInf = 1 << 20;      // additive-safe INF of out-of-band cells
+constexpr int kW = 32;             // windows per thread
+constexpr int kMaxThreads = 256;   // 8 warps cover an 8192-window row
+constexpr int kBlocksPerSm = 4;    // __launch_bounds__ and the grid's blocks an SM
+constexpr int kStages = 3;         // staging buffers: one barrier per item
+constexpr int kLayoutInts = 8;     // ints per piece from the host (filter_kernel.piece_layout)
+constexpr int kReachPad = 128;     // staged bytes past segment + halo
 
-constexpr int kInf = 1 << 20;  // additive-safe INF of out-of-band cells
+// One piece in shared memory: its filter_kernel.piece_layout row, then the
+// words this kernel builds from the char table.
+struct Piece {
+  int off, span, li, kp;  // first position o + s_lo, s_hi - s_lo, length, tier
+  int o, tail_off, n_head, n_tail;  // offset in the pattern, tail offset, word bytes
+  uint4 head, tail;       // word lo, hi, mask lo, hi (corr_fused.prefix_words' order)
+};
+static_assert(sizeof(Piece) == 8 * kLayoutInts, "Piece is a layout row and two words");
 
 struct FilterArgs {
   const uint8_t* rows;  // (n_rows, row_stride) staged corpus rows
   int64_t n_rows;
-  int64_t row_stride;   // wf + halo
+  int64_t row_stride;   // wf + halo, a multiple of 4
   const int32_t* pchar; // (n_pat, pchar_stride) sentinel-padded bytes
   int n_pat;
   int64_t pchar_stride;
   int pad;              // front sentinel columns (max kp)
-  const int32_t* pieces;  // (n_pieces, 5): o, li, kp, s_lo, s_hi
+  const int32_t* pieces;  // (n_piece, kPieceInts) of the group
+  int n_piece;
   const int32_t* pstart;  // (n_pat + 1,) piece range of each pattern
-  int span_max;         // max s_hi - s_lo over the pieces
   int64_t wf;
   int64_t bound;
   int64_t start;
   int32_t* fcnt;        // (n_pat,) candidate totals, accumulated
   int32_t* rowmap;      // (n_rows, rowmap_stride) per-row candidates
   int64_t rowmap_stride;
+  int stage_words;      // logical text words staged per item
 };
 
-// Exact tier: the piece's li bytes equal the text at `txt`.
-__device__ __forceinline__ int hit_exact(const uint8_t* txt,
-                                         const int32_t* __restrict__ pc,
-                                         int li) {
-  for (int t = 0; t < li; ++t) {
-    if ((int)txt[t] != pc[t]) return 0;
+// Staged buffers: logical byte x (from the segment's first window) sits at
+// physical byte x + 4 * (x / 32).
+__device__ __forceinline__ int phys_word(int wi) { return wi + (wi >> 3); }
+
+__device__ __forceinline__ int text_at(const uint32_t* buf, int x) {
+  return reinterpret_cast<const uint8_t*>(buf)[x + ((x >> 5) << 2)];
+}
+
+__device__ __forceinline__ uint32_t word_at(const uint32_t* w, int i) {
+  return (i & 3) == 0 ? w[i >> 2]
+                      : __funnelshift_r(w[i >> 2], w[(i >> 2) + 1], (i & 3) * 8);
+}
+
+// The first n (<= 8) bytes at b, little-endian, and their mask.
+__device__ __forceinline__ uint4 pack_word(const int32_t* __restrict__ b, int n) {
+  uint32_t w[2] = {0, 0}, m[2] = {0, 0};
+  for (int j = 0; j < n; ++j) {
+    w[j >> 2] |= (uint32_t)(b[j] & 0xff) << (8 * (j & 3));
+    m[j >> 2] |= 0xffu << (8 * (j & 3));
   }
-  return 1;
+  return make_uint4(w[0], w[1], m[0], m[1]);
+}
+
+// Bit i (i < N) set iff the 8 bytes at logical byte x + i equal `pre`'s word
+// under its mask (pre = {word lo, word hi, mask lo, mask hi}).
+template <int N>
+__device__ __forceinline__ uint64_t eq_bits(const uint32_t* __restrict__ buf, int x,
+                                            uint4 pre) {
+  constexpr int NW = (N + 3) / 4 + 2;  // words of bytes [x, x + N + 8)
+  const int a = x >> 2, sh = (x & 3) * 8;
+  uint32_t raw[NW + 1];
+#pragma unroll
+  for (int k = 0; k <= NW; ++k) raw[k] = buf[phys_word(a + k)];
+  uint32_t w[NW];
+#pragma unroll
+  for (int k = 0; k < NW; ++k) w[k] = __funnelshift_r(raw[k], raw[k + 1], sh);
+  uint32_t lo = 0, hi = 0;
+  if ((pre.z & pre.w) == 0xffffffffu) {  // 8-byte head: uniform over the block
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if (word_at(w, i) == pre.x && word_at(w, i + 4) == pre.y) {
+        if (i < 32) lo |= 1u << (i & 31); else hi |= 1u << (i & 31);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      if ((((word_at(w, i) ^ pre.x) & pre.z) | ((word_at(w, i + 4) ^ pre.y) & pre.w)) == 0) {
+        if (i < 32) lo |= 1u << (i & 31); else hi |= 1u << (i & 31);
+      }
+    }
+  }
+  return ((uint64_t)hi << 32) | lo;
 }
 
 // Banded tier (kp = 1): pinned-start width-3 band; `pc` points at the
 // piece's first byte in the sentinel-padded table (pc[-1] is readable).
 // Cell di = d + 1 after t steps holds D[t + d][t]; the verdict is the
 // minimum of cell d after li - d steps, d in [-1, 1], against 1.
-__device__ __forceinline__ int hit_banded(const uint8_t* txt,
-                                          const int32_t* __restrict__ pc,
-                                          int li) {
+__device__ __forceinline__ bool hit_banded(const uint32_t* buf, int x,
+                                           const int32_t* __restrict__ pc,
+                                           int li) {
   int b0 = kInf, b1 = 0, b2 = 1;
   int cap = kInf;
   for (int t = 1; t <= li + 1; ++t) {
-    const int x = txt[t - 1];
-    const int n0 = min(b0 + (x != pc[t - 2] ? 1 : 0), b1 + 1);
-    const int n1 = min(min(b1 + (x != pc[t - 1] ? 1 : 0), b2 + 1), n0 + 1);
-    const int n2 = min(b2 + (x != pc[t] ? 1 : 0), n1 + 1);
+    const int c = text_at(buf, x + t - 1);
+    const int n0 = min(b0 + (c != pc[t - 2] ? 1 : 0), b1 + 1);
+    const int n1 = min(min(b1 + (c != pc[t - 1] ? 1 : 0), b2 + 1), n0 + 1);
+    const int n2 = min(b2 + (c != pc[t] ? 1 : 0), n1 + 1);
     b0 = n0;
     b1 = n1;
     b2 = n2;
@@ -98,104 +184,250 @@ __device__ __forceinline__ int hit_banded(const uint8_t* txt,
     // can reach kp.
     if (min(b0, min(b1, b2)) > 1) break;
   }
-  return cap <= 1 ? 1 : 0;
+  return cap <= 1;
 }
 
-__global__ void __launch_bounds__(kTile) filter_pieces_kernel(FilterArgs a) {
-  extern __shared__ int smem[];
-  int* s_cnt = smem;              // (n_pat,) block totals
-  int* s_tile = smem + a.n_pat;   // (n_pat,) this tile's counts
-  uint8_t* s_hit = reinterpret_cast<uint8_t*>(smem + 2 * a.n_pat);
-  uint8_t* s_txt = s_hit + kTile + a.span_max;  // tile text + halo
-
-  for (int i = threadIdx.x; i < 2 * a.n_pat; i += blockDim.x) smem[i] = 0;
-  __syncthreads();
-
-  const int64_t halo = a.row_stride - a.wf;
-  const int64_t tiles_per_row = (a.wf + kTile - 1) / kTile;
-  const int64_t n_tiles = a.n_rows * tiles_per_row;
-  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
-    const int64_t r = t / tiles_per_row;
-    const int64_t lane0 = (t - r * tiles_per_row) * kTile;
-    const int64_t limit = apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
-    if (lane0 >= limit) continue;  // uniform over the block
-    const int lim = limit - lane0 < kTile ? (int)(limit - lane0) : kTile;
-    const bool own = (int)threadIdx.x < lim;
-
-    // Stage the tile's text; no read reaches past it (halo >= m + 2k).
-    const uint8_t* row = a.rows + r * a.row_stride + lane0;
-    const int64_t rest = a.row_stride - lane0;
-    const int n_txt = (int)(kTile + halo < rest ? kTile + halo : rest);
-    for (int i = threadIdx.x; i < n_txt; i += blockDim.x) s_txt[i] = row[i];
-    __syncthreads();
-
-    for (int p = 0; p < a.n_pat; ++p) {
-      const int q0 = a.pstart[p], q1 = a.pstart[p + 1];
-      if (q0 == q1) continue;  // padding slot: no work
-      const int32_t* pc_p = a.pchar + (int64_t)p * a.pchar_stride + a.pad;
-      int cand = 0;
-      for (int q = q0; q < q1; ++q) {
-        const int32_t* pq = a.pieces + 5 * q;
-        const int o = pq[0], li = pq[1], kp = pq[2], s_lo = pq[3];
-        const int span = pq[4] - s_lo;
-        __syncthreads();  // the previous piece's hits are read
-        for (int i = threadIdx.x; i < kTile + span; i += blockDim.x) {
-          int h = 0;
-          // Position i serves windows i - span .. i of the tile; compute
-          // it only when one of them is owned.
-          if (i - span < lim) {
-            const uint8_t* txt = s_txt + o + s_lo + i;
-            h = kp == 0 ? hit_exact(txt, pc_p + o, li)
-                        : hit_banded(txt, pc_p + o, li);
-          }
-          s_hit[i] = (uint8_t)h;
-        }
-        __syncthreads();
-        if (own) {
-          for (int s = 0; s <= span; ++s) cand |= s_hit[threadIdx.x + s];
-        }
-      }
-      apm::add_hits(s_tile, p, own ? cand : 0);
+// Hits of piece `pc` at the N positions from logical byte x: the head-word
+// bits, then the rest of the piece (exact tier) or the band (banded tier)
+// on the survivors only.
+template <int N>
+__device__ __forceinline__ uint64_t block_hits(const uint32_t* buf, int x,
+                                               const Piece& pc,
+                                               const int32_t* __restrict__ pch) {
+  uint64_t h = eq_bits<N>(buf, x, pc.head);
+  if (pc.kp == 0) {
+    if (pc.li <= 8) return h;  // the head word covered the whole piece
+    uint64_t out = 0;
+    while (h != 0) {
+      const int i = __ffsll((long long)h) - 1;
+      h &= h - 1;
+      int b = 8;
+      while (b < pc.li && text_at(buf, x + i + b) == pch[pc.o + b]) ++b;
+      if (b >= pc.li) out |= 1ull << i;
     }
-    __syncthreads();
-    for (int i = threadIdx.x; i < a.n_pat; i += blockDim.x) {
-      const int v = s_tile[i];
-      if (v != 0) {
-        atomicAdd(&a.rowmap[r * a.rowmap_stride + i], v);
-        s_cnt[i] += v;
-        s_tile[i] = 0;
-      }
-    }
-    __syncthreads();  // counters reset and staged text free again
+    return out;
   }
-  apm::flush_counts(s_cnt, a.fcnt, a.n_pat);
+  const uint64_t g = eq_bits<N + 2>(buf, x + pc.tail_off, pc.tail);
+  uint64_t pass = (h | g | (g >> 1) | (g >> 2)) & ((N >= 64 ? 0ull : 1ull << N) - 1);
+  uint64_t out = 0;
+  while (pass != 0) {
+    const int i = __ffsll((long long)pass) - 1;
+    pass &= pass - 1;
+    if (hit_banded(buf, x + i, pch + pc.o, pc.li)) out |= 1ull << i;
+  }
+  return out;
+}
+
+// Bit w set iff some bit of [w, w + span] is set in `hits`.
+__device__ __forceinline__ uint32_t spread(uint64_t hits, int span) {
+  int c = 1;
+  while (2 * c <= span + 1) {
+    hits |= hits >> c;
+    c <<= 1;
+  }
+  return (uint32_t)(hits | (hits >> (span + 1 - c)));
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src, int n) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// Issue the copies of an item's text: logical words [0, n_words) of row r
+// from byte seg0, zero past the row's end (a copy of 0 source bytes).
+__device__ __forceinline__ void stage(uint32_t* buf, const FilterArgs& a, int64_t r,
+                                      int64_t seg0) {
+  const uint8_t* row = a.rows + r * a.row_stride;
+  const int64_t avail = a.row_stride - seg0;
+  for (int wi = threadIdx.x; wi < a.stage_words; wi += blockDim.x) {
+    const int64_t b = 4 * (int64_t)wi;
+    const bool in = b < avail;
+    cp_async4(buf + phys_word(wi), in ? row + seg0 + b : row, in ? 4 : 0);
+  }
+}
+
+// The previous item's row counters into rowmap and the block's totals.
+__device__ __forceinline__ void flush_row(int* s_row, int* s_tot, const FilterArgs& a,
+                                          int64_t r) {
+  for (int p = threadIdx.x; p < a.n_pat; p += blockDim.x) {
+    const int v = s_row[p];
+    if (v != 0) {
+      atomicAdd(&a.rowmap[r * a.rowmap_stride + p], v);
+      s_tot[p] += v;
+      s_row[p] = 0;
+    }
+  }
+}
+
+// 4 blocks an SM, at most 64 registers a thread (the entry sizes the grid
+// to match): 4 read 10-20 % faster than 2 on the H100.
+__global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm) filter_pieces_kernel(FilterArgs a) {
+  extern __shared__ uint4 smem4[];
+  Piece* s_piece = reinterpret_cast<Piece*>(smem4);             // (n_piece,)
+  int* s_pstart = reinterpret_cast<int*>(s_piece + a.n_piece);  // (n_pat + 1,)
+  int* s_rows = s_pstart + a.n_pat + 1;  // (2, n_pat) an item's counts, by parity
+  int* s_tot = s_rows + 2 * a.n_pat;     // (n_pat,) block totals
+  const int buf_words = a.stage_words + a.stage_words / 8;
+  uint32_t* s_txt = reinterpret_cast<uint32_t*>(s_tot + a.n_pat);  // kStages buffers
+
+  int* s_tab = reinterpret_cast<int*>(s_piece);
+  for (int i = threadIdx.x; i < a.n_piece * kLayoutInts; i += blockDim.x) {
+    s_tab[2 * i - i % kLayoutInts] = a.pieces[i];  // row i / 8, column i % 8
+  }
+  for (int i = threadIdx.x; i <= a.n_pat; i += blockDim.x) s_pstart[i] = a.pstart[i] - a.pstart[0];
+  for (int i = threadIdx.x; i < 3 * a.n_pat; i += blockDim.x) s_rows[i] = 0;
+  __syncthreads();
+  // the words, from the char table: the host sends the layout only
+  for (int p = threadIdx.x; p < a.n_pat; p += blockDim.x) {
+    const int32_t* pch = a.pchar + (int64_t)p * a.pchar_stride + a.pad;
+    for (int q = s_pstart[p]; q < s_pstart[p + 1]; ++q) {
+      Piece& pc = s_piece[q];
+      pc.head = pack_word(pch + pc.o, pc.n_head);
+      pc.tail = pack_word(pch + pc.o + pc.li - pc.n_tail, pc.n_tail);
+    }
+  }
+
+  const int64_t seg = (int64_t)blockDim.x * kW;
+  const int64_t segs = (a.wf + seg - 1) / seg;
+  const int64_t n_items = a.n_rows * segs;
+  // row, first window and owned windows of item t; dead when seg0 >= lim
+  auto item = [&](int64_t t, int64_t& r, int64_t& seg0) -> int64_t {
+    r = segs == 1 ? t : t / segs;
+    seg0 = (t - r * segs) * seg;
+    return apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+  };
+
+  // issue the copies of item t into buffer b, if it is live
+  auto prefetch = [&](int64_t t, int b) {
+    if (t < n_items) {
+      int64_t r, seg0;
+      const int64_t lim = item(t, r, seg0);
+      if (seg0 < lim) stage(s_txt + b * buf_words, a, r, seg0);
+    }
+    cp_async_commit();
+  };
+
+  int64_t t = blockIdx.x;
+  prefetch(t, 0);
+  int it = 0;           // items walked by this block
+  int64_t prev_r = 0;   // row of the previous item
+  while (t < n_items) {  // uniform over the block
+    const int64_t tn = t + gridDim.x;
+    prefetch(tn, (it + 1) % kStages);
+    cp_async_wait_prev();  // this item's copies (this thread's) have landed
+    __syncthreads();       // everyone's have; the previous item is counted
+    if (it > 0) flush_row(s_rows + ((it - 1) & 1) * a.n_pat, s_tot, a, prev_r);
+
+    int64_t r, seg0;
+    const int64_t lim = item(t, r, seg0);
+    const int64_t j0 = seg0 + (int64_t)threadIdx.x * kW;
+    if (j0 < lim) {
+      const int nown = lim - j0 < kW ? (int)(lim - j0) : kW;
+      const uint32_t own = nown >= 32 ? 0xffffffffu : (1u << nown) - 1u;
+      const uint32_t* buf = s_txt + (it % kStages) * buf_words;
+      int* s_row = s_rows + (it & 1) * a.n_pat;
+      const int x0 = threadIdx.x * kW;  // logical byte of window j0
+      for (int p = 0; p < a.n_pat; ++p) {
+        const int q1 = s_pstart[p + 1];
+        const int32_t* pch = a.pchar + (int64_t)p * a.pchar_stride + a.pad;
+        uint32_t cand = 0;
+        for (int q = s_pstart[p]; q < q1 && (cand & own) != own; ++q) {
+          const Piece pc = s_piece[q];
+          const int x = x0 + pc.off;
+          uint64_t hits = block_hits<32>(buf, x, pc, pch);
+          if (pc.span > 0) {  // positions 32 .. 31 + span
+            const uint64_t h1 = pc.span <= 8    ? block_hits<8>(buf, x + 32, pc, pch)
+                                : pc.span <= 16 ? block_hits<16>(buf, x + 32, pc, pch)
+                                                : block_hits<32>(buf, x + 32, pc, pch);
+            hits |= h1 << 32;
+          }
+          if (hits != 0) cand |= spread(hits, pc.span);
+        }
+        const int c = __popc(cand & own);
+        if (c != 0) atomicAdd(&s_row[p], c);
+      }
+    }
+    prev_r = r;
+    t = tn;
+    ++it;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  if (it > 0) flush_row(s_rows + ((it - 1) & 1) * a.n_pat, s_tot, a, prev_r);
+  __syncthreads();
+  apm::flush_counts(s_tot, a.fcnt, a.n_pat);
+}
+
+// Dynamic shared memory of a block of `threads`: the piece table, pattern
+// ranges, counters and kStages staging buffers of `stage_words` logical
+// words each (the segment, its halo rounded to 32 and the word overhang of
+// the last thread's reads) with a 4-byte gap after every 32 bytes.
+size_t block_smem(int threads, int64_t halo, int n_piece, int n_pat, int* stage_words) {
+  const int64_t halo32 = (halo + 31) / 32 * 32;
+  *stage_words = (int)(((int64_t)threads * kW + halo32 + kReachPad) / 4);
+  return sizeof(Piece) * (size_t)n_piece + sizeof(int) * (4 * (size_t)n_pat + 1) +
+         sizeof(uint32_t) * kStages * (size_t)(*stage_words + *stage_words / 8);
 }
 
 }  // namespace
 
 // Adds candidate counts to fcnt[p] and rowmap[r * rowmap_stride + p] (the
-// caller zeroes both). Returns the launch's cudaError_t (0 on success).
+// caller zeroes both) for the n_pat patterns of one launch group, whose
+// pieces (filter_kernel.piece_layout rows; the words are built here from
+// pchar) and piece ranges pstart (absolute, n_pat + 1) are passed from
+// their first. rows and row_stride must be multiples of 4 bytes. A block
+// takes whole warps enough to give each of wf windows a 32-window tile, at
+// most kMaxThreads, halved while its shared memory passes the device's
+// limit (cudaErrorInvalidValue when 32 threads pass it: a halo too large);
+// kBlocksPerSm blocks an SM walk the items grid-stride. Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int apm_filter_pieces_count(
     const uint8_t* rows, int64_t n_rows, int64_t row_stride,
     const int32_t* pchar, int n_pat, int64_t pchar_stride, int pad,
-    const int32_t* pieces, const int32_t* pstart, int span_max, int64_t wf,
+    const int32_t* pieces, int n_piece, const int32_t* pstart, int64_t wf,
     int64_t bound, int64_t start, int32_t* fcnt, int32_t* rowmap,
-    int64_t rowmap_stride, int grid, void* stream) {
-  if (grid <= 0 || n_pat <= 0 || pad < 0 || pad > 1 || span_max < 0 ||
-      row_stride <= wf) {
+    int64_t rowmap_stride, void* stream) {
+  if (n_rows <= 0 || n_pat <= 0 || n_piece <= 0 || pad < 0 || pad > 1 || wf <= 0 ||
+      row_stride <= wf || (uintptr_t)rows % 4 != 0 || row_stride % 4 != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  FilterArgs a{rows,   n_rows,   row_stride, pchar, n_pat,  pchar_stride,
-               pad,    pieces,   pstart,     span_max, wf,  bound,
-               start,  fcnt,     rowmap,     rowmap_stride};
-  const size_t smem = sizeof(int) * 2 * (size_t)n_pat + kTile + span_max +
-                      kTile + (size_t)(row_stride - wf);
+  int dev = 0, sms = 0, smem_max = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (e != cudaSuccess) return (int)e;
+  int threads = (int)std::min<int64_t>(kMaxThreads, (wf + 32 * kW - 1) / (32 * kW) * 32);
+  int stage_words = 0;
+  size_t smem = block_smem(threads, row_stride - wf, n_piece, n_pat, &stage_words);
+  while (smem > (size_t)smem_max && threads > 32) {
+    threads /= 2;
+    smem = block_smem(threads, row_stride - wf, n_piece, n_pat, &stage_words);
+  }
+  if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
+  const int64_t n_items = n_rows * ((wf + (int64_t)threads * kW - 1) / ((int64_t)threads * kW));
+  const int grid = (int)std::min<int64_t>(n_items, (int64_t)sms * kBlocksPerSm);
+  FilterArgs a{rows,   n_rows, row_stride, pchar, n_pat, pchar_stride, pad,
+               pieces, n_piece, pstart,    wf,    bound, start,        fcnt,
+               rowmap, rowmap_stride, stage_words};
   if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        filter_pieces_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+    e = cudaFuncSetAttribute(filter_pieces_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  filter_pieces_kernel<<<grid, kTile, smem, (cudaStream_t)stream>>>(a);
+  filter_pieces_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

@@ -11,10 +11,11 @@
 // per pattern and block (integer atomics: the sum does not depend on order).
 // The batch modes (many corpora in one launch) take each row's ownership
 // from a per-block or per-row table instead and flush their counters into
-// the tile's row-block slot after every tile. Kernels A, C, D and #8 walk
-// tiles this way and reduce with add_hits; kernel B's count mode and
-// kernel #7 walk tiles of windows per thread instead (exact_scan.cuh) and
-// use only owned_limit and flush_counts from here.
+// the tile's row-block slot after every tile. Kernels A and C (and their
+// batch and mask modes) walk tiles this way and reduce with add_hits;
+// kernel B (both modes) and kernel #7 walk tiles of windows per thread
+// instead (exact_scan.cuh), and kernel D its own items of 32-window tiles
+// (filter_pieces.cu); they use only the ownership and flush helpers here.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -784,7 +784,11 @@ class Scanner:
         fetch of all per-block
         counts; the EOF tails are counted on the host. Filtration stays
         out, as in ``apm``. Under ``backend="torch"`` the same layout runs
-        on the plain versions.
+        on the plain versions. With ``self.meter.trace`` on, the call's
+        spans land in ``self.meter.last_spans``: host ``fold``, device
+        ``copy``, the route's device span (``corr batch``, ``conv batch``
+        or ``dp batch``), host ``fetch`` and host ``EOF tail``; the device
+        spans run under the host's, which queue them asynchronously.
         """
         from ..ops import corr_engine, corr_fused, dp_kernel
         from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, _group_rows, corr_eligible
@@ -825,6 +829,7 @@ class Scanner:
                 f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
             )
         uniq = np.zeros((n_batch, p_pad), dtype=np.int64)
+        spans = Spans(self.device, self.meter.trace)
         if items:
             corr = self._corr_route(wf, halo) if use_corr else None
             gmax = max(8, min(
@@ -843,44 +848,54 @@ class Scanner:
             handles = []  # (group, (gmax, p_pad) device counts)
             for g0 in range(0, len(items), gmax):
                 group = items[g0 : g0 + gmax]
-                host = self._host_rows(gmax * fold, wf + halo)
-                rows_np = host.numpy()
-                meta = np.zeros((gmax, 2), dtype=np.int32)
-                limits = np.zeros((gmax * fold,), dtype=np.int32)
-                for slot, (b, blk, db) in enumerate(group):
-                    sl = slice(slot * fold, (slot + 1) * fold)
-                    fold_corpus(bufs[b], blk * w, fold, wf, halo, out=rows_np[sl])
-                    meta[slot] = (db, blk * w)  # bound, start (per-corpus space)
-                    limits[sl] = np.clip(db - blk * w - row_in_blk, 0, wf)
-                rows_np[len(group) * fold :] = 0  # padding blocks, bound 0
-                drows = self._to_device(host)
+                with spans.host("fold"):
+                    host = self._host_rows(gmax * fold, wf + halo)
+                    rows_np = host.numpy()
+                    meta = np.zeros((gmax, 2), dtype=np.int32)
+                    limits = np.zeros((gmax * fold,), dtype=np.int32)
+                    for slot, (b, blk, db) in enumerate(group):
+                        sl = slice(slot * fold, (slot + 1) * fold)
+                        fold_corpus(bufs[b], blk * w, fold, wf, halo, out=rows_np[sl])
+                        meta[slot] = (db, blk * w)  # bound, start (per-corpus space)
+                        limits[sl] = np.clip(db - blk * w - row_in_blk, 0, wf)
+                    rows_np[len(group) * fold :] = 0  # padding blocks, bound 0
+                with spans.device("copy"):
+                    drows = self._to_device(host)
+                    # limits for the k = 0 routes, [bound, start] per block else
+                    dlim = self._to_device(torch.from_numpy(limits if corr else meta))
                 if corr == "fused":
-                    cnts = corr_fused.scan_corr_batch_fused(
-                        drows, tabs["fused"], self._to_device(torch.from_numpy(limits)),
-                        wf=wf, halo=halo, fold=fold, p_out=p_pad, plain=plain,
-                    )
+                    with spans.device("corr batch"):
+                        cnts = corr_fused.scan_corr_batch_fused(
+                            drows, tabs["fused"], dlim,
+                            wf=wf, halo=halo, fold=fold, p_out=p_pad, plain=plain,
+                        )
                 elif corr == "conv":
-                    cnts = corr_engine.scan_corr_batch(
-                        drows, ckern, cthr, tabs["alph"],
-                        self._to_device(torch.from_numpy(limits)), wf=wf, fold=fold,
-                        g_rows=g_rows, stride=cstride, p_out=p_pad,
-                    )
+                    with spans.device("conv batch"):
+                        cnts = corr_engine.scan_corr_batch(
+                            drows, ckern, cthr, tabs["alph"], dlim, wf=wf, fold=fold,
+                            g_rows=g_rows, stride=cstride, p_out=p_pad,
+                        )
                 else:
-                    cnts = dp_kernel.scan_folded_dp_batch(
-                        drows, tabs["pat"], self._to_device(torch.from_numpy(meta)),
-                        k=k, m_max=self.m_max, wf=wf, halo=halo,
-                        plens=self._plens_static, alphabet=self._dp_alphabet(),
-                        dp_impl=self.config.dp_impl, peq=peq, plain=plain,
-                    )
+                    with spans.device("dp batch"):
+                        cnts = dp_kernel.scan_folded_dp_batch(
+                            drows, tabs["pat"], dlim,
+                            k=k, m_max=self.m_max, wf=wf, halo=halo,
+                            plens=self._plens_static, alphabet=self._dp_alphabet(),
+                            dp_impl=self.config.dp_impl, peq=peq, plain=plain,
+                        )
                 handles.append((group, cnts[:, :p_pad]))
             # ONE device-to-host fetch for every group's counts.
-            allc = torch.stack([c for _, c in handles]).cpu().numpy()
+            with spans.host("fetch"):
+                allc = torch.stack([c for _, c in handles]).cpu().numpy()
             for gi, (group, _) in enumerate(handles):
                 for slot, (b, _blk, _db) in enumerate(group):
                     uniq[b] += allc[gi, slot]
 
-        for b, buf in enumerate(bufs):
-            uniq[b, :n_scan] += self.tail_counts(buf, bounds[b])
+        with spans.host("EOF tail"):
+            for b, buf in enumerate(bufs):
+                uniq[b, :n_scan] += self.tail_counts(buf, bounds[b])
+        if spans.enabled:
+            self.meter.last_spans = spans.totals()
         out[:] = uniq[:, :n_scan][:, self._inverse]
         self.last_duration = time.perf_counter() - t0
         return out

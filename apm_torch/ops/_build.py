@@ -165,11 +165,13 @@ def library() -> ctypes.CDLL:
     lib.apm_corr_fused_count.restype = i32
     lib.apm_corr_batch_count.argtypes = [
         p, i64, i64,  # rows, n_staged, row_stride
-        p, i32, i64, p,  # pat, n_pat, pat_stride, plens
+        p, i32, i64, p, p,  # pat, n_pat, pat_stride, plens, prefix
         i64, p, i32,  # wf, limits, fold
         p, i64, i32, p,  # out, out_stride, grid, stream
     ]
     lib.apm_corr_batch_count.restype = i32
+    lib.apm_empty_launch.argtypes = [i64, i32, p]  # wf, grid, stream
+    lib.apm_empty_launch.restype = i32
     lib.apm_pieces_fused_count.argtypes = [
         p, i64, i64, i64,  # rows, n_staged, row_stride, n_rows
         p, i32, i32, p, p, p,  # piece, n_piece, piece_stride, plen, owner, prefix
@@ -203,10 +205,10 @@ def library() -> ctypes.CDLL:
     lib.apm_filter_pieces_count.argtypes = [
         p, i64, i64,  # rows, n_rows, row_stride
         p, i32, i64, i32,  # pchar, n_pat, pchar_stride, pad
-        p, p, i32,  # pieces, pstart, span_max
+        p, i32, p,  # pieces, n_piece, pstart
         i64, i64, i64,  # wf, bound, start
         p, p, i64,  # fcnt, rowmap, rowmap_stride
-        i32, p,  # grid, stream
+        p,  # stream
     ]
     lib.apm_filter_pieces_count.restype = i32
     return lib

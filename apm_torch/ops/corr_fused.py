@@ -39,7 +39,8 @@ The CUDA kernel (``csrc/corr_pieces.cu``) compares the piece bytes that
 first; the plain version (:func:`scan_pieces_fused_ref`) compares shifted
 slices of the rows.
 
-Both kernels read the staged rows with 16-byte vector loads: on the card
+Kernels B (both modes) and #7 read the staged rows with 16-byte vector
+loads: on the card
 the rows' pointer and row stride must be multiples of 16 bytes
 (:func:`check_aligned_rows`); a view at a row offset of staged rows
 (``rows[3:]``) is, since ``wf + halo`` is a multiple of 128.
@@ -70,12 +71,10 @@ _SENTINEL = 2**30  # threshold of padding slots: never reached
 
 # Slots per launch. A block holds the group in shared memory, within the
 # 227 KB a block may take: kernel B's count mode 24 bytes a slot (prefix
-# word and mask, length, counter: 192 KB), its batch mode (#8) a 4-byte
-# counter; kernel #7 12 bytes a pattern (_PIECE_GROUP).
+# word and mask, length, counter: 192 KB), its batch mode (#8) 20 (prefix
+# word and mask, length); kernel #7 12 bytes a pattern (_PIECE_GROUP).
 _PAT_GROUP = 8192
-_BLOCKS_PER_SM = 8  # kernel #8: 256-thread blocks, one window a thread
-_TILE = 256
-# Kernels B (count mode) and #7 (csrc/exact_scan.cuh): a block covers at
+# Kernels B (both modes) and #7 (csrc/exact_scan.cuh): a block covers at
 # most 288 threads x 32 windows of a row per grid-stride item, and their
 # __launch_bounds__ fit 2 blocks on an SM.
 _EXACT_SEG = 288 * 32
@@ -218,14 +217,15 @@ def _prefix_tensor(pat, plen, dev) -> torch.Tensor:
     return torch.from_numpy(prefix_words(pat, plen).view(np.int64)).to(dev)
 
 
-def check_aligned_rows(rows: torch.Tensor) -> None:
-    """Raise unless kernels B and #7 can read ``rows`` with 16-byte vector
-    loads: unit column stride, and the data pointer and the row stride
-    multiples of 16 bytes. No copy is made in their stead."""
-    if rows.stride(1) != 1 or rows.data_ptr() % 16 or rows.stride(0) % 16:
+def check_aligned_rows(rows: torch.Tensor, align: int = 16) -> None:
+    """Raise unless a kernel can read ``rows`` with ``align``-byte loads:
+    unit column stride, and the data pointer and the row stride multiples
+    of ``align`` bytes. Kernels B (both modes) and #7 read 16-byte vectors,
+    kernel D copies 4-byte words. No copy is made in their stead."""
+    if rows.stride(1) != 1 or rows.data_ptr() % align or rows.stride(0) % align:
         raise ValueError(
-            f"rows at {rows.data_ptr():#x} with strides {tuple(rows.stride())}: the "
-            "kernel needs unit column stride and a 16-byte aligned pointer and row stride"
+            f"rows at {rows.data_ptr():#x} with strides {tuple(rows.stride())}: the kernel "
+            f"needs unit column stride and a {align}-byte aligned pointer and row stride"
         )
 
 
@@ -313,6 +313,12 @@ def _grid(dev, n_items: int, per_sm: int) -> int:
     return max(1, min(n_items, sms * per_sm))
 
 
+def batch_grid(dev, n_staged: int, wf: int) -> int:
+    """Blocks of a kernel #8 launch over ``n_staged`` rows of ``wf``
+    windows (as kernel B's count mode)."""
+    return _grid(dev, n_staged * -(-wf // _EXACT_SEG), _EXACT_BLOCKS_PER_SM)
+
+
 def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
     global LAUNCHES
     from ._build import check, library
@@ -362,7 +368,8 @@ def scan_corr_batch_fused(
 ) -> torch.Tensor:
     """(R/fold, max(p, p_out)) int32 per-block exact-match counts of a batch
     (module doc, batch mode). CUDA tensors go to the kernel's batch mode
-    (current stream, no synchronisation); CPU tensors, and any tensor under
+    (current stream, no synchronisation; 16-byte aligned rows,
+    :func:`check_aligned_rows`); CPU tensors, and any tensor under
     ``plain=True``, to :func:`scan_corr_batch_fused_ref`."""
     _check_rows(rows, wf, halo, rows.shape[0], tables)
     _check_limits(rows, limits, fold)
@@ -375,22 +382,22 @@ def scan_corr_batch_fused(
     global BATCH_LAUNCHES
     from ._build import check, library
 
+    check_aligned_rows(rows)
     lib = library()
     dev = rows.device
-    rows = rows.contiguous()
     p = tables.p
     width = max(p, p_out)
     out = torch.zeros((rows.shape[0] // fold, width), dtype=torch.int32, device=dev)
-    grid = _grid(dev, rows.shape[0] * -(-wf // _TILE), _BLOCKS_PER_SM)
+    grid = batch_grid(dev, rows.shape[0], wf)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    pat, plen = tables.pat, tables.plen
+    pat, plen, prefix = tables.pat, tables.plen, tables.prefix
     for g0 in range(0, p, _PAT_GROUP):
         ng = min(_PAT_GROUP, p - g0)
         err = lib.apm_corr_batch_count(
-            rows.data_ptr(), rows.shape[0], rows.shape[1],
+            rows.data_ptr(), rows.shape[0], rows.stride(0),
             pat[g0].data_ptr(), ng, pat.shape[1], plen[g0].data_ptr(),
-            wf, limits.data_ptr(), fold, out.data_ptr() + 4 * g0, width,
-            grid, stream,
+            prefix[g0].data_ptr(), wf, limits.data_ptr(), fold,
+            out.data_ptr() + 4 * g0, width, grid, stream,
         )
         check(err, "apm_corr_batch_count")
         BATCH_LAUNCHES += 1

@@ -22,11 +22,20 @@ candidate totals (exact match counts at k = 0) and candidate windows per
 row. Phase 2 (:mod:`apm_torch.ops.fused`) verifies candidate rows.
 
 :func:`scan_filter` launches kernel D (``csrc/filter_pieces.cu``) for a
-CUDA tensor and uses :func:`scan_filter_ref` only for a CPU tensor.
+CUDA tensor and uses :func:`scan_filter_ref` only for a CPU tensor. The
+kernel tests each piece's head word at every position a window reaches,
+reads the rest of the piece (exact tier) or runs the band (banded tier,
+after a necessary half-split word test) only where that passes, and ORs
+the hits over the shift span. The host sends each piece's layout
+(:func:`piece_layout`); the kernel builds the head and tail words from the
+char table. On the card the rows' pointer and row stride must be multiples
+of 4 bytes (``corr_fused.check_aligned_rows``), as the Scanner's staging
+gives them. The kernel's entry sizes its block and grid.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence
 
 import numpy as np
@@ -44,9 +53,15 @@ BANDED_LMIN = {5: 14, 6: 14, 7: 14, 8: 14}  # else 16 for k in [9, 16]
 # Kernel launches made by scan_filter.
 LAUNCHES = 0
 
-_PAT_GROUP = 4096  # patterns per launch (32 KB of shared counters)
-_BLOCKS_PER_SM = 8
-_TILE = 256
+# Columns of a piece_layout row: off (= o + s_lo), span (= s_hi - s_lo), li,
+# kp, o, tail_off, n_head, n_tail.
+PIECE_COLS = 8
+# Launch groups of kernel D: a block holds a group's piece table (64 bytes a
+# piece with its words) and counters (16 bytes a pattern) in shared memory,
+# beside three staging buffers of the text (about 29 KB at 256 threads and
+# a 128-byte halo), within the 227 KB a block may take.
+_PAT_GROUP = 2048
+_PIECE_GROUP = 1024
 
 
 def pieces_of_j(m: int, j: int):
@@ -159,6 +174,50 @@ def piece_plan(plens, k: int):
     return pieces, np.asarray(pstart, dtype=np.int32), span
 
 
+@functools.lru_cache(maxsize=64)
+def piece_layout(plens: tuple, k: int):
+    """Kernel D's piece table: ``(table (N, PIECE_COLS) int32, pstart
+    (P + 1,) int32)``, pieces grouped by pattern as in :func:`piece_plan`.
+    Cached; both arrays are read-only.
+
+    Row ``q`` holds the piece's first tested position ``off = o + s_lo``
+    (window ``w`` tests positions ``w + off .. w + off + span``), ``span =
+    s_hi - s_lo``, ``li``, ``kp``, ``o``, ``tail_off``, ``n_head`` and
+    ``n_tail``. The kernel's head word is the piece's first ``n_head =
+    min(li, 8)`` bytes (exact tier) or ``min(8, li // 2)`` (banded tier);
+    its tail word (banded tier only) the last ``n_tail = min(8, ceil(li /
+    2))``, tested at ``T + tail_off + 1 + d`` for a head at ``T``,
+    ``tail_off = li - n_tail - 1``, ``d`` in {-1, 0, 1}. Both are packed in
+    :func:`corr_fused.prefix_words`' byte order.
+    """
+    pieces, pstart, _ = piece_plan(plens, k)
+    table = np.zeros((len(pieces), PIECE_COLS), np.int32)
+    for i, (o, li, kp, s_lo, s_hi) in enumerate(pieces.tolist()):
+        n_head = min(li, 8) if kp == 0 else min(8, li // 2)
+        n_tail = 0 if kp == 0 else min(8, (li + 1) // 2)
+        tail_off = li - n_tail - 1 if kp else 0
+        table[i] = (o + s_lo, s_hi - s_lo, li, kp, o, tail_off, n_head, n_tail)
+    table.setflags(write=False)
+    pstart.setflags(write=False)
+    return table, pstart
+
+
+def launch_groups(pstart: np.ndarray) -> tuple:
+    """Kernel D's launch groups ``(p0, p1)``: consecutive patterns, at most
+    ``_PAT_GROUP`` of them and ``_PIECE_GROUP`` pieces, each holding a
+    piece."""
+    groups, p0, n_pat = [], 0, len(pstart) - 1
+    while p0 < n_pat:
+        p1 = p0 + 1
+        while (p1 < n_pat and p1 - p0 < _PAT_GROUP
+               and pstart[p1 + 1] - pstart[p0] <= _PIECE_GROUP):
+            p1 += 1
+        if pstart[p1] > pstart[p0]:
+            groups.append((p0, p1))
+        p0 = p1
+    return tuple(groups)
+
+
 def _check_args(rows, pat_raw, k, m_max, wf, halo, plens) -> None:
     if rows.dtype != torch.uint8 or rows.dim() != 2:
         raise ValueError(f"rows must be 2-D uint8, got {rows.dtype} {tuple(rows.shape)}")
@@ -212,10 +271,12 @@ def scan_filter(
 def _launch(rows, pat_raw, bound, start, k, wf, plens):
     global LAUNCHES
     from ._build import check, library
+    from .corr_fused import check_aligned_rows
 
+    rows = rows.contiguous()
+    check_aligned_rows(rows, align=4)
     lib = library()
     dev = rows.device
-    rows = rows.contiguous()
     n_rows, n_pat = rows.shape[0], len(plens)
     fcnt = torch.zeros((n_pat,), dtype=torch.int32, device=dev)
     rowmap = torch.zeros((n_rows, n_pat), dtype=torch.int32, device=dev)
@@ -223,24 +284,19 @@ def _launch(rows, pat_raw, bound, start, k, wf, plens):
         return fcnt, rowmap
     pad = sentinel_pad(plens, k)
     pchar = pchar_table(pat_raw, pad).contiguous()
-    pieces_np, pstart_np, span = piece_plan(plens, k)
-    pieces = torch.from_numpy(pieces_np).to(dev, non_blocking=True)
-    pstart = torch.from_numpy(pstart_np).to(dev, non_blocking=True)
-    n_tiles = n_rows * -(-wf // _TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    grid = max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+    # the kernel builds the words from pchar: no device-to-host read here
+    layout, pstart_np = piece_layout(plens, k)
+    table = torch.tensor(layout, device=dev)
+    pstart = torch.tensor(pstart_np, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for g0 in range(0, n_pat, _PAT_GROUP):
-        ng = min(_PAT_GROUP, n_pat - g0)
-        if pstart_np[g0] == pstart_np[g0 + ng]:
-            continue
+    for p0, p1 in launch_groups(pstart_np):
+        q0, q1 = int(pstart_np[p0]), int(pstart_np[p1])
         err = lib.apm_filter_pieces_count(
             rows.data_ptr(), n_rows, rows.shape[1],
-            pchar[g0].data_ptr(), ng, pchar.shape[1], pad,
-            pieces.data_ptr(), pstart[g0].data_ptr(), span,
+            pchar[p0].data_ptr(), p1 - p0, pchar.shape[1], pad,
+            table[q0].data_ptr(), q1 - q0, pstart[p0].data_ptr(),
             wf, bound, start,
-            fcnt[g0].data_ptr(), rowmap.data_ptr() + 4 * g0, n_pat,
-            grid, stream,
+            fcnt[p0].data_ptr(), rowmap.data_ptr() + 4 * p0, n_pat, stream,
         )
         check(err, "apm_filter_pieces_count")
         LAUNCHES += 1

@@ -1,0 +1,162 @@
+#!/usr/bin/env python3
+"""Time hand-written kernels of one checkout of ``apm_torch`` on one GPU.
+
+Run from the root of a checkout::
+
+    python3 chip_compare.py TREE LABEL
+
+``TREE`` is the root of the checkout whose ``apm_torch`` is imported (and
+whose kernels are built); the inputs, the timers and the plain versions'
+gates are this script's own ``chip_smoke.py``, so two trees see the same
+bytes. It runs every entry of ``CASES``: a function that yields
+``(what, kernel, fn, plain, reps)``, where ``fn`` calls the
+kernel's wrapper, ``kernel`` is a substring of the CUDA kernel's name, and
+``plain`` (or None) its plain version, which ``fn`` must equal before it is
+timed. Each prints one line ``AB LABEL ...``: the median of ``reps`` calls
+between CUDA events (the wrapper's host work included) and the kernel's
+device time from ``torch.profiler`` (mean of 5 calls, the kernel alone).
+A case may only call what both trees to be compared have.
+
+To compare two commits on one card, unpack the parent into a directory
+that ``.gitignore`` lists (``git archive``) and run parent, change, change,
+parent in one call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import os
+import sys
+
+
+def device_ms(fn, kernel: str, reps: int = 5):
+    """Mean device time of the launches of ``kernel`` (a substring of its
+    name) in one call of ``fn``, from ``torch.profiler``'s CUDA activity:
+    the kernel alone, without the wrapper's host work and the launch gaps
+    that CUDA events around the call include. None when the profiler sees
+    no such launch. (Not in chip_smoke.py: a profiler session there left
+    its later device-busy readings short of kernel and copy events.)"""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = [e.time_range.elapsed_us() for e in prof.events()
+          if e.device_type == DeviceType.CUDA and kernel in e.name]
+    return sum(us) / reps / 1e3 if us else None
+
+
+def filter_cases(cs, dev):
+    """Kernel D: k = 3 on the pair 32 + 50 and k = 8 on 2 x 120, at 4096
+    rows (held to the plain version) and on the 32768 rows of a 256 MB
+    chunk, 7 calls each."""
+    import torch
+    from apm_torch.ops import filter_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    wf, main_rows = 8192, 32768
+    corpus = random_corpus(main_rows * wf + 4096, seed=90)
+    sets = {
+        "pair": ([random_pattern(32, seed=93), random_pattern(50, seed=94)], 3, 2),
+        "2x120": ([random_pattern(120, seed=95 + i) for i in range(2)], 8, 6),
+    }
+    for si, (pats, _, pk) in enumerate(sets.values()):
+        for i, p in enumerate(pats):
+            plant(corpus, p, range(753 + 211 * i + 53 * si, len(corpus) - 300, 100_003),
+                  k=pk, seed=100 + i)
+    for name, (pats, k, _) in sets.items():
+        _, raw, plens, m_max = cs._pattern_table([p.tobytes() for p in pats], k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = cs.staged(corpus, 0, main_rows, wf, halo, dev)
+        draw = torch.from_numpy(raw).to(dev)
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+        for n in (4096, main_rows):
+            args = (rows[:n], draw, n * wf - 200, 0)
+            plain = (lambda a=args, kw=kw: filter_kernel.scan_filter_ref(*a, **kw)) if n == 4096 else None
+            yield (f"D k={k} {name} R={n}", "filter_pieces_kernel",
+                   lambda a=args, kw=kw: filter_kernel.scan_filter(*a, **kw), plain, 7)
+
+
+def corr_batch_cases(cs, dev):
+    """Kernel #8: the first 1024-row group of ``count_batch``'s staging of
+    40 corpora at P = 2 and P = 64, held to the plain version, 15 calls
+    each."""
+    import numpy as np
+    import torch
+    from apm_torch.ops import corr_fused
+    from apm_torch.ops.corr_engine import build_alphabet
+    from apm_torch.utils.corpus import random_pattern
+
+    wf = 8192
+    pair = [random_pattern(32, seed=321).tobytes(), random_pattern(50, seed=322).tobytes()]
+    wide = [random_pattern(50, seed=330 + i).tobytes() for i in range(64)]
+    plants = [(p, 200_003 + 1009 * i, 0) for i, p in enumerate(pair + wide[:6])]
+    corpora = cs.mixed_corpora(40, 64 << 10, 4 << 20, 325, plants, alphabet=b"ACGT")
+    for pats, name in ((pair, "P=2"), (wide, "P=64")):
+        m_max = max(len(p) for p in pats)
+        pat_raw = np.zeros((len(pats), m_max), np.uint8)
+        for i, p in enumerate(pats):
+            pat_raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+        alph = build_alphabet(pats)
+        km, thr = corr_fused.build_fused_tables(pat_raw, [len(p) for p in pats], alph)
+        tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(m_max), dev)
+        rows, _, limits = cs.batch_groups(corpora, 8 * wf, wf, 128, lambda n: n - m_max + 1)[0]
+        args = (torch.from_numpy(rows).to(dev), tabs, torch.from_numpy(limits).to(dev))
+        kw = dict(wf=wf, halo=128, p_out=max(8, len(pats)))
+        yield (f"#8 {name} R={rows.shape[0]}", "corr_batch_kernel",
+               lambda a=args, kw=kw: corr_fused.scan_corr_batch_fused(*a, **kw),
+               lambda a=args, kw=kw: corr_fused.scan_corr_batch_fused_ref(*a, **kw), 15)
+
+
+# A later kernel's comparison is one more entry.
+CASES = (filter_cases, corr_batch_cases)
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("tree")
+    ap.add_argument("label")
+    args = ap.parse_args()
+    tree = os.path.abspath(args.tree)
+    sys.path.insert(0, tree)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device visible to torch; chip_compare needs one GPU")
+        return 1
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(here, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+
+    import apm_torch
+
+    if not apm_torch.__file__.startswith(tree):
+        print(f"imported {apm_torch.__file__}, not the tree {tree}")
+        return 1
+    dev = torch.device("cuda", 0)
+    for cases in CASES:
+        for what, kernel, fn, plain, reps in cases(cs, dev):
+            if plain is not None:
+                got, ref = fn(), plain()
+                got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+                if not all(torch.equal(g, r) for g, r in zip(got, ref)):
+                    print(f"{what}: kernel != plain")
+                    return 1
+            ms = cs.cuda_ms(fn, reps)
+            d = device_ms(fn, kernel)
+            print(f"AB {args.label} {what}: {ms:.4f} ms, device "
+                  f"{'%.4f ms' % d if d is not None else 'not measured'}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

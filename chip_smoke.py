@@ -25,10 +25,12 @@ Phases, one line each; any failure exits non-zero:
    size: patterns of 1, 3 and 7 bytes and m = 97, all-A text against A^m
    patterns (every window hits), rows taken as a view at a row offset with
    start > 0 and a bound inside a thread's tile of windows;
-3b. kernel D (shift-OR piece filter, ``csrc/filter_pieces.cu``) against its
-   plain version, candidate totals and row maps cell for cell: k = 0 on a
-   short set, k = 1 and k = 3 exact tier, k = 8 and k = 16 banded tier,
-   and k = 3 on the 32768 rows of a 256 MB chunk;
+3b. kernel D (pigeonhole piece filter, ``csrc/filter_pieces.cu``) against
+   its plain version, candidate totals and row maps cell for cell: k = 0 on
+   a short set, k = 1 and k = 3 exact tier, k = 8 and k = 16 banded tier,
+   and k = 3 and k = 8 on the 32768 rows of a 256 MB chunk; its edge cases
+   at 512 rows: k = 0 patterns of 3 and 7 bytes, 8- and 14-byte pieces
+   (exact, and banded with 7-byte heads), and all-A text at k = 1 and 8;
 4. end to end, k = 0, 256 MB (one chunk) and 512 MB (two chunks):
    ``Scanner.count`` on the reference-shaped pattern set (1 x 32 + 5 x 50
    bytes, seeded), gated by a host substring count plus the oracle on the
@@ -53,7 +55,9 @@ Phases, one line each; any failure exits non-zero:
    at 512 rows (``FIND_BATCH``), k = 1 and 3, a mid-row bound: counts and
    verdicts byte for byte; the bit pack and per-row top-k timed;
 3c. kernel #8 (the batch mode of kernel B) against its plain version on the
-   same kind of staging at P = 2, P = 64 (int8 tables) and m = 70, 80;
+   same kind of staging at P = 2, P = 64 (int8 tables) and m = 70, 80, and
+   on 6 corpora patterns of 1, 3 and 7 bytes and all-A text against A^m;
+   an empty launch of #8's grid timed beside its bound;
 2e. kernel #9 (kernel A's dynamic-length entry, ``scan_folded``) against
    its plain version and against kernel A's count mode at 4096 rows: P = 8
    with padding rows and mixed lengths, k in {0, 1, 3}, start > 0 and a
@@ -75,8 +79,10 @@ Phases, one line each; any failure exits non-zero:
    same ``engine="dp", dp_impl="band"`` counts and 1 MB oracle prefix;
 7. ``Scanner.count_batch`` on 64 corpora of 0.5 to 8 MB, k = 0, 1 and 3,
    gated by ``count`` on each corpus and the oracle; MB/s and corpora/s
-   beside the loop of ``count``; at k = 0 also ``corr_impl="conv"`` (the
-   batched conv), gated by the kernel #8 route's counts;
+   beside the loop of ``count``, and the split of one traced call (its own
+   spans: fold, copy, launches, fetch, EOF tails); at k = 0 also
+   ``corr_impl="conv"`` (the batched conv), gated by the kernel #8 route's
+   counts;
 8. ``Scanner.find``: 256 MB k = 1 sparse (kernel D, then #6) and two 4 MB
    dense cells of a 9-byte pattern at k = 2 (the mask sweep: the ``gpos``
    decode on random text, the packed-mask fallback on all-A text), gated by
@@ -170,15 +176,21 @@ INT_ISSUE_PER_S = 132 * 128 * 1.98e9
 # sass_loops; loads, address arithmetic and loop overhead included): kernel A's k = 1 step loop (dp_band.cu, KE = 1)
 # issues 80 instructions per 4 unrolled steps of 3 band cells; kernel C's
 # static and moving loops (dp_myers.cu) 103 and 125 per 4 unrolled steps.
-# The early-exit byte compares an exact scan needs (bytes compared up to
-# the first mismatch: the work of kernels B, #7 and D, however a kernel
-# does it) are counted as 3 each (load, compare, branch), kernel D's shift
-# OR per window and shift as 2 (a shared-memory load and an or).
+# The work of an exact scan is counted the same whatever implements it:
+# the early-exit byte compares it needs (bytes compared up to the first
+# mismatch), 3 each (load, compare, branch). Kernels B, #8 and #7 compare
+# each pattern or piece at every position they own; kernel D compares each
+# piece's head bytes (its first min(li, 8) bytes, or min(8, li // 2) in the
+# banded tier) at every text position an owned window reaches (lanes
+# [0, limit + span) from o + s_lo), which any exact or banded piece test
+# must do at least. Steps of one design (a shift OR per window and shift,
+# the band on the survivors) are not counted: a bound
+# that counted them would credit a kernel that skips them with work it
+# does not do.
 BAND_K1_STEP_INSTR = 20
 MYERS_STATIC_STEP_INSTR = 103 / 4
 MYERS_MOVING_STEP_INSTR = 125 / 4
 COMPARE_OPS = 3
-SHIFT_OR_OPS = 2
 
 
 def band_k1_instr(owned: int, plens) -> int:
@@ -276,6 +288,21 @@ def compare_ops(rows, seqs, limits, wf, width=None) -> int:
     return total * COMPARE_OPS
 
 
+def filter_ops(rows, raw, plens, k, limits, wf) -> int:
+    """Integer operations of kernel D's work on these inputs (the rule
+    above): each piece's head bytes compared, up to the first mismatch, at
+    every position an owned window of its row reaches."""
+    from apm_torch.ops.filter_kernel import piece_layout
+
+    table, pstart = piece_layout(tuple(int(m) for m in plens), k)
+    total = 0
+    for p in range(len(plens)):
+        for off, span, _li, _kp, o, _t, n_head, _n in table[pstart[p] : pstart[p + 1]].tolist():
+            reach = np.where(limits > 0, limits + span, 0)
+            total += compare_ops(rows, [(raw[p, o : o + n_head], off)], reach, wf, width=wf + span)
+    return total
+
+
 class KernelRecord:
     def __init__(self, name, source, replaces):
         self.name, self.source, self.replaces = name, source, replaces
@@ -293,13 +320,16 @@ class KernelRecord:
         self.max_abs_err = max(self.max_abs_err, err)
         need(err == 0, f"{self.name} {what}: kernel != plain, {int((got != ref).sum())} cells differ")
 
-    def measured(self, ms, plain_ms, n_bytes, ops, what):
-        """Keep the times of the case the record reports, with its bound."""
-        self.ms, self.plain_ms = ms, plain_ms
-        self.bound_ms, self.bound_by = bound_of(n_bytes, ops)
-        say(f"  {self.name} record ({what}): {n_bytes} bytes, {ops} integer instructions, "
-            f"bound {self.bound_ms:.4f} ms by {self.bound_by}, kernel {ms:.3f} ms "
-            f"(roofline share {100 * self.bound_ms / ms:.1f} %)")
+    def measured(self, ms, plain_ms, n_bytes, ops, what, keep=True):
+        """Print a case's bound and share; ``keep``: the case the record
+        reports, with its times."""
+        bound_ms, bound_by = bound_of(n_bytes, ops)
+        if keep:
+            self.ms, self.plain_ms, self.bound_ms, self.bound_by = ms, plain_ms, bound_ms, bound_by
+        say(f"  {self.name} record ({what}{'' if keep else ', printed only'}): {n_bytes} bytes, "
+            f"{ops} integer instructions, bound {bound_ms:.4f} ms by {bound_by}, kernel "
+            f"{ms:.3f} ms (roofline share {100 * bound_ms / ms:.1f} %)")
+        return bound_ms
 
     def json(self, launches):
         # No single PyTorch call computes a banded Levenshtein verdict, an
@@ -557,8 +587,12 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
          f"P=6 m=50 k=12 R={main_rows} (a 256 MB chunk)", reps=3, timed=False)
 
 
-def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
-    """Kernel D against scan_filter_ref, fcnt and rowmap cell for cell."""
+def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768, edge_rows: int = 512) -> None:
+    """Kernel D against scan_filter_ref, fcnt and rowmap cell for cell: the
+    main-path shapes at 4096 rows and on the 32768 rows of a 256 MB chunk,
+    then edge cases at ``edge_rows`` rows: k = 0 heads of 3 and 7 bytes,
+    8-byte and 14-byte pieces (exact, and banded with 7-byte heads), and
+    all-A text (every window a candidate, the band at every position)."""
     import torch
 
     from apm_torch.ops import filter_kernel
@@ -572,19 +606,27 @@ def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         "pair": ([random_pattern(32, seed=93), random_pattern(50, seed=94)], 2),
         "120": ([random_pattern(120, seed=95 + i) for i in range(2)], 6),
         "160": ([random_pattern(160, seed=97 + i) for i in range(2)], 12),
+        "tiny": ([random_pattern(3, seed=101), random_pattern(7, seed=102)], 0),
+        "16": ([random_pattern(16, seed=103), random_pattern(32, seed=104)], 1),
+        "84": ([random_pattern(84, seed=105), random_pattern(50, seed=106)], 3),
+        "70": ([random_pattern(70, seed=107), random_pattern(120, seed=108)], 5),
     }
     for si, (pats, pk) in enumerate(sets.values()):
-        for i, p in enumerate(pats):
-            plant(corpus, p, range(700 + 211 * i + 53 * si, len(corpus) - 300, 100_003),
-                  k=pk, seed=100 + 10 * si + i)
+        for i, p in enumerate(pats):  # the edge sets' copies apart from the others'
+            first = 700 + 211 * i + (53 * si if si < 4 else 50_000 + 1000 * si)
+            plant(corpus, p, range(first, len(corpus) - 300, 100_003), k=pk, seed=100 + 10 * si + i)
+    dense = {}  # all-A rows by halo
 
-    def case(name, k, n, start_row, bound, what, reps=5, plain_reps=1, record=False):
-        pats = [p.tobytes() for p in sets[name][0]]
+    def case(name, k, n, start_row, bound, what, reps=5, plain_reps=1, record=None, text="random"):
+        pats = [p.tobytes() for p in sets[name][0]] if text == "random" else [b"A" * m for m in name]
         _, raw, plens, m_max = _pattern_table(pats, k)
         need(all(filter_kernel.filter_eligible(m, k) for m in plens if m),
              f"kernel D {what}: a pattern is not filtration-eligible")
         halo = round_up(m_max + 2 * k, 128)
-        rows = staged(corpus, start_row, n, wf, halo, dev)
+        if text == "random":
+            rows = staged(corpus, start_row, n, wf, halo, dev)
+        else:
+            rows = dense.setdefault(halo, torch.full((n, wf + halo), ord("A"), dtype=torch.uint8, device=dev))
         draw = torch.from_numpy(raw).to(dev)
         start = start_row * wf
         kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
@@ -596,34 +638,42 @@ def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         rec.compare(fcnt, rfcnt, what + " fcnt")
         rec.compare(rowmap, rrowmap, what + " rowmap")
         need(int(fcnt.sum()) > 0, f"kernel D {what}: no candidates at all")
-        ms, plain_ms = cuda_ms(kern, reps), cuda_ms(plain, plain_reps)
+        limits = owned_lanes(n, wf, bound, start)
+        if text != "random":
+            need(fcnt[: len(pats)].tolist() == [int(limits.sum())] * len(pats),
+                 f"kernel D {what}: not every owned window is a candidate")
+        ms = cuda_ms(kern, reps)
+        plain_ms = cuda_ms(plain, plain_reps) if plain_reps else None
         tiers = sorted({filter_kernel.tier_of(m, k) for m in plens if m})
         say(f"phase 3b kernel D {what} tiers {tiers}: fcnt and rowmap equal, fcnt "
             f"{fcnt[:len(pats)].tolist()}, hot rows {int((rowmap.sum(1) > 0).sum())}, "
-            f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if record:  # exact-tier pieces: early-exit compares, then the shift ORs
-            seqs, spans = [], []
-            for pi, m in enumerate(plens):
-                if not m:
-                    continue
-                j, kp = filter_kernel.tier_of(m, k)
-                for idx, (o, li) in enumerate(filter_kernel.pieces_of_j(m, j)):
-                    s_lo, s_hi = filter_kernel.piece_shift_range(idx, j, o, li, m, k, kp)
-                    seqs.append((raw[pi, o : o + li], o + s_lo))
-                    spans.append(s_hi - s_lo + 1)
-            limits = owned_lanes(n, wf, bound, start)
-            ops = compare_ops(rows, seqs, limits, wf) + int(limits.sum()) * sum(spans) * SHIFT_OR_OPS
-            rec.measured(ms, plain_ms, rows.numel() + raw.nbytes + 4 * len(plens) * (1 + n), ops, what)
+            f"kernel {ms:.3f} ms, plain {'%.3f ms' % plain_ms if plain_reps else 'not timed'}")
+        if record is not None:
+            ops = filter_ops(rows, raw, plens, k, limits, wf)
+            rec.measured(ms, plain_ms, rows.numel() + raw.nbytes + 4 * len(plens) * (1 + n), ops, what,
+                         keep=record == "keep")
 
     full = n_rows * wf - 200
     case("short", 0, n_rows, 0, full, f"k=0 m=12,20 R={n_rows}")
     case("pair", 1, n_rows, 0, full, f"k=1 m=32,50 R={n_rows}")
-    case("pair", 3, n_rows, 0, full, f"k=3 m=32,50 R={n_rows}", record=True)
-    case("120", 8, n_rows, 0, full, f"k=8 2x120 R={n_rows}")
+    case("pair", 3, n_rows, 0, full, f"k=3 m=32,50 R={n_rows}", record="keep")
+    case("120", 8, n_rows, 0, full, f"k=8 2x120 R={n_rows}", record="print")
     case("160", 16, n_rows - 8, 3, 3 * wf + (n_rows - 13) * wf + 4321,
          f"k=16 2x160 R={n_rows - 8} start>0 mid-row bound")
     case("pair", 3, main_rows, 0, main_rows * wf - 200,
-         f"k=3 m=32,50 R={main_rows} (a 256 MB chunk)", reps=3)
+         f"k=3 m=32,50 R={main_rows} (a 256 MB chunk)", reps=3, record="print")
+    case("120", 8, main_rows, 0, main_rows * wf - 200,
+         f"k=8 2x120 R={main_rows} (a 256 MB chunk)", reps=3, plain_reps=0, record="print")
+    # edge cases, small: a bound inside a thread's tile of windows
+    e_bound = 3 * wf + (edge_rows - 9) * wf + 17
+    for name, k, what in (("tiny", 0, "k=0 m=3,7 (heads under 8 bytes)"),
+                          ("16", 1, "k=1 m=16,32 (8-byte pieces)"),
+                          ("84", 5, "k=5 m=84,50 (14-byte exact pieces, banded 50)"),
+                          ("70", 8, "k=8 m=70,120 (14-byte banded pieces, 7-byte heads)")):
+        case(name, k, edge_rows, 3, e_bound, f"{what} R={edge_rows} start>0", reps=3)
+    for lens, k in (((32, 16), 1), ((120,), 8)):
+        case(lens, k, 64, 0, 63 * wf + 17, f"all-A text, A^{'/A^'.join(map(str, lens))} k={k} R=64 "
+             "(every window a candidate)", reps=2, text="all-A")
 
 
 def batch_groups(corpora, w, wf, halo, bound, gmax=128):
@@ -762,7 +812,11 @@ def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int 
     """Kernel #8 (the batch mode of kernel B) against its plain version on
     every group of count_batch's staging of 40 mixed corpora (1024 rows per
     group), at P = 2, P = 64 (int8 tables) and m = 70, 80 (32-phase
-    tables), row limits from each corpus's bound."""
+    tables), row limits from each corpus's bound; edge cases on 6 corpora:
+    patterns of 1, 3 and 7 bytes (masked prefix words), and all-A text
+    against A^m (every owned window hits). The recorded case is timed
+    beside an empty launch of the same grid, which is what holds a kernel
+    whose bound is a few microseconds."""
     import torch
 
     from apm_torch.ops import corr_fused
@@ -773,9 +827,15 @@ def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int 
     pair = [random_pattern(32, seed=321).tobytes(), random_pattern(50, seed=322).tobytes()]
     wide = [random_pattern(50, seed=330 + i).tobytes() for i in range(64)]
     mid = [random_pattern(80, seed=323).tobytes(), random_pattern(70, seed=324).tobytes()]
+    short = [random_pattern(m, seed=326 + m).tobytes() for m in (1, 3, 7)]
     plants = [(p, 200_003 + 1009 * i, 0) for i, p in enumerate(pair + wide[:6] + mid)]
     corpora = mixed_corpora(n_corpora, lo, hi, 325, plants, alphabet=b"ACGT")
-    for pats, name in ((pair, "P=2 m=32,50"), (wide, "P=64 m=50"), (mid, "P=2 m=70,80")):
+    few = corpora[:6]
+    all_a = mixed_corpora(6, lo, hi, 327, alphabet=b"A")
+    cases = ((pair, "P=2 m=32,50", corpora), (wide, "P=64 m=50", corpora),
+             (mid, "P=2 m=70,80", corpora), (short, "P=3 m=1,3,7", few),
+             ([b"A" * m for m in (1, 3, 8, 50)], "all-A text, A^1/A^3/A^8/A^50", all_a))
+    for pats, name, cs in cases:
         m_max = max(len(p) for p in pats)
         pat_raw = np.zeros((len(pats), m_max), np.uint8)
         for i, p in enumerate(pats):
@@ -783,9 +843,9 @@ def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int 
         alph = build_alphabet(pats)
         km, thr = corr_fused.build_fused_tables(pat_raw, [len(p) for p in pats], alph)
         tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(m_max), dev)
-        groups = batch_groups(corpora, 8 * wf, wf, halo, lambda n: n - m_max + 1)
+        groups = batch_groups(cs, 8 * wf, wf, halo, lambda n: n - m_max + 1)
         kw = dict(wf=wf, halo=halo, p_out=max(8, len(pats)))
-        total = 0
+        total = owned = 0
         for gi, (rows, _, limits) in enumerate(groups):
             drows, dlim = torch.from_numpy(rows).to(dev), torch.from_numpy(limits).to(dev)
             got = corr_fused.scan_corr_batch_fused(drows, tabs, dlim, **kw)
@@ -793,17 +853,30 @@ def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int 
             torch.cuda.synchronize()
             rec.compare(got, ref, f"{name} group {gi}")
             total += int(got.sum())
-        need(total >= len(corpora), f"phase 3c {name}: plants missed ({total})")
+            owned += int(limits.sum())
+        if cs is all_a:
+            need(total == owned * len(pats), f"phase 3c {name}: {total} != every owned window")
+        else:
+            need(total >= len(cs), f"phase 3c {name}: plants missed ({total})")
         rows, _, limits = groups[0]
         drows, dlim = torch.from_numpy(rows).to(dev), torch.from_numpy(limits).to(dev)
         ms = cuda_ms(lambda: corr_fused.scan_corr_batch_fused(drows, tabs, dlim, **kw), 5)
         plain = cuda_ms(lambda: corr_fused.scan_corr_batch_fused_ref(drows, tabs, dlim, **kw), 2)
-        what = f"{name} R={rows.shape[0]}, {len(corpora)} corpora"
+        what = f"{name} R={rows.shape[0]}, {len(cs)} corpora"
         say(f"phase 3c kernel #8 {what} ({km.dtype} tables, s_ph={tabs.s_ph}): {len(groups)} "
             f"groups equal, total {total}, first group kernel {ms:.3f} ms, plain {plain:.3f} ms")
         if pats is pair:  # count_batch's k = 0 main path
-            rec.measured(ms, plain, rows.nbytes + limits.nbytes + 4 * (rows.shape[0] // 8) * kw["p_out"],
-                         compare_ops(drows, [(p, 0) for p in pats], limits, wf), what)
+            bound = rec.measured(ms, plain, rows.nbytes + limits.nbytes + 4 * (rows.shape[0] // 8) * kw["p_out"],
+                                 compare_ops(drows, [(p, 0) for p in pats], limits, wf), what)
+            # a kernel that does nothing, launched with #8's grid and block
+            from apm_torch.ops._build import check, library
+
+            grid, lib = corr_fused.batch_grid(dev, rows.shape[0], wf), library()
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            empty = cuda_ms(lambda: check(lib.apm_empty_launch(wf, grid, stream), "apm_empty_launch"), 20)
+            say(f"phase 3c kernel #8 beside its bound {bound:.4f} ms: an empty launch of the same "
+                f"grid ({grid} blocks) takes {empty:.4f} ms (median of 20, CUDA events), the call "
+                f"{ms:.3f} ms (chip_compare.py reads the kernel alone)")
 
 
 def phase_dyn(rec, dev, n_rows: int = 4096) -> None:
@@ -1002,16 +1075,12 @@ def phase_e2e_batch(main, dev, n_corpora: int = 64, lo: int = 1 << 19, hi: int =
             sc.count_batch(corpora)
             secs.append(time.perf_counter() - t0)
         batch_s = min(secs)
-        t0 = time.perf_counter()
-        for c in corpora:  # the host's share: count_batch's EOF tails alone
-            sc.tail_counts(c, sc.device_window_bound(len(c)))
-        tail_ms = (time.perf_counter() - t0) * 1e3
         say(f"phase 7 count_batch k={k}, {n_corpora} corpora, {total / 1e6:.1f} MB: rows == count "
             f"loop, {len(small)} corpora under 1 MB == oracle, counts of corpus 0 {got[0].tolist()}; "
             f"count_batch {total / batch_s / 1e6:.1f} MB/s, {n_corpora / batch_s:.1f} corpora/s "
-            f"(best of 2, {batch_s * 1e3:.1f} ms, of which the {n_corpora} EOF tails on the host "
-            f"take {tail_ms:.1f} ms); loop of count {total / loop_s / 1e6:.1f} MB/s, "
+            f"(best of 2, {batch_s * 1e3:.1f} ms); loop of count {total / loop_s / 1e6:.1f} MB/s, "
             f"{n_corpora / loop_s:.1f} corpora/s (one pass)")
+        say(f"phase 7 count_batch k={k} split: {batch_split(sc, corpora)}")
         if k == 0:  # the batched conv (apm's scan_corr_batch), plain PyTorch
             scc = apm_torch.Scanner(pats, 0, apm_torch.ApmConfig(device=str(dev), corr_impl="conv"))
             gotc = main.run(f"count_batch {n_corpora} corpora k=0 corr_impl=conv", [],
@@ -1024,6 +1093,33 @@ def phase_e2e_batch(main, dev, n_corpora: int = 64, lo: int = 1 << 19, hi: int =
                 secs.append(time.perf_counter() - t0)
             say(f"phase 7 count_batch k=0 corr_impl=conv: == kernel #8's route, "
                 f"{total / min(secs) / 1e6:.1f} MB/s, {n_corpora / min(secs):.1f} corpora/s (best of 2)")
+
+
+HOST_SPANS = ("fold", "fetch", "EOF tail")
+
+
+def batch_split(sc, corpora) -> str:
+    """Where one ``sc.count_batch(corpora)`` spends its time, from the
+    Scanner's own spans of that call (``Scanner.meter.trace``). The host
+    spans (fold, fetch, EOF tail) run one after another, and so do the
+    device spans (copy, the route's launches), which run under the host's:
+    each clock's sum must stay within the call's own time."""
+    sc.meter.trace = True
+    try:
+        t0 = time.perf_counter()
+        sc.count_batch(corpora)
+        call_ms = (time.perf_counter() - t0) * 1e3
+        spans = dict(sc.meter.last_spans)
+    finally:
+        sc.meter.trace = False
+    host = sum(v for n, v in spans.items() if n in HOST_SPANS)
+    device = sum(v for n, v in spans.items() if n not in HOST_SPANS)
+    need(host <= call_ms and device <= call_ms,
+         f"count_batch spans: host {host:.1f} / device {device:.1f} ms > the call's {call_ms:.1f} ms")
+    tail = spans.get("EOF tail", 0.0)
+    return (f"one traced call {call_ms:.1f} ms: " + ", ".join(f"{n} {v:.3f} ms" for n, v in spans.items())
+            + f"; host spans {host:.1f} ms, device spans {device:.1f} ms (each within the call); "
+            f"the EOF tails {tail:.1f} ms = {100 * tail / call_ms:.1f} % of the call")
 
 
 def _prefix_positions(c, pat, k, n):
@@ -1484,7 +1580,8 @@ def run(t_start: float) -> dict:
         f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
     for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
         say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
-    for kernel in ("corr_count_kernel", "pieces_fused_kernel"):  # the exact-scan kernels
+    # the exact-scan kernels (B, #7, #8) and kernel D
+    for kernel in ("corr_count_kernel", "pieces_fused_kernel", "corr_batch_kernel", "filter_pieces_kernel"):
         say(f"phase 1 SASS loops of {kernel} (each without the loops inside it): "
             f"{sass_loops(str(_build.build()), kernel, nested=True)}")
         say(f"phase 1 ptxas of {kernel}: {ptxas_of(_build.build_log(), kernel)}")

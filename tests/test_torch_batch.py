@@ -280,3 +280,69 @@ def test_batch_wrappers_check_their_inputs():
         dp_kernel.scan_folded_dp_batch(rows, pat, torch.zeros((1, 2), dtype=torch.int32), **kw)
     with pytest.raises(ValueError, match="meta"):
         dp_kernel.scan_folded_dp_batch(rows[:8], pat, torch.zeros((2, 2), dtype=torch.int32), **kw)
+
+
+@pytest.mark.parametrize("k,route", [(0, "corr batch"), (1, "dp batch"), (0, "conv batch")])
+def test_count_batch_spans_sum_within_the_call(k, route):
+    # with the meter's trace on, one call leaves its own split: the staging
+    # fold, the copy, the route's launches, the fetch and the EOF tails
+    pats = _patterns([50] * 3 if k == 0 else [20, 33], 810 + k)
+    cfg = dict(corr_impl="conv") if route == "conv batch" else {}
+    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024, batch_blocks=8, **cfg))
+    corpora = _corpora(811 + k, k, pats[0])
+    want = tsc.count_batch(corpora)
+    assert tsc.meter.last_spans == {}  # off by default
+    tsc.meter.trace = True
+    got = tsc.count_batch(corpora)
+    spans = tsc.meter.last_spans
+    assert got.tolist() == want.tolist()
+    assert set(spans) == {"fold", "copy", route, "fetch", "EOF tail"}
+    assert all(v >= 0 for v in spans.values())
+    # on the CPU every span is on the host clock and none overlaps another
+    assert sum(spans.values()) <= tsc.last_duration * 1e3
+
+
+@pytest.mark.parametrize("bad", ["fold", "limits dtype", "limits shape", "rows width", "halo", "m_max"])
+def test_corr_batch_wrapper_checks_its_inputs(bad):
+    from apm_torch.ops.corr_engine import build_alphabet
+
+    lengths = [120] if bad == "m_max" else [50, 32]
+    pats = _patterns(lengths, 820)
+    raw = np.zeros((len(pats), max(lengths)), np.uint8)
+    for i, p in enumerate(pats):
+        raw[i, : len(p)] = np.frombuffer(p, np.uint8)
+    alph = build_alphabet(pats)
+    if bad == "m_max":  # past the fused kernel's 97 bytes: no tables at all
+        with pytest.raises(ValueError, match="97"):
+            corr_fused.build_fused_tables(raw, lengths, alph)
+        return
+    km, thr = corr_fused.build_fused_tables(raw, lengths, alph)
+    tabs = corr_fused.FusedTables.from_numpy(km, thr, alph, corr_fused.pick_s(max(lengths)), "cpu")
+    wf, halo = 256, 128
+    rows = torch.zeros((16, wf + halo), dtype=torch.uint8)
+    limits = torch.full((16,), wf, dtype=torch.int32)
+    kw = dict(wf=wf, halo=halo)
+    args = {
+        "fold": (rows[:12], limits[:12], kw, "multiple of fold"),
+        "limits dtype": (rows, limits.to(torch.int64), kw, "limits"),
+        "limits shape": (rows, limits[:8], kw, "limits"),
+        "rows width": (rows[:, :-1], limits, kw, "rows shape"),
+        "halo": (torch.zeros((16, wf + 64), dtype=torch.uint8), limits, dict(wf=wf, halo=64), "halo"),
+    }[bad]
+    with pytest.raises(ValueError, match=args[3]):
+        corr_fused.scan_corr_batch_fused(args[0], tabs, args[1], **args[2])
+
+
+def test_corr_batch_staging_is_16_byte_aligned():
+    # kernel #8 reads rows with 16-byte loads and raises on any other rows
+    # (no copy in their stead); count_batch's staging always qualifies, a
+    # shifted view never does, and on the CPU both take the plain version
+    pats = _patterns([50, 32], 830)
+    tsc = apm_torch.Scanner(pats, 0, ApmConfig(device="cpu", block_windows=1024))
+    wf = 1024 // 8
+    host = tsc._host_rows(64, wf + 128)
+    corr_fused.check_aligned_rows(host)
+    corr_fused.check_aligned_rows(host[8:])
+    flat = host.reshape(-1)[1 : 1 + 56 * host.shape[1]].view(56, host.shape[1])
+    with pytest.raises(ValueError, match="16-byte"):
+        corr_fused.check_aligned_rows(flat)

@@ -386,3 +386,23 @@ def test_kernel_rows_must_be_16_byte_aligned(make, ok):
     else:
         with pytest.raises(ValueError, match="16-byte"):
             corr_fused.check_aligned_rows(rows)
+
+
+@pytest.mark.parametrize(
+    "make,ok",
+    [
+        (lambda: torch.zeros((6, 648), dtype=torch.uint8)[:, :640], True),  # stride 648
+        (lambda: torch.zeros(6 * 640 + 16, dtype=torch.uint8)[4:6 * 640 + 4].view(6, 640), True),
+        (lambda: torch.zeros(6 * 640 + 16, dtype=torch.uint8)[2:6 * 640 + 2].view(6, 640), False),
+        (lambda: torch.zeros((6, 642), dtype=torch.uint8)[:, :640], False),  # stride 642
+        (lambda: torch.zeros((640, 6), dtype=torch.uint8).t(), False),  # column stride 6
+    ],
+)
+def test_filter_kernel_rows_must_be_4_byte_aligned(make, ok):
+    # kernel D copies the rows into shared memory as 4-byte words
+    rows = make()
+    if ok:
+        corr_fused.check_aligned_rows(rows, align=4)
+    else:
+        with pytest.raises(ValueError, match="4-byte"):
+            corr_fused.check_aligned_rows(rows, align=4)

@@ -179,20 +179,36 @@ def test_dp_kernels_read_a_device_bound(dev, dp_impl):
 
 
 @pytest.mark.parametrize(
-    "k,lengths",
-    [(0, [12, 20]), (1, [32, 50]), (3, [32, 50]), (5, [84, 50]), (8, [120, 120]), (16, [160, 160])],
+    "k,lengths,text",
+    [
+        (0, [12, 20], "random"),
+        (0, [3, 7], "random"),  # k = 0 heads under 8 bytes
+        (1, [32, 50], "random"),
+        (1, [16, 32], "random"),  # 8-byte pieces
+        (3, [32, 50], "random"),
+        (5, [84, 50], "random"),  # 14-byte exact pieces and the banded tier
+        (8, [120, 120], "random"),
+        (8, [70, 120], "random"),  # 14-byte banded pieces: 7-byte heads
+        (16, [160, 160], "random"),  # start > 0, a mid-row bound, spans of 32
+        (1, [32, 16], "all-A"),  # every position hits
+        (8, [120], "all-A"),  # the band at every position
+    ],
 )
-def test_filter_kernel_matches_plain(dev, k, lengths):
+def test_filter_kernel_matches_plain(dev, k, lengths, text):
     from apm_torch.ops import filter_kernel
     from apm_torch.ops.common import fold_corpus
     from apm_torch.utils.corpus import plant
 
     wf, n_rows = 1024, 48
-    corpus = _corpus(n_rows * wf + 1024, 40 + k)
-    pats = [bytes(_corpus(m, 60 + i)) for i, m in enumerate(lengths)]
-    for i, p in enumerate(pats):
-        plant(corpus, np.frombuffer(p, np.uint8), range(200 + 77 * i, len(corpus) - 400, 3001),
-              k=min(k, 3), seed=i)
+    if text == "all-A":
+        corpus = np.full(n_rows * wf + 1024, ord("A"), np.uint8)
+        pats = [b"A" * m for m in lengths]
+    else:
+        corpus = _corpus(n_rows * wf + 1024, 40 + k)
+        pats = [bytes(_corpus(m, 60 + i)) for i, m in enumerate(lengths)]
+        for i, p in enumerate(pats):
+            plant(corpus, np.frombuffer(p, np.uint8), range(200 + 77 * i, len(corpus) - 400, 3001),
+                  k=min(k, 3), seed=i)
     _, raw, plens, m_max, halo = _tables(pats, k)
     rows = torch.from_numpy(fold_corpus(corpus, wf, n_rows, wf, halo)).to(dev)
     draw = torch.from_numpy(raw).to(dev)
@@ -205,6 +221,31 @@ def test_filter_kernel_matches_plain(dev, k, lengths):
     assert fcnt.tolist() == rf.tolist()
     assert torch.equal(rowmap, rr)
     assert int(fcnt.sum()) > 0
+    if text == "all-A":
+        assert fcnt[: len(pats)].tolist() == [bound - wf] * len(pats)
+
+
+def test_filter_kernel_sizes_its_block_to_the_halo(dev):
+    # a 64 KB halo leaves room for 64 threads' staging buffers only; at
+    # 128 KB not even 32 threads' fit, and the entry refuses the launch
+    from apm_torch.ops import filter_kernel
+    from apm_torch.ops.common import fold_corpus
+
+    wf, n_rows, k = 8192, 6, 3
+    corpus = _corpus(n_rows * wf + (1 << 17), 45)
+    pats = [bytes(corpus[500:532]), bytes(corpus[20_000:20_050])]
+    _, raw, plens, m_max, _ = _tables(pats, k)
+    draw = torch.from_numpy(raw).to(dev)
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=1 << 16, plens=plens)
+    rows = torch.from_numpy(fold_corpus(corpus, 0, n_rows, wf, 1 << 16)).to(dev)
+    fcnt, rowmap = filter_kernel.scan_filter(rows, draw, n_rows * wf - 100, 0, **kw)
+    rf, rr = filter_kernel.scan_filter_ref(rows, draw, n_rows * wf - 100, 0, **kw)
+    assert fcnt.tolist() == rf.tolist() and torch.equal(rowmap, rr)
+    assert int(fcnt.sum()) >= 2
+    kw["halo"] = 1 << 17
+    rows = torch.from_numpy(fold_corpus(corpus, 0, n_rows, wf, 1 << 17)).to(dev)
+    with pytest.raises(RuntimeError, match="apm_filter_pieces_count"):
+        filter_kernel.scan_filter(rows, draw, n_rows * wf - 100, 0, **kw)
 
 
 @pytest.mark.parametrize("k", [3, 8])
@@ -295,15 +336,25 @@ def test_dp_mask_kernel_matches_plain(dev, k, dp_impl):
     assert torch.equal(c2, rc) and torch.equal(m2, rm)
 
 
-@pytest.mark.parametrize("lengths", [[32, 50], [20] * 40, [70, 80]])
-def test_corr_batch_kernel_matches_plain(dev, lengths):
+@pytest.mark.parametrize(
+    "lengths,text",
+    [([32, 50], "random"), ([20] * 40, "random"), ([70, 80], "random"),
+     ([1, 3, 7], "random"),  # masked prefixes
+     ([1, 3, 8, 50], "all-A")],  # every window hits
+)
+def test_corr_batch_kernel_matches_plain(dev, lengths, text):
     # TPU kernel #8: the batch mode of kernel B, per-row limits
     from apm_torch.ops import corr_fused
     from apm_torch.ops.corr_engine import build_alphabet
 
     wf, halo = 1024, 128
-    pats = [bytes(_corpus(m, 50 + i)) for i, m in enumerate(lengths)]
-    corpora = [_corpus(n, 99 + i) for i, n in enumerate([40_000, 700, 20_000])]
+    sizes = [40_000, 700, 20_000]
+    if text == "all-A":
+        pats = [b"A" * m for m in lengths]
+        corpora = [np.full(n, ord("A"), np.uint8) for n in sizes]
+    else:
+        pats = [bytes(_corpus(m, 50 + i)) for i, m in enumerate(lengths)]
+        corpora = [_corpus(n, 99 + i) for i, n in enumerate(sizes)]
     for i, p in enumerate(pats):
         c = corpora[i % 3]
         at = (997 * i) % (len(c) - len(p))
@@ -324,6 +375,13 @@ def test_corr_batch_kernel_matches_plain(dev, lengths):
     assert corr_fused.BATCH_LAUNCHES == before + 1
     assert torch.equal(got, ref)
     assert int(got.sum()) >= min(3, len(pats))  # plants may overwrite each other
+    if text == "all-A":  # every owned window matches every A^m
+        assert got[:, : len(pats)].sum(0).tolist() == [int(limits.sum())] * len(pats)
+    with pytest.raises(ValueError, match="16-byte"):  # no copy in its stead
+        d = args[0]
+        n = d.shape[0] - 8
+        flat = d.reshape(-1)[1 : 1 + n * d.shape[1]].view(n, d.shape[1])
+        corr_fused.scan_corr_batch_fused(flat, tabs, args[2][:n], **kw)
 
 
 @pytest.mark.parametrize("k", [0, 1, 3])

@@ -171,3 +171,211 @@ def test_piece_plan_lists_every_piece_with_its_shifts():
     assert filter_kernel.sentinel_pad(plens, k) == 1
     table = filter_kernel.pchar_table(torch.zeros((4, 84), dtype=torch.uint8), 1)
     assert table.shape == (4, 87) and int(table[0, 0]) == filter_kernel.SENTINEL
+
+
+# -- kernel D's design, modelled in NumPy ---------------------------------------
+#
+# The CUDA kernel cannot run here, so its algorithm is held to the plain
+# version and to apm through a NumPy model that takes the same steps: the
+# head word of every piece (piece_layout's bytes, packed in prefix_words'
+# order) at every position a window reaches, the rest of the piece (exact
+# tier) or, after the half-split test of the head and tail words, the band
+# (banded tier) on the survivors only, then the OR of the hits over the
+# shift span.
+
+
+def _words(pat, piece):
+    """The head and tail words of a piece_layout row over the pattern's
+    bytes ``pat``, each as int32 (word lo, hi, mask lo, hi)."""
+    from apm_torch.ops.corr_fused import prefix_words
+
+    o, li, n_head, n_tail = (int(piece[i]) for i in (4, 2, 6, 7))
+    out = []
+    for first, n in ((o, n_head), (o + li - n_tail, n_tail)):
+        word = prefix_words(np.asarray(pat[first : first + n], np.uint8)[None], [n])
+        out.append(word.view("<u4").reshape(4).view(np.int32))
+    return out
+
+
+def _word_test(rows, x0, n, cols):
+    """(R, n) bool: the 8 bytes at columns x0 .. x0 + n - 1 (zero past the
+    row) equal word cols[0:2] under mask cols[2:4], little-endian."""
+    r, w = rows.shape
+    padded = np.zeros((r, max(w, x0 + n) + 8), np.uint8)
+    padded[:, :w] = rows
+    words = np.ascontiguousarray(
+        np.lib.stride_tricks.sliding_window_view(padded, 8, axis=1)[:, x0 : x0 + n]
+    ).view("<u8")[..., 0]
+    word, mask = np.asarray(cols, np.int32).view("<u8")
+    return ((words ^ word) & mask) == 0
+
+
+def _band(text, t0, pc, li):
+    """Kernel D's hit_banded: the pinned-start width-3 band of the piece
+    whose sentinel-padded chars are pc[1:] (pc[0] the front sentinel) over
+    text from t0."""
+    inf = filter_kernel.INF
+    b0, b1, b2, cap = inf, 0, 1, inf
+    for t in range(1, li + 2):
+        c = int(text[t0 + t - 1]) if t0 + t - 1 < len(text) else 0
+        n0 = min(b0 + (c != pc[t - 1]), b1 + 1)
+        n1 = min(b1 + (c != pc[t]), b2 + 1, n0 + 1)
+        n2 = min(b2 + (c != pc[t + 1]), n1 + 1)
+        b0, b1, b2 = n0, n1, n2
+        if t == li - 1:
+            cap = b2
+        elif t == li:
+            cap = min(cap, b1)
+        elif t == li + 1:
+            cap = min(cap, b0)
+        if min(b0, b1, b2) > 1:
+            break
+    return cap <= 1
+
+
+def _half_split(rows, x0, n, piece, pat):
+    """(R, n) bool: the banded tier's necessary test at positions x0 + i:
+    the head word there, or the tail word at drift -1, 0 or +1."""
+    head, tail_word = _words(pat, piece)
+    tail = _word_test(rows, x0 + int(piece[5]), n + 2, tail_word)
+    return _word_test(rows, x0, n, head) | tail[:, :n] | tail[:, 1 : n + 1] | tail[:, 2:]
+
+
+def _model(rows, raw, bound, start, k, plens):
+    table, pstart = filter_kernel.piece_layout(plens, k)
+    pad = filter_kernel.sentinel_pad(plens, k)
+    pchar = filter_kernel.pchar_table(torch.from_numpy(raw), pad).numpy()
+    n_rows, width = rows.shape
+    text = np.zeros((n_rows, width + 64), np.uint8)
+    text[:, :width] = rows
+    own = np.arange(WF)[None, :] < np.clip(bound - start - np.arange(n_rows) * WF, 0, WF)[:, None]
+    rowmap = np.zeros((n_rows, len(plens)), np.int32)
+    for p in range(len(plens)):
+        cand = np.zeros((n_rows, WF), bool)
+        for piece in table[pstart[p] : pstart[p + 1]]:
+            off, span, li, kp, o = (int(v) for v in piece[:5])
+            n = WF + span  # positions off .. off + WF + span - 1
+            if kp == 0:
+                head = _word_test(rows, off, n, _words(raw[p], piece)[0])
+                wins = np.lib.stride_tricks.sliding_window_view(text, li, axis=1)[:, off : off + n]
+                hit = head & (wins[:, :, 8:] == raw[p, o + 8 : o + li]).all(axis=2)
+            else:
+                hit = np.zeros((n_rows, n), bool)
+                pc = pchar[p, pad + o - 1 :]
+                for r, i in zip(*np.nonzero(_half_split(rows, off, n, piece, raw[p]))):
+                    hit[r, i] = _band(text[r], off + i, pc, li)
+            for s in range(span + 1):
+                cand |= hit[:, s : s + WF]
+        rowmap[:, p] = (cand & own).sum(axis=1)
+    return rowmap.sum(axis=0).astype(np.int32), rowmap
+
+
+@pytest.mark.parametrize(
+    "k,lengths,text",
+    [
+        (0, [3, 7, 12, 20], "planted"),  # k = 0: masked heads under 8 bytes
+        (1, [16, 32], "planted"),  # 8-byte pieces
+        (3, [32, 50], "random"),
+        (3, [32, 50], "planted"),
+        (5, [84, 50, 40], "planted"),  # 14-byte exact pieces, banded tier, a DP slot
+        (8, [120, 70], "planted"),  # banded pieces of 24 and 14 bytes (7-byte heads)
+        (16, [160, 170], "planted"),  # shift spans of 32
+        (1, [32, 16], "all-A"),  # every position hits
+        (8, [120], "all-A"),  # the band at every position
+        (1, [40, 90], "full-byte-range"),
+        (5, [84, 60], "full-byte-range"),
+    ],
+)
+def test_kernel_design_model_matches_ref_and_apm(k, lengths, text):
+    n_rows = 8  # apm's fold
+    alphabet = bytes(range(256)) if text == "full-byte-range" else b"ACGT"
+    rows, raw, plens, m_max, halo = _setup(lengths, k, n_rows, seed=200 + k, alphabet=alphabet)
+    if text == "random":  # no planted copies: the text the card sees most
+        rows = np.random.default_rng(7).choice(np.frombuffer(b"ACGT", np.uint8), rows.shape)
+    elif text == "all-A":
+        rows[:] = ord("A")
+        raw[:] = np.where(raw > 0, ord("A"), 0).astype(np.uint8)
+    start = WF
+    bound = start + (n_rows - 2) * WF + 77  # a mid-row bound
+    want = _check(rows, raw, bound, start, k, m_max, halo, plens)
+    got = _model(rows, raw, bound, start, k, plens)
+    assert got[0].tolist() == want[0].tolist()
+    assert np.array_equal(got[1], want[1])
+    if text == "all-A":
+        assert (got[0][: len(lengths)] == bound - start).all()  # every owned window
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 5, 8, 16])
+def test_piece_words_hold_the_piece_bytes(k):
+    # piece_layout names the bytes of each piece's head and tail words; the
+    # words packed from them (the kernel's, and the model's above) hold them
+    lengths = {0: [3, 8, 20], 1: [16, 50], 3: [32, 50], 5: [84, 50, 40], 8: [120, 70], 16: [160, 33]}[k]
+    rows, raw, plens, m_max, _ = _setup(lengths, k, 2, seed=300 + k, alphabet=bytes(range(256)))
+    table, pstart = filter_kernel.piece_layout(plens, k)
+    assert table.shape[1] == filter_kernel.PIECE_COLS and not table.flags.writeable
+    pieces, pstart_plan, _ = filter_kernel.piece_plan(plens, k)
+    assert pstart.tolist() == pstart_plan.tolist() and len(table) == len(pieces)
+    tiers = set()
+    le = lambda b: int.from_bytes(bytes(b), "little")
+    for p in range(len(plens)):
+        for q in range(pstart[p], pstart[p + 1]):
+            o, li, kp, s_lo, s_hi = pieces[q].tolist()
+            off, span, li2, kp2, o2, tail_off, n_head, n_tail = table[q].tolist()
+            assert (off, span, li2, kp2, o2) == (o + s_lo, s_hi - s_lo, li, kp, o)
+            tiers.add(kp)
+            assert n_head == (min(li, 8) if kp == 0 else min(8, li // 2))
+            words = np.concatenate(_words(raw[p], table[q])).view("<u8").tolist()
+            assert words[:2] == [le(raw[p, o : o + n_head]), (1 << 8 * n_head) - 1]
+            if kp == 0:
+                assert (n_tail, tail_off) == (0, 0) and words[2:] == [0, 0]
+            else:  # the last ceil(li / 2) bytes, 8 at most, one byte before
+                assert n_tail == min(8, (li + 1) // 2) and tail_off == li - n_tail - 1
+                assert words[2:] == [le(raw[p, o + li - n_tail : o + li]), (1 << 8 * n_tail) - 1]
+    assert tiers == {kp for m in plens if m for kp in [filter_kernel.tier_of(m, k)[1]]}
+
+
+@pytest.mark.parametrize("li", [14, 15, 24])
+def test_half_split_passes_every_single_edit(li):
+    # a banded piece hit with one edit leaves its head or its tail intact at
+    # drift -1, 0 or +1: the kernel's word test before the band drops no hit
+    rng = np.random.default_rng(li)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    m = li * 5  # k = 8: five banded pieces of li bytes, the first at 0
+    pat = acgt[rng.integers(0, 4, m)]
+    raw = pat[None].copy()
+    plens = (m,)
+    assert filter_kernel.tier_of(m, 8) == (5, 1)
+    table, _ = filter_kernel.piece_layout(plens, 8)
+    piece = table[0]
+    assert int(piece[2]) == li and int(piece[0]) == 0
+    pc = filter_kernel.pchar_table(torch.from_numpy(raw), 1).numpy()[0]
+    body = pat[:li]
+    other = lambda c: acgt[(np.searchsorted(acgt, c) + 1) % 4]
+    variants = [body.copy()]
+    for e in range(li):
+        sub = body.copy()
+        sub[e] = other(sub[e])
+        variants += [sub, np.delete(body, e)]
+    for e in range(li + 1):
+        variants += [np.insert(body, e, c) for c in acgt]
+    n = 0
+    for v in variants:
+        for tail in (b"", b"A", b"TT"):
+            text = np.concatenate([v, np.frombuffer(tail, np.uint8), acgt[rng.integers(0, 4, 40)]])
+            assert _band(text, 0, pc, li)  # the variant is within one edit
+            assert _half_split(text[None], 0, 1, piece, pat)[0, 0]
+            n += 1
+    assert n == 3 * (1 + 2 * li + 4 * (li + 1))
+
+
+def test_launch_groups_and_stage_threads(monkeypatch):
+    # the groups of patterns one launch of kernel D takes; its entry sizes
+    # each block's threads to fit the group's tables and the staged text
+    # (tests/test_torch_cuda.py: a halo that halves them)
+    pstart = np.array([0, 5, 5, 14, 30, 30, 47], np.int32)
+    monkeypatch.setattr(filter_kernel, "_PAT_GROUP", 2)
+    monkeypatch.setattr(filter_kernel, "_PIECE_GROUP", 20)
+    groups = filter_kernel.launch_groups(pstart)
+    assert groups == ((0, 2), (2, 3), (3, 5), (5, 6))  # every piece once; empty groups dropped
+    for p0, p1 in groups:
+        assert p1 - p0 <= 2 and pstart[p1] - pstart[p0] <= 20

@@ -406,11 +406,11 @@ def test_load_tables_piece_tables_drive_conv_phase1():
 
 def test_port_imports_without_jax():
     """The card's machine has no JAX: every module of the port, and
-    chip_smoke.py, import with JAX made unimportable."""
+    chip_smoke.py and chip_compare.py, import with JAX made unimportable."""
     code = (
         "import sys; sys.modules['jax'] = None\n"
         "import importlib, pkgutil\n"
-        "import apm_torch, chip_smoke\n"
+        "import apm_torch, chip_smoke, chip_compare\n"
         "names = [m.name for m in pkgutil.walk_packages(apm_torch.__path__, 'apm_torch.')\n"
         "         if m.name != 'apm_torch.__main__']  # runs the CLI\n"
         "for name in names:\n"
