@@ -223,10 +223,11 @@ extern "C" int apm_corr_batch_count(const uint8_t* rows, int64_t n_staged,
   return (int)cudaGetLastError();
 }
 
-// A kernel that does nothing, launched as kernel #8 is (`grid` blocks of
-// the threads of wf-window rows): what a launch alone costs.
-extern "C" int apm_empty_launch(int64_t wf, int grid, void* stream) {
-  if (grid <= 0 || wf <= 0) return (int)cudaErrorInvalidValue;
-  empty_kernel<<<grid, ex::threads_for(wf), 0, (cudaStream_t)stream>>>();
+// A kernel that does nothing, launched with `grid` blocks of `threads`
+// (the grid and block of the kernel being timed, kernel #8's or the mask
+// kernels'): what a launch alone costs.
+extern "C" int apm_empty_launch(int grid, int threads, void* stream) {
+  if (grid <= 0 || threads <= 0 || threads > 1024) return (int)cudaErrorInvalidValue;
+  empty_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -29,24 +29,17 @@
 // per block, cell-major so a warp's accesses coalesce) instead of registers.
 // Padding patterns (m_p = 0) are skipped and cost nothing.
 //
-// Two more modes share the kernel body, each behind its own C entry:
-// - batch (apm_dp_band_batch) replaces _scan_folded_pallas_batch: many
-//   corpora in one launch, one [bound, start] pair per block of 8 staged
-//   rows (apm::batch_limit) and an (R/8, P) count output. The TPU gives
-//   each grid step its own output slot; here a block's tiles belong to
-//   different row blocks, so it flushes its shared counters into the
-//   tile's slot after every tile (one atomic per nonzero slot and pattern).
-// - mask (apm_dp_band_mask) replaces _scan_folded_pallas_mask: besides the
-//   (P,) counts it stores every window's verdict (<= k and owned) as one
-//   byte of an (R, P, wf) mask, zeros included (padding patterns and
-//   windows past the bound read 0). Consecutive threads store consecutive
-//   lanes of one (row, pattern) line, so the stores coalesce. The extra
-//   cost is R * P * wf bytes written.
-// Both modes stay bound by integer issue, as the count mode: the batch
-// mode's per-tile flush adds two barriers per 256 windows, the mask's
-// bytes are ~1/100 of the DP's work at find's 512-row batches.
+// The batch mode (apm_dp_band_batch) shares the kernel body and replaces
+// _scan_folded_pallas_batch: many corpora in one launch, one [bound,
+// start] pair per block of 8 staged rows (apm::batch_limit) and an (R/8, P)
+// count output. The TPU gives each grid step its own output slot; here a
+// block's tiles belong to different row blocks, so it flushes its shared
+// counters into the tile's slot after every tile (one atomic per nonzero
+// slot and pattern): two barriers per 256 windows, still bound by integer
+// issue. The mask mode (apm_dp_band_mask, _scan_folded_pallas_mask, TPU
+// kernel #6) is a kernel of its own in dp_mask.cu.
 //
-// A third C entry (apm_dp_band_dyn) replaces apm/ops/pallas_kernel.py::
+// Another C entry (apm_dp_band_dyn) replaces apm/ops/pallas_kernel.py::
 // scan_folded_pallas (kernel body _scan_kernel), the band with dynamic
 // lengths: the count mode with the lengths, and optionally the bound and
 // start, read from device memory, so the host never learns them. The step
@@ -82,8 +75,6 @@ struct DpArgs {
   int32_t* scratch;     // wide bands only: (gridDim.x, 2ke + 1, kTile)
   const int32_t* meta;  // batch mode: (n_rows / 8, 2) [bound, start]
   int64_t out_stride;   // batch mode: slot b of the counts at out + b*stride
-  uint8_t* mask;        // mask mode: verdicts, row r at mask + r*mask_stride
-  int64_t mask_stride;  // mask mode: bytes per staged row (P_total * wf)
   const int64_t* dstart = nullptr;  // optional device-side start
 };
 
@@ -197,21 +188,13 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
     const int64_t limit =
         a.meta != nullptr ? apm::batch_limit(a.meta, r, a.wf)
                           : apm::owned_limit(r, a.n_rows, a.wf, bound, start);
-    // Uniform over the block. Mask mode visits every tile: it writes the
-    // zeros of windows past the bound too.
-    if (lane0 >= limit && a.mask == nullptr) continue;
+    if (lane0 >= limit) continue;  // uniform over the block
     const int64_t lane = lane0 + threadIdx.x;
     const bool own = lane < limit;
     const uint8_t* txt = a.rows + r * a.row_stride + lane;
-    uint8_t* verdicts = a.mask != nullptr && lane < a.wf
-                            ? a.mask + r * a.mask_stride + lane
-                            : nullptr;
     for (int p = 0; p < a.n_pat; ++p) {
       const int m = a.plens[p];
-      if (m <= 0 || m > m_max) {  // padding slot: no work
-        if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = 0;
-        continue;
-      }
+      if (m <= 0 || m > m_max) continue;  // padding slot: no work
       int hit = 0;
       if (own) {
         const uint8_t* pp = a.pat + (int64_t)p * a.pat_stride + (a.k - a.ke);
@@ -221,7 +204,6 @@ __global__ void __launch_bounds__(kTile) dp_band_kernel(DpArgs a) {
           hit = verdict_wide(txt, pp, m, a.k, a.ke, cell);
         }
       }
-      if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = (uint8_t)hit;
       apm::add_hits(s_cnt, p, hit);
     }
     if (a.meta != nullptr) {
@@ -278,8 +260,7 @@ extern "C" int apm_dp_band_count(const uint8_t* rows, int64_t n_rows,
                                  void* stream) {
   const DpArgs a{rows,  n_rows, row_stride, pat,     n_pat, pat_stride,
                  plens, k,      ke,         wf,      bound, dbound,
-                 start, out,    scratch,    nullptr, 0,     nullptr,
-                 0};
+                 start, out,    scratch,    nullptr, 0};
   return run(a, grid, stream);
 }
 
@@ -298,30 +279,7 @@ extern "C" int apm_dp_band_batch(const uint8_t* rows, int64_t n_rows,
   }
   const DpArgs a{rows,  n_rows, row_stride, pat,  n_pat,      pat_stride,
                  plens, k,      ke,         wf,   0,          nullptr,
-                 0,     out,    scratch,    meta, out_stride, nullptr,
-                 0};
-  return run(a, grid, stream);
-}
-
-// Mask mode: apm_dp_band_count, and every window's verdict stored at
-// mask[r * mask_stride + p * wf + lane] (all of the n_rows * n_pat * wf
-// cells are written).
-extern "C" int apm_dp_band_mask(const uint8_t* rows, int64_t n_rows,
-                                int64_t row_stride, const uint8_t* pat,
-                                int n_pat, int64_t pat_stride,
-                                const int32_t* plens, int k, int ke,
-                                int64_t wf, int64_t bound,
-                                const int64_t* dbound, int64_t start,
-                                int32_t* out, uint8_t* mask,
-                                int64_t mask_stride, int32_t* scratch,
-                                int grid, void* stream) {
-  if (mask == nullptr || mask_stride < n_pat * wf) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const DpArgs a{rows,  n_rows, row_stride, pat,     n_pat, pat_stride,
-                 plens, k,      ke,         wf,      bound, dbound,
-                 start, out,    scratch,    nullptr, 0,     mask,
-                 mask_stride};
+                 0,     out,    scratch,    meta, out_stride};
   return run(a, grid, stream);
 }
 
@@ -344,8 +302,7 @@ extern "C" int apm_dp_band_dyn(const uint8_t* rows, int64_t n_rows,
   }
   DpArgs a{rows,  n_rows, row_stride, pat,     n_pat, pat_stride,
            plens, k,      ke,         wf,      bound, dbound,
-           start, out,    scratch,    nullptr, 0,     nullptr,
-           0};
+           start, out,    scratch,    nullptr, 0};
   a.dstart = dstart;
   return run(a, grid, stream);
 }

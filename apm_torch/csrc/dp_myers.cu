@@ -32,11 +32,10 @@
 // read from device memory.
 //
 // The batch mode (apm_dp_myers_batch, _scan_folded_pallas_batch in Myers
-// mode) and the mask mode (apm_dp_myers_mask, _scan_folded_pallas_mask in
-// Myers mode) are kernel A's (dp_band.cu): per-block [bound, start] pairs
-// with an (R/8, P) count output, or every window's verdict as one byte of
-// an (R, P, wf) mask. The verdict is the centre value after the last step,
-// which the moving band keeps exact whenever it is <= k.
+// mode) is kernel A's (dp_band.cu): per-block [bound, start] pairs with an
+// (R/8, P) count output. The mask mode (apm_dp_myers_mask,
+// _scan_folded_pallas_mask in Myers mode, TPU kernel #6) is a kernel of
+// its own in dp_mask.cu.
 #include "scan_common.cuh"
 
 namespace {
@@ -64,8 +63,6 @@ struct MyersArgs {
   int32_t* out;         // (n_pat,) counts, accumulated with atomics
   const int32_t* meta;  // batch mode: (n_rows / 8, 2) [bound, start]
   int64_t out_stride;   // batch mode: slot b of the counts at out + b*stride
-  uint8_t* mask;        // mask mode: verdicts, row r at mask + r*mask_stride
-  int64_t mask_stride;  // mask mode: bytes per staged row (n_pat * wf)
 };
 
 struct BitBand {
@@ -141,26 +138,18 @@ __global__ void __launch_bounds__(kTile) dp_myers_kernel(MyersArgs a) {
     const int64_t limit =
         a.meta != nullptr ? apm::batch_limit(a.meta, r, a.wf)
                           : apm::owned_limit(r, a.n_rows, a.wf, bound, a.start);
-    // Uniform over the block; mask mode writes the zeros past the bound.
-    if (lane0 >= limit && a.mask == nullptr) continue;
+    if (lane0 >= limit) continue;  // uniform over the block
     const int64_t lane = lane0 + threadIdx.x;
     const bool own = lane < limit;
     const uint8_t* txt = a.rows + r * a.row_stride + lane;
-    uint8_t* verdicts = a.mask != nullptr && lane < a.wf
-                            ? a.mask + r * a.mask_stride + lane
-                            : nullptr;
     for (int p = 0; p < a.n_pat; ++p) {
       const int m = a.plens[p];
-      if (m <= 0) {  // padding slot: no work
-        if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = 0;
-        continue;
-      }
+      if (m <= 0) continue;  // padding slot: no work
       int hit = 0;
       if (own) {
         hit = verdict_myers(txt, s_peq + (int64_t)p * a.m_max * a.n_chan,
                             s_chan, a.n_chan, m, a.k);
       }
-      if (verdicts != nullptr) verdicts[(int64_t)p * a.wf] = (uint8_t)hit;
       apm::add_hits(s_cnt, p, hit);
     }
     if (a.meta != nullptr) {
@@ -208,8 +197,7 @@ extern "C" int apm_dp_myers_count(const uint8_t* rows, int64_t n_rows,
                                   int32_t* out, int grid, void* stream) {
   const MyersArgs a{rows,  n_rows, row_stride, peq,    n_pat,   m_max,
                     n_chan, alph,  plens,      k,      wf,      bound,
-                    dbound, start, out,        nullptr, 0,      nullptr,
-                    0};
+                    dbound, start, out,        nullptr, 0};
   return run(a, grid, stream);
 }
 
@@ -228,27 +216,6 @@ extern "C" int apm_dp_myers_batch(const uint8_t* rows, int64_t n_rows,
   }
   const MyersArgs a{rows,  n_rows, row_stride, peq,  n_pat,      m_max,
                     n_chan, alph,  plens,      k,    wf,         0,
-                    nullptr, 0,    out,        meta, out_stride, nullptr,
-                    0};
-  return run(a, grid, stream);
-}
-
-// Mask mode: apm_dp_myers_count, and every window's verdict stored at
-// mask[r * mask_stride + p * wf + lane] (every cell is written).
-extern "C" int apm_dp_myers_mask(const uint8_t* rows, int64_t n_rows,
-                                 int64_t row_stride, const int32_t* peq,
-                                 int n_pat, int m_max, int n_chan,
-                                 const uint8_t* alph, const int32_t* plens,
-                                 int k, int64_t wf, int64_t bound,
-                                 const int64_t* dbound, int64_t start,
-                                 int32_t* out, uint8_t* mask,
-                                 int64_t mask_stride, int grid, void* stream) {
-  if (mask == nullptr || mask_stride < n_pat * wf) {
-    return (int)cudaErrorInvalidValue;
-  }
-  const MyersArgs a{rows,  n_rows, row_stride, peq,     n_pat,  m_max,
-                    n_chan, alph,  plens,      k,       wf,     bound,
-                    dbound, start, out,        nullptr, 0,      mask,
-                    mask_stride};
+                    nullptr, 0,    out,        meta, out_stride};
   return run(a, grid, stream);
 }

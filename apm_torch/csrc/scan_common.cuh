@@ -12,7 +12,9 @@
 // The batch modes (many corpora in one launch) take each row's ownership
 // from a per-block or per-row table instead and flush their counters into
 // the tile's row-block slot after every tile. Kernels A and C (and their
-// batch and mask modes) walk tiles this way and reduce with add_hits;
+// batch modes) walk tiles this way and reduce with add_hits; the mask
+// kernels (#6, dp_mask.cu) walk tiles of two windows a thread, staged in
+// shared memory, and reduce with add_hits too;
 // kernel B (both modes) and kernel #7 walk tiles of windows per thread
 // instead (exact_scan.cuh), and kernel D its own items of 32-window tiles
 // (filter_pieces.cu); they use only the ownership and flush helpers here.

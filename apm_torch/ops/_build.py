@@ -170,7 +170,7 @@ def library() -> ctypes.CDLL:
         p, i64, i32, p,  # out, out_stride, grid, stream
     ]
     lib.apm_corr_batch_count.restype = i32
-    lib.apm_empty_launch.argtypes = [i64, i32, p]  # wf, grid, stream
+    lib.apm_empty_launch.argtypes = [i32, i32, p]  # grid, threads, stream
     lib.apm_empty_launch.restype = i32
     lib.apm_pieces_fused_count.argtypes = [
         p, i64, i64, i64,  # rows, n_staged, row_stride, n_rows
@@ -202,6 +202,8 @@ def library() -> ctypes.CDLL:
         i32, p,  # grid, stream
     ]
     lib.apm_dp_myers_mask.restype = i32
+    lib.apm_dp_mask_grid.argtypes = [i64, i64, i32]  # n_rows, wf, ke (< 0: Myers)
+    lib.apm_dp_mask_grid.restype = i32
     lib.apm_filter_pieces_count.argtypes = [
         p, i64, i64,  # rows, n_rows, row_stride
         p, i32, i64, i32,  # pchar, n_pat, pchar_stride, pad

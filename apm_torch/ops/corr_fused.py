@@ -319,6 +319,13 @@ def batch_grid(dev, n_staged: int, wf: int) -> int:
     return _grid(dev, n_staged * -(-wf // _EXACT_SEG), _EXACT_BLOCKS_PER_SM)
 
 
+def batch_threads(wf: int) -> int:
+    """Threads of a kernel #8 block over rows of ``wf`` windows: whole
+    warps of 32-window tiles, at most 288 (``exact_scan.cuh``'s
+    ``threads_for``)."""
+    return min(_EXACT_SEG // 32, -(-wf // (32 * 32)) * 32)
+
+
 def _launch(rows, tables, bound, start, wf, n_rows, p_out) -> torch.Tensor:
     global LAUNCHES
     from ._build import check, library

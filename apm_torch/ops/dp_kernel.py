@@ -13,8 +13,7 @@ here: staged rows ``(R, wf + halo)`` uint8 from
 nothing. ``bound`` is an int, or a 0-d integer tensor on the rows' device
 (phase-2 verification, whose bound is only known on the device).
 
-Two more modes share the kernels (``Scanner.count_batch`` and
-``Scanner.find``):
+Two more modes (``Scanner.count_batch`` and ``Scanner.find``):
 
 * batch (:func:`scan_folded_dp_batch`, ``apm``'s ``_scan_folded_pallas_batch``,
   TPU kernel #4): rows of many corpora, one ``[bound, start]`` pair per block
@@ -24,7 +23,8 @@ Two more modes share the kernels (``Scanner.count_batch`` and
 * mask (:func:`scan_folded_dp_mask`, ``_scan_folded_pallas_mask``, TPU kernel
   #6): the counts, and every window's verdict as ``(R, P, wf)`` uint8
   (``apm``'s int8 mask after its transpose), 0 for padding patterns and
-  windows past the bound.
+  windows past the bound; kernels of its own (``csrc/dp_mask.cu``), one
+  for each mode.
 
 A fourth entry has dynamic lengths (:func:`scan_folded`, ``apm``'s
 ``scan_folded_pallas``, TPU kernel #9; ``apm_torch.graft_entry.entry()``):
@@ -41,22 +41,23 @@ bytes and a PEQ table of at most 64 KB, under ``dp_impl="auto"`` only from
 ``k >= MYERS_KMIN_AUTO``. Both modes give the same counts.
 
 The public functions launch kernel C (``csrc/dp_myers.cu``) or kernel A
-(``csrc/dp_band.cu``) for a CUDA tensor, as that dispatch decides, and run
-the plain version of the chosen mode for a CPU tensor, or on any device
-when the caller asks for it (``plain=True``, the Scanner's
-``backend="torch"``).
+(``csrc/dp_band.cu``) for a CUDA tensor, as that dispatch decides (the mask
+mode: the two mask kernels of ``csrc/dp_mask.cu``), and run the plain
+version of the chosen mode for a CPU tensor, or on any device when the
+caller asks for it (``plain=True``, the Scanner's ``backend="torch"``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Union
 
 import numpy as np
 import torch
 
 # Kernel launches (the counts a run reads to show that its scans went
-# through the kernels): kernel A and kernel C in count mode, and the batch
-# and mask modes of either.
+# through the kernels): kernel A and kernel C in count mode, the batch mode
+# of either, and the mask kernels (#6, either mode).
 LAUNCHES = 0
 MYERS_LAUNCHES = 0
 BATCH_LAUNCHES = 0
@@ -77,6 +78,11 @@ FOLD = 8  # rows per block of the batch mode (apm's int32 fold)
 _PAT_GROUP = 8192
 # Resident blocks per SM the grid is sized for (256 threads each).
 _BLOCKS_PER_SM = 8
+# Mask mode: a launch stages its patterns' table, 4 bytes a byte, in
+# shared memory when it fits 32 KB (csrc/dp_mask.cu's kTableBytes), else
+# reads it from global memory, so patterns go to launches in groups that
+# fit, or all together when one pattern alone does not.
+_MASK_TABLE_BYTES = 32 << 10
 # Wide bands (ke > 16) keep their cells in global scratch; this caps it.
 _SCRATCH_BYTES = 256 << 20
 _TILE = 256  # threads (= windows) per block, apm::kTile
@@ -280,8 +286,8 @@ def scan_folded_dp_mask(
     plain: bool = False,
 ):
     """``(counts (P,) int32, mask (R, P, wf) uint8)`` of this chunk (module
-    doc, mask mode): the mask mode of kernel C or A, as
-    :func:`scan_folded_dp` dispatches."""
+    doc, mask mode): the Myers or band mask kernel (``csrc/dp_mask.cu``),
+    as :func:`scan_folded_dp` dispatches."""
     return _dispatch(rows, pat, bound, start, None, True, k=k, m_max=m_max,
                      wf=wf, halo=halo, plens=plens, alphabet=alphabet,
                      dp_impl=dp_impl, peq=peq, plain=plain)
@@ -299,6 +305,21 @@ def _grid(dev, n_rows: int, wf: int) -> int:
     n_tiles = n_rows * -(-wf // _TILE)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+
+
+@functools.lru_cache(maxsize=64)
+def _device_consts(plens: tuple, alphabet: tuple, dev: torch.device):
+    """``(lengths int32, alphabet uint8 or None)`` on ``dev``, copied once
+    per ``(plens, alphabet, device)``: a launch sends no host-to-device
+    copy of its own."""
+    dplen = torch.tensor(plens, dtype=torch.int32, device=dev)
+    alph = torch.tensor(alphabet, dtype=torch.uint8, device=dev) if alphabet else None
+    return dplen, alph
+
+
+def _mask_group(pat_stride: int) -> int:
+    """Patterns a band mask launch takes (see ``_MASK_TABLE_BYTES``)."""
+    return _MASK_TABLE_BYTES // (4 * pat_stride) or _PAT_GROUP
 
 
 def _outputs(rows, n_pat, wf, meta, mask):
@@ -320,7 +341,8 @@ def _result(out, vmask, plens):
 
 
 def _launch(rows, pat, bound, start, k, m_max, wf, plens, meta=None, mask=False):
-    """Kernel A in count, batch (``meta``) or mask mode."""
+    """Kernel A in count or batch (``meta``) mode, or the band mask kernel
+    (``csrc/dp_mask.cu``)."""
     global LAUNCHES, BATCH_LAUNCHES, MASK_LAUNCHES
     from ._build import check, library
 
@@ -332,22 +354,24 @@ def _launch(rows, pat, bound, start, k, m_max, wf, plens, meta=None, mask=False)
     out, vmask = _outputs(rows, n_pat, wf, meta, mask)
     if not any(plens):
         return _result(out, vmask, plens)
-    # Lengths travel with the launch; a pageable non-blocking copy stages
-    # on the host and does not wait for the stream.
-    dplen = torch.tensor(plens, dtype=torch.int32).to(dev, non_blocking=True)
+    dplen, _ = _device_consts(plens, (), dev)
     bval, bptr, _keep = _bound_args(bound, dev)
     ke = min(k, m_max)
-    grid = _grid(dev, n_rows, wf)
+    wide = ke > lib.apm_dp_band_reg_max()
+    # The mask entry sizes its own grid: it takes one only as the cap of a
+    # wide band's scratch.
+    grid = _grid(dev, n_rows, wf) if wide or vmask is None else 0
     scratch = None
-    if ke > lib.apm_dp_band_reg_max():
+    if wide:
         slab = (2 * ke + 1) * _TILE * 4
         grid = max(1, min(grid, _SCRATCH_BYTES // slab))
         scratch = torch.empty((grid * slab // 4,), dtype=torch.int32, device=dev)
     sptr = scratch.data_ptr() if scratch is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = (rows.data_ptr(), n_rows, rows.shape[1])
-    for g0 in range(0, n_pat, _PAT_GROUP):
-        ng = min(_PAT_GROUP, n_pat - g0)
+    group = _mask_group(pat.shape[1]) if vmask is not None else _PAT_GROUP
+    for g0 in range(0, n_pat, group):
+        ng = min(group, n_pat - g0)
         # Mask mode launches every group: its verdicts are zeros too.
         if not any(plens[g0 : g0 + ng]) and vmask is None:
             continue
@@ -378,7 +402,8 @@ def _launch(rows, pat, bound, start, k, m_max, wf, plens, meta=None, mask=False)
 
 def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet,
                   meta=None, mask=False):
-    """Kernel C in count, batch (``meta``) or mask mode."""
+    """Kernel C in count or batch (``meta``) mode, or the Myers mask kernel
+    (``csrc/dp_mask.cu``)."""
     global MYERS_LAUNCHES, BATCH_LAUNCHES, MASK_LAUNCHES
     from ._build import check, library
 
@@ -389,14 +414,14 @@ def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet,
     out, vmask = _outputs(rows, n_pat, wf, meta, mask)
     if not any(plens):
         return _result(out, vmask, plens)
-    dplen = torch.tensor(plens, dtype=torch.int32).to(dev, non_blocking=True)
-    alph = torch.tensor(list(alphabet), dtype=torch.uint8).to(dev, non_blocking=True)
+    dplen, alph = _device_consts(plens, tuple(int(a) for a in alphabet), dev)
     bval, bptr, _keep = _bound_args(bound, dev)
     head = (
         rows.data_ptr(), rows.shape[0], rows.shape[1], peq.data_ptr(), n_pat,
         m_max, len(alphabet), alph.data_ptr(), dplen.data_ptr(), k, wf,
     )
-    tail = (_grid(dev, rows.shape[0], wf), torch.cuda.current_stream(dev).cuda_stream)
+    grid = 0 if vmask is not None else _grid(dev, rows.shape[0], wf)  # 0: the mask entry sizes it
+    tail = (grid, torch.cuda.current_stream(dev).cuda_stream)
     if meta is not None:
         err = lib.apm_dp_myers_batch(*head, meta.data_ptr(), out.data_ptr(), n_pat, *tail)
         check(err, "apm_dp_myers_batch")

@@ -25,9 +25,12 @@ parent in one call.
 from __future__ import annotations
 
 import argparse
+import functools
 import importlib.util
 import os
 import sys
+
+import numpy as np
 
 
 def device_ms(fn, kernel: str, reps: int = 5):
@@ -115,14 +118,109 @@ def corr_batch_cases(cs, dev):
                lambda a=args, kw=kw: corr_fused.scan_corr_batch_fused_ref(*a, **kw), 15)
 
 
+def dp_cases(cs, dev):
+    """Kernels A, C, #4 and #9, which share no code with #6 since its
+    redesign: the shapes their records in ``chip_smoke.py`` time (A: the
+    pair 32 + 50 at k = 1, C: six 50-mers at k = 12, both on 4096 rows;
+    #4: the first 1024-row group of the 40-corpus staging at k = 1; #9:
+    k = 1, P = 8 with device lengths), held to the plain versions, 5 calls
+    each."""
+    import torch
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import random_corpus, random_pattern
+
+    wf, n_rows = 8192, 4096
+    corpus = random_corpus(n_rows * wf + 4096, seed=3)
+    pair = [random_pattern(32, seed=1).tobytes(), random_pattern(50, seed=2).tobytes()]
+    six = [random_pattern(50, seed=80 + i).tobytes() for i in range(6)]
+    for pats, k, impl, name in ((pair, 1, "band", "A k=1 P=2"), (six, 12, "myers", "C k=12 P=6")):
+        pat, _, plens, m_max = cs._pattern_table(pats, k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = cs.staged(corpus, 0, n_rows, wf, halo, dev)
+        alph = tuple(sorted(set(b"".join(pats))))
+        peq = torch.from_numpy(dp_kernel.build_peq(pat, k, m_max, alph)).to(dev)
+        args = (rows, torch.from_numpy(pat).to(dev), n_rows * wf - m_max + 1, 0)
+        base = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+        kw = dict(base, alphabet=alph, peq=peq, dp_impl=impl)
+        if impl == "myers":
+            plain = functools.partial(dp_kernel.scan_folded_myers_ref, alphabet=alph, peq=peq, **base)
+        else:
+            plain = functools.partial(dp_kernel.scan_folded_dp_ref, **base)
+        yield (f"{name} R={n_rows}", f"dp_{impl}_kernel",
+               lambda a=args, kw=kw: dp_kernel.scan_folded_dp(*a, **kw),
+               lambda a=args, f=plain: f(*a), 5)
+    pat, _, plens, m_max = cs._pattern_table(pair, 1)
+    halo = round_up(m_max + 2, 128)
+    corpora = cs.mixed_corpora(40, 64 << 10, 4 << 20, 303, [(pair[1], 40_000, 1), (pair[0], 90_000, 0)])
+    rows, meta, _ = cs.batch_groups(corpora, 8 * wf, wf, halo, lambda n: max(0, min(n - m_max + 1, n - 1)))[0]
+    args = (torch.from_numpy(rows).to(dev), torch.from_numpy(pat).to(dev), torch.from_numpy(meta).to(dev))
+    kw = dict(k=1, m_max=m_max, wf=wf, halo=halo, plens=plens)
+    yield (f"#4 k=1 R={rows.shape[0]}", "dp_band_kernel",
+           lambda a=args, kw=kw: dp_kernel.scan_folded_dp_batch(*a, **kw),
+           lambda a=args, kw=kw: dp_kernel.scan_folded_dp_batch_ref(*a, **kw), 5)
+    lens = [12, 30, 41, 64]
+    rng = np.random.default_rng(371)
+    pats = [bytes(corpus[q : q + m]) for q, m in zip(rng.integers(0, n_rows * wf // 2, 4), lens)]
+    pat, _, plens, m_max = cs._pattern_table(pats, 1)
+    halo = round_up(m_max + 2, 128)
+    rows = cs.staged(corpus, 3, n_rows, wf, halo, dev)
+    dplen = torch.tensor(plens, dtype=torch.int32, device=dev)
+    start = torch.tensor(3 * wf, dtype=torch.int32, device=dev)
+    bound = torch.tensor(3 * wf + (n_rows - 5) * wf + 4321, dtype=torch.int32, device=dev)
+    args = (rows, torch.from_numpy(pat).to(dev), dplen, bound, start)
+    kw = dict(k=1, m_max=m_max, wf=wf, halo=halo)
+    yield (f"#9 k=1 P=8 R={n_rows}", "dp_band_kernel",
+           lambda a=args, kw=kw: dp_kernel.scan_folded(*a, **kw),
+           lambda a=args, kw=kw: dp_kernel.scan_folded_ref(*a, **kw), 5)
+
+
+def mask_cases(cs, dev):
+    """Kernel #6 (the mask kernels): band k = 1 and Myers k = 3 on the pair
+    32 + 50 at find's 512 gathered rows (``FIND_BATCH``) with a mid-row
+    bound, held to the plain version, 9 calls each; where the tree has
+    the grid query (``apm_dp_mask_grid``), an empty launch of the band
+    mask kernel's grid (the launch floor)."""
+    import torch
+    from apm_torch.ops import _build, dp_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    wf, n_rows = 8192, 512
+    pair = [random_pattern(32, seed=311).tobytes(), random_pattern(50, seed=312).tobytes()]
+    corpus = random_corpus(n_rows * wf + 4096, seed=313)
+    plant(corpus, np.frombuffer(pair[1], np.uint8), range(900, len(corpus) - 100, 9_001), k=1, seed=314)
+    alph = tuple(sorted(set(b"".join(pair))))
+    bound = (n_rows - 5) * wf + 4321
+    lib = _build.library()
+    for k, name in ((1, "band"), (3, "myers")):
+        pat, _, plens, m_max = cs._pattern_table(pair, k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = cs.staged(corpus, 0, n_rows, wf, halo, dev)
+        args = (rows, torch.from_numpy(pat).to(dev), bound, 0)
+        peq = torch.from_numpy(dp_kernel.build_peq(pat, k, m_max, alph)).to(dev)  # as the Scanner
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph, peq=peq)
+        fn = lambda a=args, kw=kw: dp_kernel.scan_folded_dp_mask(*a, **kw)
+        plain = lambda a=args, kw=kw: dp_kernel.scan_folded_dp_mask_ref(*a, **kw)
+        yield (f"#6 {name} k={k} R={n_rows}", name, fn, plain, 9)
+        if k == 1 and hasattr(lib, "apm_dp_mask_grid"):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            grid = lib.apm_dp_mask_grid(n_rows, wf, min(k, m_max))
+            _build.check(0 if grid > 0 else -grid, "apm_dp_mask_grid")
+            empty = lambda g=grid: _build.check(lib.apm_empty_launch(g, 256, stream), "apm_empty_launch")
+            yield (f"#6 empty launch of the band mask grid ({grid} blocks) R={n_rows}", "empty_kernel",
+                   empty, None, 20)
+
+
 # A later kernel's comparison is one more entry.
-CASES = (filter_cases, corr_batch_cases)
+CASES = (filter_cases, corr_batch_cases, dp_cases, mask_cases)
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("tree")
     ap.add_argument("label")
+    ap.add_argument("--cases", default="", help="comma-separated CASES names (default: all)")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -143,7 +241,10 @@ def main() -> int:
         print(f"imported {apm_torch.__file__}, not the tree {tree}")
         return 1
     dev = torch.device("cuda", 0)
+    only = {c for c in args.cases.split(",") if c}
     for cases in CASES:
+        if only and cases.__name__ not in only:
+            continue
         for what, kernel, fn, plain, reps in cases(cs, dev):
             if plain is not None:
                 got, ref = fn(), plain()

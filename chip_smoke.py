@@ -51,9 +51,12 @@ Phases, one line each; any failure exits non-zero:
 2c. kernel #4 (the batch mode of kernels A and C) against its plain version
    on every 1024-row group of ``count_batch``'s staging of 40 mixed corpora
    (64 KB to 4 MB), k = 1 (band), 3 and 12 (Myers);
-2d. kernel #6 (the mask mode of kernels A and C) against its plain version
-   at 512 rows (``FIND_BATCH``), k = 1 and 3, a mid-row bound: counts and
-   verdicts byte for byte; the bit pack and per-row top-k timed;
+2d. kernel #6 (the mask kernels, ``csrc/dp_mask.cu``) against its plain
+   version at 512 rows (``FIND_BATCH``), band k = 1 and Myers k = 3, a
+   mid-row bound: counts and verdicts byte for byte, each timed against its
+   bound; the bit pack and per-row top-k timed; edge cases at 40 rows
+   (k = 16 and 17, m < k, NUL and foreign bytes, all-A text, an odd wf, a
+   bound in device memory);
 3c. kernel #8 (the batch mode of kernel B) against its plain version on the
    same kind of staging at P = 2, P = 64 (int8 tables) and m = 70, 80, and
    on 6 corpora patterns of 1, 3 and 7 bytes and all-A text against A^m;
@@ -191,6 +194,23 @@ BAND_K1_STEP_INSTR = 20
 MYERS_STATIC_STEP_INSTR = 103 / 4
 MYERS_MOVING_STEP_INSTR = 125 / 4
 COMPARE_OPS = 3
+# Kernel #6 (the mask kernels) is counted from its work, at the fewest
+# instructions the card needs, not from one design's SASS. A band cell is a
+# compare and three min-plus terms: four instructions for the two windows
+# of a paired 16-bit word on Hopper's DPX forms (XOR, VIADDMNMX, VIMNMX3,
+# VIADDMNMX), so 2 a window. A Myers step is Hyyro's bit-vector update with
+# each logic term of up to three inputs one LOP3: eq & vp, the add, xh and
+# xv (4), ph (2), mh (1), ph's and mh's shifts with their masks (4), the
+# centre bit and the count (3), vp (2) and vn (1), 17 in all, plus the
+# match word's load; the moving band re-indexes VP and VN first (3 more).
+# Where the band fits a 16-bit field (2k + 1 <= 15) one update advances two
+# windows packed in one word, for two match-word loads and one instruction
+# that joins the two words: 20 a pair (23 moving), 10 and 11.5 a window.
+MASK_BAND_CELL_INSTR = 2
+MASK_MYERS_STATIC_STEP_INSTR = 18
+MASK_MYERS_MOVING_STEP_INSTR = 21
+MASK_MYERS_PAIR_STATIC_STEP_INSTR = 20
+MASK_MYERS_PAIR_MOVING_STEP_INSTR = 23
 
 
 def band_k1_instr(owned: int, plens) -> int:
@@ -206,12 +226,30 @@ def myers_instr(owned: int, plens, k: int) -> int:
     return int(owned * per_window)
 
 
-def sass_loops(lib_path: str, kernel: str, nested: bool = False) -> str:
+def mask_band_instr(owned: int, plens, k: int) -> int:
+    """Least instructions of kernel #6's band mode over ``owned`` windows:
+    m_p steps of 2k + 1 cells per pattern (k = ke: m_max > k here)."""
+    return owned * sum(plens) * (2 * k + 1) * MASK_BAND_CELL_INSTR
+
+
+def mask_myers_instr(owned: int, plens, k: int) -> int:
+    """Least instructions of kernel #6's Myers mode over ``owned`` windows:
+    a window pair per update where 2k + 1 <= 15, else one window."""
+    if 2 * k + 1 <= 15:
+        per_pair = sum(min(k, m) * MASK_MYERS_PAIR_STATIC_STEP_INSTR
+                       + max(m - k, 0) * MASK_MYERS_PAIR_MOVING_STEP_INSTR for m in plens if m)
+        return owned * per_pair // 2
+    return owned * sum(min(k, m) * MASK_MYERS_STATIC_STEP_INSTR
+                       + max(m - k, 0) * MASK_MYERS_MOVING_STEP_INSTR for m in plens if m)
+
+
+def sass_loops(lib_path: str, kernel: str, nested: bool = False, ops: bool = False) -> str:
     """Instruction counts of the innermost loops of ``kernel`` in the built
     library's SASS (``cuobjdump -sass``), the source of the per-step counts
     above: ``start-end: N instructions, L global and S shared loads`` for
     each backward branch that encloses no other. ``nested``: every loop
-    instead, each counted without the loops inside it."""
+    instead, each counted without the loops inside it. ``ops``: each loop's
+    opcodes too, with their counts."""
     import re
     import shutil
 
@@ -233,8 +271,12 @@ def sass_loops(lib_path: str, kernel: str, nested: bool = False) -> str:
         holes = [o for o in loops if inside((t, a, i), o)]
         body = [op for b, op in ins[: i + 1]
                 if b >= t and not any(o[0] <= b <= o[1] for o in holes)]
-        out.append(f"{t:#x}-{a:#x}: {len(body)} instructions, "
-                   f"{sum('LDG' in op for op in body)} global and {sum('LDS' in op for op in body)} shared loads")
+        line = (f"{t:#x}-{a:#x}: {len(body)} instructions, "
+                f"{sum('LDG' in op for op in body)} global and {sum('LDS' in op for op in body)} shared loads")
+        if ops:
+            names = [re.sub(r"^@!?U?P\w+\s+", "", op).split()[0] for op in body]
+            line += " (" + " ".join(f"{n} {names.count(n)}" for n in sorted(set(names))) + ")"
+        out.append(line)
     return "; ".join(out) or "no loop found"
 
 
@@ -763,11 +805,20 @@ def phase_batch_dp(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int = 
                          band_k1_instr(owned, plens), what)
 
 
-def phase_mask(rec, dev, n_rows: int = 512) -> None:
-    """Kernel #6 (the mask mode of kernels A and C) against its plain
-    version at find's gather shape (FIND_BATCH rows), a mid-row bound;
-    counts and the (R, P, wf) verdicts byte for byte. Also times the bit
-    pack and the per-row top-k that follow it on find's path."""
+def phase_mask(rec, dev, n_rows: int = 512, edge_rows: int = 40) -> None:
+    """Kernel #6 (the mask kernels, ``csrc/dp_mask.cu``) against its plain
+    version at find's gather shape (FIND_BATCH rows), a mid-row bound,
+    band k = 1 and Myers k = 3: counts and the (R, P, wf) verdicts byte for
+    byte, each timed against its bound (the recount from the work: band
+    cells at two DPX instructions a window, Myers steps at Hyyro's update,
+    one update a window pair where 2k + 1 <= 15).
+    Also times the bit pack and the per-row top-k that follow it on find's
+    path. Edge cases at ``edge_rows`` rows: k = 16 and 17 (the register
+    limit, then the scratch path), patterns shorter than k, NUL and bytes
+    outside the alphabet, all-A text (every window a hit), an odd wf (byte
+    stores, unaligned rows), Myers at k = 8 (two chains, not packed), a
+    40 000-byte pattern (its table read from global memory), 200 patterns
+    (two launches) and a bound in device memory."""
     import torch
 
     from apm_torch.ops import dp_kernel, fused
@@ -786,7 +837,9 @@ def phase_mask(rec, dev, n_rows: int = 512) -> None:
         rows = staged(corpus, 0, n_rows, wf, halo, dev)
         dpat = torch.from_numpy(pat).to(dev)
         bound = (n_rows - 5) * wf + 4321
-        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph)
+        # the Scanner passes its own PEQ table, as here
+        peq = torch.from_numpy(dp_kernel.build_peq(pat, k, m_max, alph)).to(dev)
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph, peq=peq)
         mode = "myers" if dp_kernel._is_myers(k, m_max, plens, alph, "auto") else "band"
         counts, mask = dp_kernel.scan_folded_dp_mask(rows, dpat, bound, 0, **kw)
         rc, rm = dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, 0, **kw)
@@ -795,17 +848,54 @@ def phase_mask(rec, dev, n_rows: int = 512) -> None:
         rec.compare(counts, rc, what + " counts")
         rec.compare(mask, rm, what + " mask")
         need(int(mask.sum()) == int(counts.sum()) > 0, f"kernel #6 {what}: mask and counts disagree")
-        ms = cuda_ms(lambda: dp_kernel.scan_folded_dp_mask(rows, dpat, bound, 0, **kw), 5)
+        ms = cuda_ms(lambda: dp_kernel.scan_folded_dp_mask(rows, dpat, bound, 0, **kw), 9)
         plain = cuda_ms(lambda: dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, 0, **kw), 1)
         pack = cuda_ms(lambda: fused._pack_mask_bits(mask, len(pair)), 5)
         topk = cuda_ms(lambda: fused._row_topk_positions(mask, len(pair), wf, fused.POS_CAP), 5)
         say(f"phase 2d kernel #6 {what}: counts and {mask.numel()}-byte mask equal, counts "
             f"{counts[:2].tolist()}, kernel {ms:.3f} ms, plain {plain:.3f} ms; then on find's "
             f"path: bit pack {pack:.3f} ms, per-row top-{fused.POS_CAP} {topk:.3f} ms")
-        if k == 1:
-            owned = int(owned_lanes(n_rows, wf, bound).sum())
-            rec.measured(ms, plain, rows.numel() + pat.nbytes + 4 * len(plens) + mask.numel(),
-                         band_k1_instr(owned, plens), what)
+        owned = int(owned_lanes(n_rows, wf, bound).sum())
+        instr = mask_band_instr(owned, plens, k) if mode == "band" else mask_myers_instr(owned, plens, k)
+        rec.measured(ms, plain, rows.numel() + pat.nbytes + 4 * len(plens) + mask.numel(),
+                     instr, what, keep=k == 1)
+    # edge cases, small: each against the plain version, counts and mask
+    ew = 1024
+    base = random_corpus(edge_rows * ew + 4096, seed=315, alphabet=b"ACGT")
+    foreign = random_corpus(edge_rows * ew + 4096, seed=316, alphabet=b"ACGT\x00N\xff")
+    short = lambda k: [bytes(base[3000 : 3000 + m]) for m in (max(k - 1, 1), k, 12)]
+    mixed = [bytes(base[3000:3040]), bytes(base[7000:7012]), b"ACGTTGCAAC"]
+    for i, p in enumerate(mixed[:2]):
+        foreign[3000 + 4000 * i : 3000 + 4000 * i + len(p)] = np.frombuffer(p, np.uint8)
+    all_a = np.full_like(base, ord("A"))
+    cases = [(16, "band", base, mixed, ew), (17, "band", base, mixed, ew),
+             (2, "band", base, short(2), ew), (3, "myers", base, short(3), ew),
+             (1, "band", foreign, mixed, ew), (2, "myers", foreign, mixed, ew),
+             (1, "band", all_a, [b"A" * 40, b"A" * 2], ew), (3, "myers", all_a, [b"A" * 40, b"A" * 4], ew),
+             (1, "band", base, mixed, ew - 1), (3, "myers", base, mixed, ew - 1),
+             (8, "myers", base, mixed, ew),  # too wide to pack: two chains a thread
+             (1, "band", base, [bytes(base[3000:43000]), b"ACGTTGCAAC"], ew),  # table from global
+             (1, "band", base, [bytes(base[q : q + 50]) for q in range(1000, 20_400, 97)], ew)]
+    for k, impl, text, pats, w in cases:
+        pat, _, plens, m_max = _pattern_table(pats, k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = staged(text, 1, edge_rows, w, halo, dev)
+        dpat = torch.from_numpy(pat).to(dev)
+        bound = w + (edge_rows - 4) * w + 333
+        kw = dict(k=k, m_max=m_max, wf=w, halo=halo, plens=plens, alphabet=tuple(b"ACGT"), dp_impl=impl)
+        need(dp_kernel._is_myers(k, m_max, plens, tuple(b"ACGT"), impl) == (impl == "myers"),
+             f"phase 2d edge k={k}: not in {impl} mode")
+        ref = dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, w, **kw)
+        live = [m for m in plens if m]
+        what = f"edge k={k} ({impl}) m={live if len(live) < 8 else f'{len(live)} x {live[0]}'} wf={w}"
+        for b in (bound, torch.tensor(bound, device=dev)):
+            got = dp_kernel.scan_folded_dp_mask(rows, dpat, b, w, **kw)
+            torch.cuda.synchronize()
+            rec.compare(got[0], ref[0], what + " counts")
+            rec.compare(got[1], ref[1], what + " mask")
+        need(int(ref[0].sum()) > 0, f"kernel #6 {what}: no matches at all")
+        say(f"phase 2d kernel #6 {what}: counts and mask equal (bound as a value and on the "
+            f"device), counts {ref[0][:len(pats)].tolist()}")
 
 
 def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int = 4 << 20) -> None:
@@ -873,7 +963,8 @@ def phase_corr_batch(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int 
 
             grid, lib = corr_fused.batch_grid(dev, rows.shape[0], wf), library()
             stream = torch.cuda.current_stream(dev).cuda_stream
-            empty = cuda_ms(lambda: check(lib.apm_empty_launch(wf, grid, stream), "apm_empty_launch"), 20)
+            threads = corr_fused.batch_threads(wf)
+            empty = cuda_ms(lambda: check(lib.apm_empty_launch(grid, threads, stream), "apm_empty_launch"), 20)
             say(f"phase 3c kernel #8 beside its bound {bound:.4f} ms: an empty launch of the same "
                 f"grid ({grid} blocks) takes {empty:.4f} ms (median of 20, CUDA events), the call "
                 f"{ms:.3f} ms (chip_compare.py reads the kernel alone)")
@@ -1580,6 +1671,10 @@ def run(t_start: float) -> dict:
         f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
     for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
         say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
+    # kernel #6: the band's DPX body at k = 1 (text staged), and the Myers body
+    for kernel in ("band_mask_kernelILi1ELb1E", "myers_mask_kernel"):
+        say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel, ops=True)}")
+        say(f"phase 1 ptxas of {kernel}: {ptxas_of(_build.build_log(), kernel)}")
     # the exact-scan kernels (B, #7, #8) and kernel D
     for kernel in ("corr_count_kernel", "pieces_fused_kernel", "corr_batch_kernel", "filter_pieces_kernel"):
         say(f"phase 1 SASS loops of {kernel} (each without the loops inside it): "
@@ -1598,7 +1693,7 @@ def run(t_start: float) -> dict:
                                       "apm/ops/filter_kernel.py:350"),
         "dp_batch": KernelRecord("dp_batch", "apm_torch/csrc/dp_band.cu",
                                  "apm/ops/pallas_kernel.py:691"),
-        "dp_mask": KernelRecord("dp_mask", "apm_torch/csrc/dp_band.cu",
+        "dp_mask": KernelRecord("dp_mask", "apm_torch/csrc/dp_mask.cu",
                                 "apm/ops/pallas_kernel.py:799"),
         "corr_batch": KernelRecord("corr_batch", "apm_torch/csrc/corr_fused.cu",
                                    "apm/ops/corr_fused.py:764"),

@@ -310,27 +310,65 @@ def test_dp_batch_kernel_matches_plain(dev, k, dp_impl):
     assert int(got.sum()) >= 4 and int(got[-1].sum()) == 0
 
 
-@pytest.mark.parametrize("k,dp_impl", [(0, "band"), (1, "band"), (3, "myers"), (8, "band")])
-def test_dp_mask_kernel_matches_plain(dev, k, dp_impl):
-    # TPU kernel #6: the mask mode of kernels A and C, a mid-row bound
+@pytest.mark.parametrize(
+    "k,dp_impl,case",
+    [(0, "band", "random"), (1, "band", "random"), (3, "myers", "random"),
+     (8, "band", "random"),
+     (2, "band", "short"), (3, "myers", "short"),  # m < k, m = k, m = m_max
+     (16, "band", "random"), (17, "band", "random"),  # registers, then scratch
+     (1, "band", "foreign"), (2, "myers", "foreign"),  # NUL and bytes outside ACGT
+     (1, "band", "all-A"), (3, "myers", "all-A"),  # every window a hit
+     (1, "band", "odd-wf"), (3, "myers", "odd-wf"),  # byte stores, unaligned rows
+     (8, "myers", "random"),  # too wide to pack: two chains a thread
+     (1, "band", "long"), (1, "band", "long-odd-wf"),  # table past 32 KB: read from global
+     (1, "band", "many")],  # patterns over several launches, each table in shared memory
+)
+def test_dp_mask_kernel_matches_plain(dev, k, dp_impl, case):
+    # TPU kernel #6: the mask kernels of csrc/dp_mask.cu, padding slots and
+    # a mid-row bound that leaves an odd number of windows owned in its row
+    # (a thread's window pair straddles it)
     from apm_torch.ops import dp_kernel
     from apm_torch.ops.common import fold_corpus
 
-    wf, n_rows = 1024, 40
-    corpus = _corpus(n_rows * wf + 512, 95 + k)
-    pats = [bytes(corpus[3000:3040]), bytes(corpus[7000:7012]), b"ACGTTGCAAC"]
-    pat, _, plens, m_max, halo = _tables(pats, k)
+    wf, n_rows = (1023 if case.endswith("odd-wf") else 1024), 40
+    alphabet = b"ACGT\x00N\xff" if case == "foreign" else b"ACGT"
+    corpus = _corpus(n_rows * wf + 512 + (50_000 if case.startswith("long") else 0), 95 + k, alphabet)
+    n_pad = 8
+    if case == "long":  # 40 000 bytes: table and stage would pass the 227 KB a block may take
+        pats = [bytes(corpus[3000:43000]), b"ACGTTGCAAC"]
+    elif case == "long-odd-wf":  # 9000 bytes, the last pair of a row half past its end
+        pats = [bytes(corpus[3000:12000]), b"ACGTTGCAAC"]
+    elif case == "many":  # 200 patterns of 50 bytes: 157 fit a 32 KB table
+        pats = [bytes(corpus[q : q + 50]) for q in range(1000, 1000 + 200 * 97, 97)]
+        n_pad = 202
+    elif case == "all-A":
+        corpus[:] = ord("A")
+        pats = [b"A" * 40, b"A" * 12, b"A" * (k + 1)]
+    elif case == "short":
+        pats = [bytes(corpus[3000 : 3000 + m]) for m in (k - 1, k, 12)]
+    elif case == "foreign":  # ACGT patterns planted in the foreign text
+        pats = [bytes(_corpus(40, 7)), bytes(_corpus(12, 8)), b"ACGTTGCAAC"]
+        corpus[3000:3040] = np.frombuffer(pats[0], np.uint8)
+        corpus[7000:7012] = np.frombuffer(pats[1], np.uint8)
+    else:
+        pats = [bytes(corpus[3000:3040]), bytes(corpus[7000:7012]), b"ACGTTGCAAC"]
+    pat, _, plens, m_max, halo = _tables(pats, k, n_pad)
     rows = torch.from_numpy(fold_corpus(corpus, wf, n_rows, wf, halo)).to(dev)
     dpat = torch.from_numpy(pat).to(dev)
     kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens,
               alphabet=tuple(b"ACGT"), dp_impl=dp_impl)
+    assert dp_kernel._is_myers(k, m_max, plens, tuple(b"ACGT"), dp_impl) == (dp_impl == "myers")
     bound = wf + (n_rows - 4) * wf + 333
+    launches = 1 if dp_impl == "myers" else -(-n_pad // dp_kernel._mask_group(pat.shape[1]))
+    assert launches == (2 if case == "many" else 1)
     before = dp_kernel.MASK_LAUNCHES
     counts, mask = dp_kernel.scan_folded_dp_mask(rows, dpat, bound, wf, **kw)
     rc, rm = dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, wf, **kw)
-    assert dp_kernel.MASK_LAUNCHES == before + 1
+    assert dp_kernel.MASK_LAUNCHES == before + launches
     assert torch.equal(counts, rc) and torch.equal(mask, rm)
     assert int(counts.sum()) >= 2 and int(mask[n_rows - 3 :].sum()) == 0
+    if case == "all-A":  # every owned window of every real pattern
+        assert counts[:3].tolist() == [bound - wf] * 3
     dbound = torch.tensor(bound, device=dev)
     c2, m2 = dp_kernel.scan_folded_dp_mask(rows, dpat, dbound, wf, **kw)
     assert torch.equal(c2, rc) and torch.equal(m2, rm)
