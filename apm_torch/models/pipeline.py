@@ -299,9 +299,9 @@ def _verify_clipped_row(
     fcnt: np.ndarray,
 ) -> np.ndarray:
     """Verify the window-bound-clipped hot row ``[j0, dev_bound)`` on the
-    host (NumPy banded distances, where ``apm`` may use its native
-    verifier: the same counts)."""
-    from ..utils.oracle import banded_distances
+    host with the native verifier (``apm``'s ``_verify_clipped_row``): the
+    windows are untruncated, so no EOF truncation applies."""
+    from ..utils import native
 
     k = scanner.k
     out = np.zeros((scanner._pat.shape[0],), dtype=np.int64)
@@ -313,6 +313,5 @@ def _verify_clipped_row(
             continue
         pat = scanner.scan_patterns.raw[pi]
         seg = reader(j0, min(n - j0, j1 - j0 + len(pat) - 1 + k))
-        d = banded_distances(seg, pat, k)
-        out[pi] += int(np.sum(d[: j1 - j0] <= k))
+        out[pi] += native.banded_count(seg, np.frombuffer(pat, np.uint8), k, j1 - j0)
     return out

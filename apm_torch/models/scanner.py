@@ -2,16 +2,23 @@
 
 A :class:`Scanner` owns the pattern tables, plans a scan with
 :func:`apm_torch.models.pipeline.make_plan` (the same plan as ``apm``),
-stages the corpus into overlapping rows chunk by chunk, launches the
-kernels of every chunk without synchronising, fetches all per-chunk counts
-once, and adds the EOF-truncated tail windows counted on the host.
+stages the corpus into overlapping rows chunk by chunk (kept on the device
+in a byte-bounded LRU keyed by the corpus's content, so a repeated corpus
+is served from device memory), launches the kernels of every chunk
+without synchronising, fetches all per-chunk counts once, and adds the
+EOF-truncated tail windows counted on the host by the native verifier.
 :meth:`Scanner.count_batch` does the same for many corpora in one staging
-space, and :meth:`Scanner.find` returns match positions.
+space, :meth:`Scanner.find` returns match positions, :meth:`Scanner.
+count_file` and :meth:`Scanner.count_stream` read a file or a stream, and
+:meth:`Scanner.warmup` (or ``ApmConfig.prewarm_bytes``, on a thread)
+builds and drives every path once before the first request.
 """
 
 from __future__ import annotations
 
+import threading
 import time
+import weakref
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -23,7 +30,7 @@ from ..utils.io import PatternSet
 from ..utils.oracle import Bytes, as_u8
 from ..utils.profiling import OFF, Spans
 
-_ROADMAP = "not ported yet (ROADMAP.md, 'Queue 1')"
+_ROADMAP = "not ported yet (ROADMAP.md, 'Queue 1' #5)"
 
 
 class Scanner:
@@ -111,6 +118,54 @@ class Scanner:
         self.last_find: Dict[str, Dict[str, int]] = {}
         self.meter = Meter()
 
+        # Device corpus cache: (fingerprint, wf, halo, n_rows, c0) -> the
+        # chunk's staged rows on the device, least recently used first,
+        # bounded in bytes (_cache_byte_budget).
+        self._dev_cache: Dict[tuple, torch.Tensor] = {}
+        # Guards _dev_cache's inserts, evictions and iteration: the prewarm
+        # thread (warmup's purge) runs beside foreground scans.
+        self._dev_cache_lock = threading.RLock()
+        # id -> (weakref, fingerprint, sample) of immutable buffers
+        # (_corpus_fp).
+        self._fp_memo: Dict[int, tuple] = {}
+        self._stream_scanner: Optional["Scanner"] = None
+        self._prewarm_thread: Optional[threading.Thread] = None
+        self._prewarm_error: Optional[BaseException] = None
+        if self.config.prewarm_bytes:
+            self._prewarm_thread = threading.Thread(
+                target=self._prewarm_run,
+                args=(int(self.config.prewarm_bytes),),
+                name="apm-prewarm",
+                daemon=True,
+            )
+            self._prewarm_thread.start()
+
+    def _prewarm_run(self, corpus_bytes: int) -> None:
+        """The prewarm thread's body: :meth:`warmup`, with a failure kept
+        for :meth:`prewarm_join` to raise (a failed kernel build must not
+        hide until the first scan)."""
+        try:
+            self.warmup(corpus_bytes)
+        except Exception as e:  # the thread's boundary: kept and re-raised
+            self._prewarm_error = e
+
+    def prewarm_join(self, timeout: Optional[float] = None) -> bool:
+        """Wait for the background prewarm (``ApmConfig.prewarm_bytes``).
+
+        Returns True when the prewarm has finished (or none was requested),
+        False when ``timeout`` ran out first. Raises what the prewarm
+        raised, every time it is asked, once the thread has ended.
+        """
+        t = self._prewarm_thread
+        if t is None:
+            return True
+        t.join(timeout)
+        if t.is_alive():
+            return False
+        if self._prewarm_error is not None:
+            raise RuntimeError("the Scanner's prewarm failed") from self._prewarm_error
+        return True
+
     # -- configuration --------------------------------------------------------
 
     def _check_config(self) -> None:
@@ -119,12 +174,12 @@ class Scanner:
         if cfg.strategy in ("database_over_devices", "patterns_over_devices"):
             raise NotImplementedError(
                 f"strategy={cfg.strategy!r} (more than one device) is "
-                f"{_ROADMAP} #12"
+                f"{_ROADMAP}"
             )
         if cfg.max_devices is not None and cfg.max_devices > 1:
             raise NotImplementedError(
                 f"max_devices={cfg.max_devices}: more than one device is "
-                f"{_ROADMAP} #12"
+                f"{_ROADMAP}"
             )
         from .pipeline import check_dp_dtype
 
@@ -432,15 +487,21 @@ class Scanner:
         return max(0, min(n - self.m_max + 1, n - self.k))
 
     def tail_counts(self, buf: np.ndarray, dev_bound: int) -> np.ndarray:
-        """Oracle counts for the EOF tail windows ``j in [dev_bound, n-k)``,
-        per scan (deduplicated) pattern."""
-        from ..utils.oracle import count_matches
+        """Counts of the EOF tail windows ``j in [dev_bound, n-k)``, per
+        scan (deduplicated) pattern, by the native verifier with the
+        reference's EOF truncation (``apm``'s ``tail_counts``)."""
+        from ..utils import native
 
         n = len(buf)
         out = np.zeros((self.scan_patterns.num_patterns,), dtype=np.int64)
         if dev_bound >= max(n - self.k, 0):
             return out
-        out[:] = count_matches(buf[dev_bound:], list(self.scan_patterns.raw), self.k)
+        suffix = buf[dev_bound:]
+        nw = max(0, len(suffix) - self.k)
+        for i, raw in enumerate(self.scan_patterns.raw):
+            out[i] = native.banded_count(
+                suffix, np.frombuffer(raw, np.uint8), self.k, nw, len(suffix)
+            )
         return out
 
     def block_windows_for(self, n: int) -> int:
@@ -530,18 +591,17 @@ class Scanner:
         )
 
     def _stage(
-        self, buf: np.ndarray, c0: int, n_rows: int, wf: int, halo: int,
-        spans=OFF, tag: str = "",
+        self, buf: np.ndarray, c0: int, n_rows: int, wf: int, halo: int, spans=OFF,
     ):
         """Fold one chunk on the host and copy it to the device. On a CUDA
         device the rows go through page-locked memory and an asynchronous
         copy on the current stream (the caching host allocator keeps the
         buffer until the copy has run). ``spans`` times the two steps as
-        ``tag + "fold"`` and ``tag + "copy"``."""
-        with spans.host(tag + "fold"):
+        ``fold`` and ``copy``."""
+        with spans.host("fold"):
             host = self._host_rows(n_rows, wf + halo)
             fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
-        with spans.device(tag + "copy"):
+        with spans.device("copy"):
             return self._to_device(host)
 
     def _host_rows(self, n_rows: int, width: int) -> torch.Tensor:
@@ -555,34 +615,245 @@ class Scanner:
         page-locked buffer until the copy has run)."""
         return host.to(self.device, non_blocking=self.device.type == "cuda")
 
+    # -- device corpus cache (apm's _staged_rows and its key) -----------------
+
+    @staticmethod
+    def _immutable(buf) -> bool:
+        """True when no NumPy handle can change ``buf``'s bytes: every
+        ndarray in its base chain is read-only (a read-only view of a
+        writable array does not qualify: writes through the base would
+        change the bytes under the view)."""
+        obj = buf
+        while isinstance(obj, np.ndarray):
+            if obj.flags.writeable:
+                return False
+            obj = obj.base
+        return True
+
+    def _corpus_fp(self, buf: np.ndarray):
+        """The corpus's key in the device cache (None with ``cache_corpus``
+        off), memoized for immutable buffers.
+
+        A buffer that :meth:`_immutable` proves read-only (``count_file``'s
+        read-only memmap, ``np.frombuffer`` of ``bytes``, or any array the
+        caller froze with ``setflags(write=False)``) is hashed once and its
+        key memoized by object identity; a weak reference drops the entry
+        when the array dies, so a recycled ``id`` never aliases another
+        array. A writable buffer is hashed in full on every call, so an
+        in-place change always changes its key.
+
+        Contract (``apm``'s): freezing a buffer promises it never changes
+        again. Thawing a scanned frozen buffer, changing it in place and
+        freezing it again is not supported: the memo checks a hit against
+        a sample of the bytes (:meth:`_fp_sample`), which catches a swapped
+        or re-sliced buffer and bulk overwrites but not every local change,
+        and a missed change serves the old content's counts. Use a new
+        array, or leave the buffer writable and pay the hash every call.
+        """
+        if not self.config.cache_corpus:
+            return None
+        if not (isinstance(buf, np.ndarray) and self._immutable(buf)):
+            return self._fingerprint(buf)
+        key = id(buf)
+        ent = self._fp_memo.get(key)
+        if ent is not None and ent[0]() is buf and ent[2] == self._fp_sample(buf):
+            return ent[1]
+        fp = self._fingerprint(buf)
+        # the callback holds the memo, not the Scanner, so a Scanner that
+        # memoized a key is still freed as soon as it is dropped
+        memo = self._fp_memo
+        ref = weakref.ref(buf, lambda _, key=key: memo.pop(key, None))
+        memo[key] = (ref, fp, self._fp_sample(buf))
+        return fp
+
+    @staticmethod
+    def _fp_sample(buf: np.ndarray) -> tuple:
+        """A cheap content sample that validates memo hits: the length and
+        64 bytes at each of 33 evenly spaced offsets (about 2 KB, no full
+        pass)."""
+        n = buf.size
+        if n == 0:
+            return (0,)
+        flat = buf.reshape(-1)
+        return (n,) + tuple(
+            flat[(n - 1) * i // 32 : (n - 1) * i // 32 + 64].tobytes() for i in range(33)
+        )
+
+    @staticmethod
+    def _fingerprint(buf: np.ndarray) -> tuple:
+        """``(length, 64-bit hash of every byte)``: the native parallel
+        MurmurHash64A pass (:func:`apm_torch.utils.native.hash_bytes`), so
+        any change of content, a single byte included, changes the key."""
+        from ..utils import native
+
+        return (len(buf), native.hash_bytes(buf))
+
+    def _cache_byte_budget(self) -> int:
+        """Byte cap of the device cache: ``config.cache_bytes``, else a
+        quarter of the card's memory on a CUDA device, else 4 GB."""
+        if self.config.cache_bytes is not None:
+            return self.config.cache_bytes
+        if self.device.type == "cuda":
+            return torch.cuda.mem_get_info(self.device)[1] // 4
+        return 4 << 30
+
+    def _staged_rows(
+        self, buf: np.ndarray, fp, c0: int, n_rows: int, wf: int, halo: int,
+        spans=OFF,
+    ) -> torch.Tensor:
+        """One chunk's staged rows on the device: from the cache on a hit
+        (no fold, no copy), else folded and copied (:meth:`_stage`) and,
+        with a key ``fp``, kept. Least recently used entries go first once
+        the cache passes its byte budget; an evicted tensor stays alive
+        while a launch of the running call still holds it."""
+        key = (fp, wf, halo, n_rows, c0)
+        if fp is not None:
+            with self._dev_cache_lock:
+                rows = self._dev_cache.pop(key, None)
+                if rows is not None:
+                    self._dev_cache[key] = rows  # now the most recent
+                    return rows
+        rows = self._stage(buf, c0, n_rows, wf, halo, spans)
+        if fp is not None:
+            budget = self._cache_byte_budget()
+            if rows.numel() <= budget:
+                with self._dev_cache_lock:
+                    self._dev_cache[key] = rows
+                    total = sum(v.numel() for v in self._dev_cache.values())
+                    while total > budget and len(self._dev_cache) > 1:
+                        total -= self._dev_cache.pop(next(iter(self._dev_cache))).numel()
+        return rows
+
+    def _count_setup(self, plan) -> dict:
+        """What every chunk of a ``count`` scan of ``plan`` shares: the
+        routes (:meth:`_routes`), the chunk's rows, the device tables and
+        the keyword arguments of the filtration calls."""
+        from ..ops import fused
+        from ..ops.corr_engine import _group_rows
+
+        corr, fp1 = self._routes(plan)
+        chunk_win = max(
+            plan.w,
+            round_up(min(self.config.chunk_bytes, plan.dev_bound), plan.w),
+        )
+        n_rows = chunk_win // plan.wf
+        max_hot = fused.pick_max_hot(n_rows, plan.wf, plan.plens_filter, self.k)
+        plain = self.backend == "torch"
+        common = dict(
+            k=self.k, m_max=self.m_max, wf=plan.wf, halo=plan.halo,
+            plens=plan.plens_filter, max_hot=max_hot,
+            alphabet=self._dp_alphabet(), dp_impl=self.config.dp_impl, plain=plain,
+        )
+        if plan.any_filter and self.k >= 1:
+            common["peq"] = self._peq_for(plan.plens_filter)
+        return dict(
+            plan=plan, corr=corr, fp1=fp1, chunk_win=chunk_win, n_rows=n_rows,
+            g_rows=_group_rows(plan.wf + plan.halo, len(self._alph), n_rows),
+            max_hot=max_hot, plain=plain, common=common,
+            tabs=self._device_tables(fused_needed=corr == "fused"),
+            conv=self._device_corr_conv() if corr == "conv" else None,
+        )
+
+    def _launch_chunk(self, st: dict, drows: torch.Tensor, c0: int, spans=OFF):
+        """Launch every kernel of one staged chunk without synchronising
+        (the loop body of ``apm``'s ``_count_pallas``). Returns ``(handles,
+        raw)``: the ``(p_pad,)`` device counts, and for a k >= 1
+        filtration chunk ``(c0, packed, rowmap, drows)``, else None."""
+        from ..ops import corr_engine, corr_fused, filter_kernel, fused
+
+        plan, k, tabs, common = st["plan"], self.k, st["tabs"], st["common"]
+        wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
+        p_pad, n_rows = self._pat.shape[0], st["n_rows"]
+        handles = []
+        if st["corr"] == "fused":
+            corr_fn = corr_fused.scan_corr_fused_ref if st["plain"] else corr_fused.scan_corr_fused
+            with spans.device("corr"):
+                handles.append(corr_fn(
+                    drows, tabs["fused"], dev_bound, c0,
+                    wf=wf, halo=halo, n_rows=n_rows, p_out=p_pad,
+                ))
+        elif st["corr"] == "conv":
+            ckern, cthr, cstride = st["conv"]
+            with spans.device("corr"):
+                handles.append(corr_engine.scan_corr_mxu(
+                    drows, ckern, cthr, tabs["alph"], dev_bound, c0,
+                    wf=wf, m_max=self.m_max, n_rows=n_rows, g_rows=st["g_rows"],
+                    stride=cstride, p_out=p_pad,
+                ))
+        if plan.any_dp:
+            with spans.device("dp"):
+                handles.append(
+                    self._scan_dp(drows, dev_bound, c0, plan.plens_dp, wf=wf, halo=halo)
+                )
+        if not plan.any_filter:
+            return handles, None
+        if k == 0:  # candidates are exact matches
+            with spans.device("phase 1"):
+                fcnt, _ = filter_kernel.scan_filter(
+                    drows, tabs["pat_raw"], dev_bound, c0, k=0, m_max=self.m_max,
+                    wf=wf, halo=halo, plens=plan.plens_filter, plain=st["plain"],
+                )
+            handles.append(fcnt)
+            return handles, None
+        if st["fp1"] == "fused":
+            packed, rowmap = fused.filter_verify_chunk_fused(
+                drows, self._device_fp1_fused(plan.plens_filter), tabs["pat"],
+                dev_bound, c0, n_rows=n_rows, spans=spans, **common,
+            )
+        elif st["fp1"] == "conv":
+            pkern, pthr, owner, stride = self._device_fp1(plan.plens_filter)
+            packed, rowmap = fused.filter_verify_chunk_conv(
+                drows, pkern, pthr, owner, tabs["alph"], tabs["pat"],
+                dev_bound, c0, w_kern=pkern.shape[0], n_rows=n_rows,
+                g_rows=st["g_rows"], fp1_stride=stride, spans=spans, **common,
+            )
+        else:
+            packed, rowmap = fused.filter_verify_chunk(
+                drows, tabs["pat_raw"], tabs["pat"], dev_bound, c0,
+                spans=spans, **common,
+            )
+        return handles, (c0, packed, rowmap, drows)
+
+    def _count_hot_batch(self, st: dict, drows, rowmap, c0: int, b: int):
+        """Overflow recovery's batch ``b`` of one chunk on the device
+        (:func:`apm_torch.ops.fused.count_hot_batch`)."""
+        from ..ops import fused
+
+        common = {key: v for key, v in st["common"].items() if key != "max_hot"}
+        return fused.count_hot_batch(
+            drows, rowmap, st["tabs"]["pat"], st["plan"].dev_bound, c0, b,
+            n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, **common,
+        )
+
     def _count_device(self, buf: np.ndarray, n: int) -> np.ndarray:
         """Chunked single-device scan (port of ``apm``'s ``_count_pallas``);
         ``(p_pad,)`` int64 counts per scan pattern slot, EOF tail included.
 
-        Per chunk, every kernel is launched without synchronising: the
-        k = 0 correlation (``plan.use_corr``: kernel B or the conv), the
-        banded DP (``plan.plens_dp``) and filtration (``plan.plens_filter``:
-        kernel D's exact counts at k = 0; at k >= 1 phase 1 through the
-        fused piece scan or the piece conv (``plan.fp1_conv``) or kernel D,
-        then phase 2 on the device; :meth:`_routes`). All
-        per-chunk vectors come back in one fetch; then the filtration
-        decision tree (:func:`apm_torch.models.pipeline.finalize_filtration`)
-        and the EOF tail run on the host.
+        Each chunk's staged rows come from the device corpus cache
+        (:meth:`_staged_rows`, keyed by :meth:`_corpus_fp`), or are folded
+        and copied on a miss. Per chunk, every kernel is launched without
+        synchronising (:meth:`_launch_chunk`): the k = 0 correlation
+        (``plan.use_corr``: kernel B or the conv), the banded DP
+        (``plan.plens_dp``) and filtration (``plan.plens_filter``: kernel
+        D's exact counts at k = 0; at k >= 1 phase 1 through the fused
+        piece scan or the piece conv (``plan.fp1_conv``) or kernel D, then
+        phase 2 on the device; :meth:`_routes`). All per-chunk vectors come
+        back in one fetch; then the filtration decision tree
+        (:func:`apm_torch.models.pipeline.finalize_filtration`) and the EOF
+        tail run on the host. The density rescan reads the rows the first
+        pass staged: no chunk is staged twice in one call.
 
         With ``self.meter.trace`` on, the scan leaves its per-phase times
-        in ``self.meter.last_spans`` (:class:`Spans`): host ``fold``,
-        device ``copy``, ``corr``, ``dp``, ``phase 1``, ``phase 2``,
-        host ``fetch``, ``finalize`` (which holds the device
-        ``count_hot_batch`` and the ``rescan `` fold, copy and dp) and
-        host ``EOF tail``.
+        in ``self.meter.last_spans`` (:class:`Spans`): host
+        ``fingerprint``, host ``fold`` and device ``copy`` (on cache misses
+        only), ``corr``, ``dp``, ``phase 1``, ``phase 2``, host ``fetch``,
+        ``finalize`` (which holds the device ``count_hot_batch`` and the
+        ``rescan dp``) and host ``EOF tail``.
         """
-        from ..ops import corr_engine, corr_fused, filter_kernel, fused
-        from ..ops.corr_engine import _group_rows
+        from ..ops import fused
         from .pipeline import FilterChunk, buf_reader, finalize_filtration, make_plan
 
-        k = self.k
         plan = make_plan(self, n)
-        corr, fp1 = self._routes(plan)
         wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
         self.last_filtration = None
         p_pad = self._pat.shape[0]
@@ -592,80 +863,18 @@ class Scanner:
             counts[:n_scan] += self.tail_counts(buf, dev_bound)
             return counts
 
-        plain = self.backend == "torch"
         spans = Spans(self.device, self.meter.trace)
-        corr_fn = corr_fused.scan_corr_fused_ref if plain else corr_fused.scan_corr_fused
-        tabs = self._device_tables(fused_needed=corr == "fused")
-        chunk_win = max(
-            plan.w,
-            round_up(min(self.config.chunk_bytes, dev_bound), plan.w),
-        )
-        n_rows = chunk_win // wf
-        g_rows = _group_rows(wf + halo, len(self._alph), n_rows)
-        if corr == "conv":
-            ckern, cthr, cstride = self._device_corr_conv()
-        max_hot = fused.pick_max_hot(n_rows, wf, plan.plens_filter, k)
-        common = dict(
-            k=k, m_max=self.m_max, wf=wf, halo=halo, plens=plan.plens_filter,
-            max_hot=max_hot, alphabet=self._dp_alphabet(),
-            dp_impl=self.config.dp_impl, plain=plain,
-        )
-        if plan.any_filter and k >= 1:
-            common["peq"] = self._peq_for(plan.plens_filter)
+        st = self._count_setup(plan)
+        with spans.host("fingerprint"):
+            fp = self._corpus_fp(buf)
         handles = []  # (p_pad,) int32 device counts, fetched after the loop
         raw_chunks = []  # (c0, packed, rowmap, rows) of filtration chunks
-        for c0 in range(0, dev_bound, chunk_win):
-            drows = self._stage(buf, c0, n_rows, wf, halo, spans)
-            if corr == "fused":
-                with spans.device("corr"):
-                    handles.append(
-                        corr_fn(
-                            drows, tabs["fused"], dev_bound, c0,
-                            wf=wf, halo=halo, n_rows=n_rows, p_out=p_pad,
-                        )
-                    )
-            elif corr == "conv":
-                with spans.device("corr"):
-                    handles.append(
-                        corr_engine.scan_corr_mxu(
-                            drows, ckern, cthr, tabs["alph"], dev_bound, c0,
-                            wf=wf, m_max=self.m_max, n_rows=n_rows, g_rows=g_rows,
-                            stride=cstride, p_out=p_pad,
-                        )
-                    )
-            if plan.any_dp:
-                with spans.device("dp"):
-                    handles.append(
-                        self._scan_dp(drows, dev_bound, c0, plan.plens_dp, wf=wf, halo=halo)
-                    )
-            if not plan.any_filter:
-                continue
-            if k == 0:  # candidates are exact matches
-                with spans.device("phase 1"):
-                    fcnt, _ = filter_kernel.scan_filter(
-                        drows, tabs["pat_raw"], dev_bound, c0, k=0, m_max=self.m_max,
-                        wf=wf, halo=halo, plens=plan.plens_filter, plain=plain,
-                    )
-                handles.append(fcnt)
-                continue
-            if fp1 == "fused":
-                packed, rowmap = fused.filter_verify_chunk_fused(
-                    drows, self._device_fp1_fused(plan.plens_filter), tabs["pat"],
-                    dev_bound, c0, n_rows=n_rows, spans=spans, **common,
-                )
-            elif fp1 == "conv":
-                pkern, pthr, owner, stride = self._device_fp1(plan.plens_filter)
-                packed, rowmap = fused.filter_verify_chunk_conv(
-                    drows, pkern, pthr, owner, tabs["alph"], tabs["pat"],
-                    dev_bound, c0, w_kern=pkern.shape[0], n_rows=n_rows,
-                    g_rows=g_rows, fp1_stride=stride, spans=spans, **common,
-                )
-            else:
-                packed, rowmap = fused.filter_verify_chunk(
-                    drows, tabs["pat_raw"], tabs["pat"], dev_bound, c0,
-                    spans=spans, **common,
-                )
-            raw_chunks.append((c0, packed, rowmap, drows))
+        for c0 in range(0, dev_bound, st["chunk_win"]):
+            drows = self._staged_rows(buf, fp, c0, st["n_rows"], wf, halo, spans)
+            got, raw = self._launch_chunk(st, drows, c0, spans)
+            handles += got
+            if raw is not None:
+                raw_chunks.append(raw)
 
         # ONE device-to-host fetch for all per-chunk vectors.
         small = handles + [pk for _, pk, _, _ in raw_chunks]
@@ -684,17 +893,12 @@ class Scanner:
             handles over all its full hot rows, or None past the cap."""
 
             def verify(n_hot: int):
-                n_batch, cap = fused.OVERFLOW_BATCH, fused.OVERFLOW_CAP
-                if n_hot > cap:
+                if n_hot > fused.OVERFLOW_CAP:
                     return None
                 with spans.device("count_hot_batch"):
                     return [
-                        fused.count_hot_batch(
-                            drows, rowmap, tabs["pat"], dev_bound, c0, b,
-                            n_batch=n_batch, cap=cap,
-                            **{key: common[key] for key in common if key != "max_hot"},
-                        )
-                        for b in range(-(-n_hot // n_batch))
+                        self._count_hot_batch(st, drows, rowmap, c0, b)
+                        for b in range(-(-n_hot // fused.OVERFLOW_BATCH))
                     ]
 
             return verify
@@ -711,9 +915,10 @@ class Scanner:
         if fchunks:
 
             def rescan() -> np.ndarray:
+                # every chunk of a k >= 1 filtration scan is in raw_chunks,
+                # its rows still on the device: nothing is staged again
                 parts = []
-                for c0 in range(0, dev_bound, chunk_win):
-                    drows = self._stage(buf, c0, n_rows, wf, halo, spans, "rescan ")
+                for c0, _, _, drows in raw_chunks:
                     with spans.device("rescan dp"):
                         parts.append(self._scan_dp(
                             drows, dev_bound, c0, plan.plens_filter, wf=wf, halo=halo,
@@ -722,7 +927,7 @@ class Scanner:
 
             with spans.host("finalize"):
                 counts += finalize_filtration(
-                    self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=max_hot
+                    self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=st["max_hot"]
                 )
         with spans.host("EOF tail"):
             counts[:n_scan] += self.tail_counts(buf, dev_bound)
@@ -765,6 +970,69 @@ class Scanner:
             info(stats.line())
         return expanded
 
+    def count_file(self, path) -> np.ndarray:
+        """Counts of a corpus file, equal to ``count(read_input_file(path))``.
+
+        The file is mapped read-only (``np.memmap``), so the scan reads its
+        pages as the native fold copies them, and its fingerprint is
+        memoized for as long as the mapping lives (:meth:`_corpus_fp`).
+        """
+        import os
+
+        return self.count(np.memmap(os.fspath(path), dtype=np.uint8, mode="r"))
+
+    def count_stream(self, chunks, *, segment_bytes: Optional[int] = None) -> np.ndarray:
+        """Counts of a corpus delivered in pieces, equal to
+        ``count(b"".join(chunks))``, the EOF truncation applied at the true
+        end of the stream only.
+
+        ``chunks`` is any iterable of byte pieces. At most one segment
+        (``segment_bytes``, default ``config.chunk_bytes``, at least
+        ``4 * (m_max + k)``) plus the carry is held at a time. For a
+        working buffer ``B`` a mid-stream segment owns windows ``[0, hi)``,
+        ``hi = device_window_bound(len(B))``, all untruncated and below the
+        final bound, and ``counts[0, hi) == count(B) - count(B[hi:])``: both
+        calls count the same trailing windows with the same truncation, so
+        their wrong mid-stream tails cancel exactly. ``B[hi:]`` is carried
+        into the next segment.
+
+        Segments are scanned once, so they go through a sibling Scanner
+        with the device cache and prewarm off: they never evict the
+        corpora that ``count`` serves from device memory.
+        """
+        total = np.zeros((self.patterns.num_patterns,), dtype=np.int64)
+        seg = int(segment_bytes or self.config.chunk_bytes)
+        seg = max(seg, 4 * max(self.m_max + self.k, 1))
+        count = self.count
+        if self.config.cache_corpus:
+            if self._stream_scanner is None:
+                from dataclasses import replace
+
+                self._stream_scanner = Scanner(
+                    list(self.patterns.raw), self.k,
+                    replace(self.config, cache_corpus=False, prewarm_bytes=None),
+                )
+            count = self._stream_scanner.count
+        parts, pending = [], 0  # buffered pieces, one concatenation a segment
+        for chunk in chunks:
+            b = as_u8(chunk)
+            if len(b) == 0:
+                continue
+            parts.append(b)
+            pending += len(b)
+            while pending >= seg:
+                carry = np.concatenate(parts) if len(parts) > 1 else parts[0]
+                hi = self.device_window_bound(len(carry))
+                if hi <= 0:
+                    parts, pending = [carry], len(carry)
+                    break
+                total += count(carry)
+                total -= count(carry[hi:])
+                parts, pending = [carry[hi:]], len(carry) - hi
+        if pending:
+            total += count(np.concatenate(parts) if len(parts) > 1 else parts[0])
+        return total
+
     def count_batch(self, corpora: Sequence[Bytes]) -> np.ndarray:
         """Counts of many corpora: ``(B, P)`` int64, exactly
         ``np.stack([count(c) for c in corpora])`` (port of ``apm``'s
@@ -780,14 +1048,15 @@ class Scanner:
         correlation kernel (per-row limits) where ``apm``'s fused gate
         takes the set, or the batched conv (``apm``'s ``scan_corr_batch``)
         where ``apm`` runs it (:meth:`_corr_route`), else the batch mode of
-        the banded DP (kernel A or C). Every group is dispatched before one
-        fetch of all per-block
-        counts; the EOF tails are counted on the host. Filtration stays
-        out, as in ``apm``. Under ``backend="torch"`` the same layout runs
+        the banded DP (kernel A or C). Every group is dispatched, then the
+        EOF tails are counted on the host by the native verifier while the
+        device works, then all per-block counts come back in one fetch.
+        Filtration stays out and the corpora are staged without the device
+        cache, as in ``apm``. Under ``backend="torch"`` the same layout runs
         on the plain versions. With ``self.meter.trace`` on, the call's
         spans land in ``self.meter.last_spans``: host ``fold``, device
         ``copy``, the route's device span (``corr batch``, ``conv batch``
-        or ``dp batch``), host ``fetch`` and host ``EOF tail``; the device
+        or ``dp batch``), host ``EOF tail`` and host ``fetch``; the device
         spans run under the host's, which queue them asynchronously.
         """
         from ..ops import corr_engine, corr_fused, dp_kernel
@@ -884,16 +1153,18 @@ class Scanner:
                             dp_impl=self.config.dp_impl, peq=peq, plain=plain,
                         )
                 handles.append((group, cnts[:, :p_pad]))
+
+        # the host's share, while the device runs the groups
+        with spans.host("EOF tail"):
+            for b, buf in enumerate(bufs):
+                uniq[b, :n_scan] += self.tail_counts(buf, bounds[b])
+        if items:
             # ONE device-to-host fetch for every group's counts.
             with spans.host("fetch"):
                 allc = torch.stack([c for _, c in handles]).cpu().numpy()
             for gi, (group, _) in enumerate(handles):
                 for slot, (b, _blk, _db) in enumerate(group):
                     uniq[b] += allc[gi, slot]
-
-        with spans.host("EOF tail"):
-            for b, buf in enumerate(bufs):
-                uniq[b, :n_scan] += self.tail_counts(buf, bounds[b])
         if spans.enabled:
             self.meter.last_spans = spans.totals()
         out[:] = uniq[:, :n_scan][:, self._inverse]
@@ -988,7 +1259,8 @@ class Scanner:
         ``clip_ranges`` (per path).
 
         Chunks are dispatched ahead of the fetches: each chunk's staged rows
-        go through every path without a host sync, and once more than
+        (from the device corpus cache, :meth:`_staged_rows`) go through
+        every path without a host sync, and once more than
         ``4 * len(paths)`` entries are pending, the older half is flushed
         with ONE device-to-host fetch of every entry's ``(meta, pos)``. The
         bits, ``gpos``, row map and gather-batch fetches stay lazy: each
@@ -996,16 +1268,11 @@ class Scanner:
         ``fused.FIND_BATCH`` and ``fused.POS_CAP`` are read per call.
         """
         from ..ops import fused
-        from ..ops.filter_kernel import FOLD
 
         find_batch, pos_cap = fused.FIND_BATCH, fused.POS_CAP
         k = self.k
         p_all = self.scan_patterns.num_patterns
-        w = round_up(self.block_windows_for(n), FOLD * 128)
-        wf = w // FOLD
-        halo = round_up(self.m_max + 2 * k, 128)
-        chunk_win = max(w, round_up(min(self.config.chunk_bytes, dev_bound), w))
-        n_rows = chunk_win // wf
+        wf, halo, chunk_win, n_rows = self._find_shape(n, dev_bound)
         tabs = self._device_tables(fused_needed=False)
         dpat_raw, dpat = tabs["pat_raw"], tabs["pat"]
         kw_common = dict(
@@ -1141,8 +1408,9 @@ class Scanner:
 
         ahead = 4 * max(1, len(paths))
         pending = []
+        fp = self._corpus_fp(buf)
         for c0 in range(0, dev_bound, chunk_win):
-            drows = self._stage(buf, c0, n_rows, wf, halo)
+            drows = self._staged_rows(buf, fp, c0, n_rows, wf, halo)
             for name, plens, sel in paths:
                 kw = dict(kw_common, plens=plens, n_batch=find_batch)
                 if name == "filter":
@@ -1160,6 +1428,141 @@ class Scanner:
                 flush(pending[:half])
                 del pending[:half]
         flush(pending)
+
+    def _find_shape(self, n: int, dev_bound: int) -> tuple:
+        """``(wf, halo, chunk_win, n_rows)`` of :meth:`find`'s staging."""
+        from ..ops.filter_kernel import FOLD
+
+        w = round_up(self.block_windows_for(n), FOLD * 128)
+        wf = w // FOLD
+        chunk_win = max(w, round_up(min(self.config.chunk_bytes, dev_bound), w))
+        return wf, round_up(self.m_max + 2 * self.k, 128), chunk_win, chunk_win // wf
+
+    # -- warmup ----------------------------------------------------------------
+
+    def warmup(
+        self,
+        corpus_bytes: int,
+        paths: Sequence[str] = ("count", "find", "batch"),
+    ) -> None:
+        """Prepare the scans of a ``corpus_bytes``-byte corpus before the
+        first request (``apm``'s ``Scanner.warmup``).
+
+        Builds the host library and, under ``backend="cuda"``, the kernel
+        library (each at most once a process), then drives each selected
+        path once on zero rows of the exact shapes the scan will use, so
+        the device tables, the caching allocator's blocks and any library
+        set-up are in place too:
+
+        * ``"count"``: every kernel of :meth:`count`'s route on one chunk of
+          zero rows, and the overflow recovery's batch at k >= 1;
+        * ``"find"``: :meth:`find` on a zero corpus of ``corpus_bytes``
+          bytes, and one overflow gather batch (zeros never overflow);
+        * ``"batch"``: :meth:`count_batch` on that zero corpus alone.
+
+        The zero corpus's entries in the device cache are purged afterwards,
+        scoped to its fingerprint: entries another call staged, and entries
+        of the same fingerprint that were there before, stay. Unlike
+        ``apm``'s, this warmup also runs under ``backend="torch"``, on the
+        plain versions.
+        """
+        from ..ops import _build
+
+        unknown = set(paths) - {"count", "find", "batch"}
+        if unknown:
+            raise ValueError(f"unknown warmup paths {sorted(unknown)}")
+        _build.host_library()
+        if self.backend == "cuda":
+            _build.library()
+        n = int(corpus_bytes)
+        if n - self.k <= 0:
+            return
+        if "count" in paths:
+            self._warmup_count(n)
+        if "find" in paths or "batch" in paths:
+            self._warmup_serving(n, paths)
+
+    def _warmup_count(self, n: int) -> None:
+        """:meth:`count`'s kernels on one chunk of zero rows (the route,
+        tables and shapes of an ``n``-byte scan), then one fetch."""
+        from .pipeline import make_plan
+
+        plan = make_plan(self, n)
+        if plan.dev_bound <= 0:
+            return
+        st = self._count_setup(plan)
+        rows = torch.zeros(
+            (st["n_rows"], plan.wf + plan.halo), dtype=torch.uint8, device=self.device
+        )
+        handles, raw = self._launch_chunk(st, rows, 0)
+        if raw is not None:  # k >= 1 filtration: the overflow recovery too
+            _, packed, rowmap, _ = raw
+            handles += [packed, self._count_hot_batch(st, rows, rowmap, 0, 0)]
+        if handles:
+            torch.cat([h.reshape(-1).to(torch.int64) for h in handles]).cpu()
+
+    def _warmup_serving(self, n: int, paths: Sequence[str]) -> None:
+        """Drive :meth:`find` and :meth:`count_batch` on an ``n``-byte zero
+        corpus, then purge what that staged in the device cache.
+
+        The purge is scoped by the zero corpus's fingerprint (every cache
+        key starts with it), not by a before/after diff of the keys: the
+        prewarm thread runs this beside foreground scans, and a diff would
+        evict what they staged meanwhile. Keys of that fingerprint present
+        before the warm runs stay too (a foreground corpus of as many zero
+        bytes shares the key); one staged during the warm runs is purged,
+        and the foreground restages it on a miss. The zero buffer is
+        writable, so nothing of it enters the fingerprint memo.
+        """
+        zeros = np.zeros((n,), dtype=np.uint8)
+        warm_fp = self._fingerprint(zeros) if self.config.cache_corpus else None
+        before = set()
+        if warm_fp is not None:
+            with self._dev_cache_lock:
+                before = {key for key in self._dev_cache if key[0] == warm_fp}
+        try:
+            if "find" in paths:
+                self.find(zeros)
+                self._warmup_gather(n)
+            if "batch" in paths:
+                self.count_batch([zeros])
+        finally:
+            if warm_fp is not None:
+                with self._dev_cache_lock:
+                    for key in [
+                        key for key in self._dev_cache
+                        if key[0] == warm_fp and key not in before
+                    ]:
+                        del self._dev_cache[key]
+
+    def _warmup_gather(self, n: int) -> None:
+        """:meth:`find`'s overflow batch (``gather_mask_rows``) on zero rows
+        of an ``n``-byte scan's shapes, for each path that scan runs: a
+        zero corpus never overflows, so :meth:`find` alone does not reach
+        it."""
+        from ..ops import fused
+        from ..ops.filter_kernel import partition_plens
+
+        dev_bound = self.device_window_bound(n)
+        if dev_bound <= 0:
+            return
+        wf, halo, _, n_rows = self._find_shape(n, dev_bound)
+        rows = torch.zeros((n_rows, wf + halo), dtype=torch.uint8, device=self.device)
+        idx = torch.full((fused.FIND_BATCH,), n_rows, dtype=torch.int64, device=self.device)
+        dpat = self._device_tables(fused_needed=False)["pat"]
+        _, plens_filter, plens_dp = partition_plens(self._plens_static, self.k, "filter")
+        metas = [
+            fused.gather_mask_rows(
+                rows, idx, dpat, fused.FIND_BATCH,
+                k=self.k, m_max=self.m_max, wf=wf, halo=halo, plens=plens,
+                p_real=self.scan_patterns.num_patterns, pos_cap=fused.POS_CAP,
+                alphabet=self._dp_alphabet(), dp_impl=self.config.dp_impl,
+                peq=self._peq_for(self._plens_static), plain=self.backend == "torch",
+            )[0]
+            for plens in (plens_filter, plens_dp) if any(plens)
+        ]
+        if metas:
+            torch.cat(metas).cpu()
 
 
 def scan_counts(

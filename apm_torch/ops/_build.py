@@ -1,14 +1,23 @@
-"""Build and load the port's CUDA kernels.
+"""Build and load the port's two native libraries.
 
-Every ``apm_torch/csrc/*.cu`` file is compiled by its own ``nvcc``, all in
-parallel, for Hopper (``sm_90a``), and linked into one shared library with
-a plain C interface, loaded with ``ctypes``. The library is keyed by a hash of the sources and flags and
-kept under ``apm_torch/_build/`` (listed in ``.gitignore``), so a second
-process reuses it. The build runs at first use, never at import: importing
-the package needs no compiler.
+* The CUDA kernels (:func:`library`): every ``apm_torch/csrc/*.cu`` file is
+  compiled by its own ``nvcc``, all in parallel, for Hopper (``sm_90a``),
+  and linked into one shared library with a plain C interface.
+* The host layer (:func:`host_library`): ``apm_torch/csrc/host/apmio.cpp``
+  (the fold, file reads, the EOF-tail verifier and the cache hash),
+  compiled by ``g++`` with the flags of the JAX package's
+  ``native/Makefile``. It lives in a subdirectory, so the ``nvcc`` build
+  does not see it.
 
-A missing ``nvcc`` or a failed build raises with the compiler's output;
-there is no fallback to the plain PyTorch versions.
+Both are loaded with ``ctypes``, keyed by a hash of their sources and flags
+and kept under ``apm_torch/_build/`` (listed in ``.gitignore``), so a second
+process reuses them. Each is built at first use, never at import: importing
+the package needs no compiler. A build goes through a temporary directory
+and an atomic rename, so processes that build at once each see a whole
+library or none.
+
+A missing compiler or a failed build raises with the compiler's output;
+there is no fallback to the plain PyTorch versions or to NumPy.
 """
 
 from __future__ import annotations
@@ -24,6 +33,7 @@ from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
+HOST_SRC = CSRC / "host" / "apmio.cpp"
 BUILD_DIR = _PKG / "_build"
 
 NVCC_FLAGS = (
@@ -31,6 +41,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+HOST_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17", "-pthread")
 
 
 def _sources() -> list:
@@ -220,3 +231,69 @@ def check(err: int, what: str) -> None:
     """Raise if a C entry returned a non-zero ``cudaError_t``."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+def find_gxx() -> str:
+    """Path of the host compiler: ``$CXX`` if set, else ``g++``, looked up
+    on ``PATH``."""
+    cxx = shutil.which(os.environ.get("CXX") or "g++")
+    if cxx is None:
+        raise RuntimeError(
+            "g++ not found ($CXX, PATH); the apm_torch host library is built "
+            f"from {HOST_SRC.relative_to(_PKG.parent)} at first use and needs a "
+            "C++17 compiler"
+        )
+    return cxx
+
+
+def host_build() -> Path:
+    """Compile the host layer if no library for the current source and
+    flags exists; returns the library path."""
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    h.update(HOST_SRC.read_bytes())
+    lib = BUILD_DIR / f"libapmio_{h.hexdigest()[:16]}.so"
+    if lib.exists():
+        return lib
+    cxx = find_gxx()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+        tmp = os.path.join(tmpdir, lib.name)
+        cmd = [cxx, *HOST_FLAGS, str(HOST_SRC), "-o", tmp]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"g++ failed (exit {proc.returncode}): {' '.join(cmd)}\n"
+                f"{proc.stdout}{proc.stderr}"
+            )
+        os.replace(tmp, lib)  # atomic: a concurrent build sees all or nothing
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def host_library() -> ctypes.CDLL:
+    """The loaded host library, built on first call. Its calls release
+    the GIL (``ctypes.CDLL``), so a fold, a hash or a tail count on one
+    thread runs beside Python on another."""
+    lib = ctypes.CDLL(str(host_build()))
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32
+    s = ctypes.c_char_p
+    lib.apmio_file_size.argtypes = [s]
+    lib.apmio_file_size.restype = i64
+    lib.apmio_read_file.argtypes = [s, p, i64]  # path, out, size
+    lib.apmio_read_file.restype = i64
+    lib.apmio_read_range.argtypes = [s, i64, i64, p]  # path, start, len, out
+    lib.apmio_read_range.restype = i32
+    # src, src_len, offset, n_rows, wf, halo, out
+    lib.apmio_fold.argtypes = [p, i64, i64, i64, i64, i64, p]
+    lib.apmio_fold.restype = i32
+    # path, offset, n_rows, wf, halo, out
+    lib.apmio_read_folded.argtypes = [s, i64, i64, i64, i64, p]
+    lib.apmio_read_folded.restype = i32
+    # text, text_len, pat, m, k, n_windows, truncate_at, out_count
+    lib.apmio_banded_count.argtypes = [p, i64, p, i64, i64, i64, i64, p]
+    lib.apmio_banded_count.restype = i32
+    lib.apmio_hash.argtypes = [p, i64]
+    lib.apmio_hash.restype = ctypes.c_uint64
+    lib.apmio_hash_par.argtypes = [p, i64, i32]  # buf, n, threads
+    lib.apmio_hash_par.restype = ctypes.c_uint64
+    return lib

@@ -26,12 +26,26 @@ def fold_corpus(
     so both packages' kernels see identical inputs. ``out``, when given, is
     a C-contiguous ``(n_rows, wf + halo)`` uint8 array the rows are written
     into (the Scanner passes page-locked staging memory for an asynchronous
-    host-to-device copy).
-
-    Rows that lie wholly inside the corpus are copied straight from it as
-    one overlapping strided view (one pass, no intermediate buffer); only
-    the few rows that reach past EOF are zero-padded one by one.
+    host-to-device copy). The native fold (``apmio_fold``, one pass of
+    overlapping copies) does the work; :func:`fold_corpus_ref` is its plain
+    NumPy version, which the tests hold it against.
     """
+    from ..utils import native
+
+    return native.fold(buf, offset, n_rows, wf, halo, out=out)
+
+
+def fold_corpus_ref(
+    buf: np.ndarray,
+    offset: int,
+    n_rows: int,
+    wf: int,
+    halo: int,
+    out: Optional[np.ndarray] = None,
+) -> np.ndarray:
+    """:func:`fold_corpus` in NumPy: the rows that lie wholly inside the
+    corpus are copied as one overlapping strided view, the few that reach
+    past EOF are zero-padded one by one."""
     width = wf + halo
     if out is None:
         out = np.empty((n_rows, width), dtype=np.uint8)

@@ -3,8 +3,9 @@
 Replaces the reference's three config tiers (compile-time ``-D`` flags,
 ``OMP_NUM_THREADS``, CLI positionals + trailing strategy word — SURVEY.md §5)
 with one dataclass. The fields are ``apm``'s, so a config carries across;
-``device`` is new. Values the port does not implement yet are accepted here
-and refused by the Scanner with a pointer to ``ROADMAP.md``.
+``device`` is new. Values the port does not implement yet (more than one
+device, the narrow DP dtypes) are accepted here and refused by the Scanner
+with a pointer to ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -62,10 +63,22 @@ class ApmConfig:
     # "band" (always the classic band), "myers" (Myers wherever it can).
     # Both give the same counts.
     dp_impl: str = "auto"
-    # apm's device corpus cache and prewarm knobs, accepted for config
-    # parity; the port has neither yet (ROADMAP.md).
+    # Keep each chunk's staged rows on the device, keyed by a hash of the
+    # corpus's content, so a repeated corpus is neither folded nor copied
+    # again (Scanner._staged_rows). A writable buffer is hashed in full on
+    # every call; a buffer with no writable handle (a frozen array, a
+    # read-only memmap, np.frombuffer of bytes) is hashed once and its key
+    # memoized by identity. Freezing is a promise the buffer never changes
+    # again: thawing a scanned frozen buffer, changing it in place and
+    # freezing it again may serve the old content's counts (the memo only
+    # samples the bytes); use a new array or leave the buffer writable.
     cache_corpus: bool = True
+    # Byte cap of that cache, least recently used chunks evicted first.
+    # None = a quarter of the card's memory (4 GB off the card).
     cache_bytes: Optional[int] = None
+    # If set, the Scanner runs warmup(prewarm_bytes) on a background thread
+    # from its constructor; Scanner.prewarm_join() waits for it and raises
+    # what it raised.
     prewarm_bytes: Optional[int] = None
     # Blocks of 8 staged rows per count_batch launch (None = 128), capped by
     # chunk_bytes and rounded down to a power of two, at least 8.

@@ -3,9 +3,6 @@
 The reference slurps the database file raw — including newline bytes, no FASTA
 parsing (``src/utils.c:12-68``) — and takes patterns as case-sensitive byte
 strings from argv (``src/sequential.c:61-77``). We reproduce both behaviours.
-
-The port reads files with ``numpy.fromfile`` only; ``apm`` optionally goes
-through its native mmap library, which returns the same bytes.
 """
 
 from __future__ import annotations
@@ -24,9 +21,13 @@ Bytes = Union[bytes, bytearray, np.ndarray, str]
 def read_input_file(path: Union[str, os.PathLike]) -> np.ndarray:
     """Whole-file raw byte slurp, the moral equivalent of ``utils.c:12-68``.
 
-    Returns a 1-D uint8 array of exactly the file's bytes (newlines included).
+    Returns a 1-D uint8 array of exactly the file's bytes (newlines
+    included), read by the native mmap loader (:func:`apm_torch.utils.
+    native.read_file`).
     """
-    return np.fromfile(os.fspath(path), dtype=np.uint8)
+    from . import native
+
+    return native.read_file(path)
 
 
 @dataclass(frozen=True)

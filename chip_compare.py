@@ -17,6 +17,14 @@ between CUDA events (the wrapper's host work included) and the kernel's
 device time from ``torch.profiler`` (mean of 5 calls, the kernel alone).
 A case may only call what both trees to be compared have.
 
+``--e2e`` times whole calls instead (``E2E``): ``Scanner.count`` of
+``chip_smoke.py`` phase 5b's 256 MB k = 3 and k = 8 cells, on a writable
+array and on a frozen copy of the same bytes, and ``Scanner.count_batch``
+of phase 7's 64 corpora at k = 0, 1 and 3. Each prints ``E2E LABEL ...``:
+the first call, the median of 3 more on the host clock (every result equal
+to the first), the Scanner's own spans of one traced call, and for
+``count`` the device's busy share of one call (``torch.profiler``).
+
 To compare two commits on one card, unpack the parent into a directory
 that ``.gitignore`` lists (``git archive``) and run parent, change, change,
 parent in one call.
@@ -216,11 +224,90 @@ def mask_cases(cs, dev):
 CASES = (filter_cases, corr_batch_cases, dp_cases, mask_cases)
 
 
+E2E_BYTES = 256 << 20  # phase 5b's cell size
+E2E_CORPORA = (64, 1 << 19, 8 << 20)  # phase 7's corpora: count, smallest, largest
+
+
+def e2e_count(cs, dev):
+    """Phase 5b's 256 MB k = 3 (reference-shaped set) and k = 8 (2 x 120)
+    cells, planted as there; each on the writable corpus, then on a frozen
+    copy."""
+    import apm_torch
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    size = E2E_BYTES
+    base = random_corpus(size, seed=0)
+    p32, p50 = random_pattern(32, seed=11), random_pattern(50, seed=12)
+    long2 = [random_pattern(120, seed=210 + i) for i in range(2)]
+    cells = (("k3_planted", [p32] + [p50] * 5, 3, [p50]), ("k8_banded_tier", long2, 8, long2))
+    for name, pats, k, planted in cells:
+        c = base.copy()
+        for i, p in enumerate(planted):
+            plant(c, p, range(5000 + i * 131072, size - 4096, 1 << 20), k=k, seed=13 + i)
+        sc = apm_torch.Scanner([p.tobytes() for p in pats], k, apm_torch.ApmConfig(device=str(dev)))
+        frozen = c.copy()
+        frozen.setflags(write=False)
+        mb = size >> 20
+        yield f"{mb} MB {name} count, writable", sc, lambda sc=sc, c=c: sc.count(c), c
+        yield f"{mb} MB {name} count, frozen", sc, lambda sc=sc, f=frozen: sc.count(f), frozen
+
+
+def e2e_batch(cs, dev):
+    """Phase 7's 64 corpora of 0.5 to 8 MB, k = 0, 1 and 3."""
+    import apm_torch
+    from apm_torch.utils.corpus import random_pattern
+
+    p32, p50 = random_pattern(32, seed=341).tobytes(), random_pattern(50, seed=342).tobytes()
+    pats = [p32] + [p50] * 5
+    n, lo, hi = E2E_CORPORA
+    corpora = cs.mixed_corpora(n, lo, hi, 343, [(p50, 1 << 18, 1), (p32, 1 << 19, 0)])
+    for k in (0, 1, 3):
+        sc = apm_torch.Scanner(pats, k, apm_torch.ApmConfig(device=str(dev)))
+        yield f"count_batch {n} corpora k={k}", sc, lambda sc=sc: sc.count_batch(corpora), None
+
+
+E2E = (e2e_count, e2e_batch)
+
+
+def run_e2e(cs, dev, label) -> int:
+    import statistics
+    import time
+
+    import torch
+
+    for cases in E2E:
+        for what, sc, fn, corpus in cases(cs, dev):
+            t0 = time.perf_counter()
+            first = fn()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            secs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                got = fn()
+                secs.append((time.perf_counter() - t0) * 1e3)
+                if got.tolist() != first.tolist():
+                    print(f"{what}: a repeat's counts differ")
+                    return 1
+            sc.meter.trace = True
+            try:
+                fn()
+                spans = dict(sc.meter.last_spans)
+            finally:
+                sc.meter.trace = False
+            torch.cuda.synchronize()
+            busy = f"; {cs.device_busy(sc, corpus)}" if corpus is not None else ""
+            print(f"E2E {label} {what}: first {first_ms:.1f} ms, median {statistics.median(secs):.1f}"
+                  f" ms of 3; spans " + ", ".join(f"{n} {v:.3f}" for n, v in spans.items())
+                  + busy, flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("tree")
     ap.add_argument("label")
     ap.add_argument("--cases", default="", help="comma-separated CASES names (default: all)")
+    ap.add_argument("--e2e", action="store_true", help="time whole calls (E2E), not kernels")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -241,6 +328,8 @@ def main() -> int:
         print(f"imported {apm_torch.__file__}, not the tree {tree}")
         return 1
     dev = torch.device("cuda", 0)
+    if args.e2e:
+        return run_e2e(cs, dev, args.label)
     only = {c for c in args.cases.split(",") if c}
     for cases in CASES:
         if only and cases.__name__ not in only:

@@ -8,7 +8,13 @@ Run from the root of a checkout::
 Phases, one line each; any failure exits non-zero:
 
 1. environment: card name and power limit (``nvidia-smi``), torch/CUDA
-   versions, and the build of every kernel from ``apm_torch/csrc``;
+   versions, the build of every kernel from ``apm_torch/csrc`` and of the
+   host library from ``apm_torch/csrc/host/apmio.cpp`` (``g++``); then the
+   host layer on this machine's CPU: the native fold of a 256 MB chunk into
+   page-locked rows beside the NumPy ``fold_corpus_ref`` (equal rows),
+   ``hash_bytes`` of the chunk, and the EOF tails of the k = 3 and k = 8
+   cells through the native verifier beside the NumPy oracle (equal
+   counts);
 2. kernel A (banded DP, ``csrc/dp_band.cu``) against its plain PyTorch
    version on the card at main-path shapes (8192-window rows, 128-byte
    halo, 4096 rows = 32 MB), k in {0, 1, 2, 3}, a mixed-length set with a
@@ -34,7 +40,10 @@ Phases, one line each; any failure exits non-zero:
 4. end to end, k = 0, 256 MB (one chunk) and 512 MB (two chunks):
    ``Scanner.count`` on the reference-shaped pattern set (1 x 32 + 5 x 50
    bytes, seeded), gated by a host substring count plus the oracle on the
-   EOF tail; MB/s includes the host fold and the host-to-device copy;
+   EOF tail; MB/s three ways, each call gated by the same counts: cold (the
+   device cache emptied first: hash, fold, copy), warm on a frozen array
+   (a cache hit with a memoized key: its spans hold no fold and no copy)
+   and warm on a writable array (the hash, then a hit);
 5. end to end, k = 1 and k = 2, ``engine="dp"``, 32 MB with planted
    approximate copies: the kernels against the plain versions over the same
    plan on the card, and a 1 MB prefix against the NumPy oracle;
@@ -43,9 +52,10 @@ Phases, one line each; any failure exits non-zero:
    k8_banded_tier, k12_myers_dp) and a k = 0 short set, each gated by the
    same scan under ``engine="dp", dp_impl="band"`` and by a 1 MB prefix
    against the oracle; a dense cell that takes the density rescan and an
-   overflow cell that takes ``count_hot_batch``; MB/s under ``auto`` and
-   ``engine="dp"``, then a phase breakdown of the k = 3 and k = 8 cells
-   (the Scanner's own spans, and the device's busy share from
+   overflow cell that takes ``count_hot_batch``; MB/s under ``auto`` cold,
+   warm frozen and warm writable as in phase 4, and cold under
+   ``engine="dp"``, then a phase breakdown of the k = 3 and k = 8 cells,
+   cold and warm (the Scanner's own spans, and the device's busy share from
    ``torch.profiler``);
 6. the CLI (``python -m apm_torch``) against lines built from the oracle;
 2c. kernel #4 (the batch mode of kernels A and C) against its plain version
@@ -83,7 +93,8 @@ Phases, one line each; any failure exits non-zero:
 7. ``Scanner.count_batch`` on 64 corpora of 0.5 to 8 MB, k = 0, 1 and 3,
    gated by ``count`` on each corpus and the oracle; MB/s and corpora/s
    beside the loop of ``count``, and the split of one traced call (its own
-   spans: fold, copy, launches, fetch, EOF tails); at k = 0 also
+   spans: fold, copy, launches, the native EOF tails, then the fetch, in
+   that order); at k = 0 also
    ``corr_impl="conv"`` (the batched conv), gated by the kernel #8 route's
    counts;
 8. ``Scanner.find``: 256 MB k = 1 sparse (kernel D, then #6) and two 4 MB
@@ -93,11 +104,18 @@ Phases, one line each; any failure exits non-zero:
 9. the CLI with ``--positions`` against lines built from the oracle;
 10. ``apm_torch.graft_entry.entry()``: ``fn(*args)`` on the card (kernel
    #9), equal to its plain version and to the oracle over the device-owned
-   windows.
+   windows;
+11. the rest of the serving surface on phase 4's 256 MB k = 0 cell, each
+   gated by its counts: ``count_file`` of a temporary file, ``count_stream``
+   of the same bytes in 16 MB pieces, ``warmup(256 MB)`` timed and then the
+   first ``count`` beside a first ``count`` without warmup, a Scanner with
+   ``prewarm_bytes`` joined before its first call, and an eviction at a
+   ``cache_bytes`` of one chunk (128 MB chunks).
 
 The main path is the first ``Scanner.count`` of each end-to-end path of
 phases 4, 5 and 5b, the first ``count_batch`` or ``find`` of each path
-of phases 7 and 8, and the first ``fn(*args)`` of phase 10: every kernel
+of phases 7 and 8, the first ``fn(*args)`` of phase 10 and each path of
+phase 11: every kernel
 launch counter is set to 0 just before it
 and read just after, and each path must have launched the kernels its
 route runs (gates, prefixes and timed repeats are not counted). The line
@@ -1192,9 +1210,10 @@ HOST_SPANS = ("fold", "fetch", "EOF tail")
 def batch_split(sc, corpora) -> str:
     """Where one ``sc.count_batch(corpora)`` spends its time, from the
     Scanner's own spans of that call (``Scanner.meter.trace``). The host
-    spans (fold, fetch, EOF tail) run one after another, and so do the
-    device spans (copy, the route's launches), which run under the host's:
-    each clock's sum must stay within the call's own time."""
+    spans (fold, EOF tail, fetch) run one after another, the native EOF
+    tails after every launch and before the fetch, so they overlap the
+    device; the device spans (copy, the route's launches) run under the
+    host's: each clock's sum must stay within the call's own time."""
     sc.meter.trace = True
     try:
         t0 = time.perf_counter()
@@ -1207,10 +1226,13 @@ def batch_split(sc, corpora) -> str:
     device = sum(v for n, v in spans.items() if n not in HOST_SPANS)
     need(host <= call_ms and device <= call_ms,
          f"count_batch spans: host {host:.1f} / device {device:.1f} ms > the call's {call_ms:.1f} ms")
+    order = [n for n in spans if n in HOST_SPANS]
+    need(order == ["fold", "EOF tail", "fetch"], f"count_batch host spans in the order {order}")
     tail = spans.get("EOF tail", 0.0)
     return (f"one traced call {call_ms:.1f} ms: " + ", ".join(f"{n} {v:.3f} ms" for n, v in spans.items())
             + f"; host spans {host:.1f} ms, device spans {device:.1f} ms (each within the call); "
-            f"the EOF tails {tail:.1f} ms = {100 * tail / call_ms:.1f} % of the call")
+            f"the native EOF tails, before the fetch, {tail:.1f} ms = {100 * tail / call_ms:.1f} % "
+            f"of the call")
 
 
 def _prefix_positions(c, pat, k, n):
@@ -1268,7 +1290,7 @@ def phase_e2e_find(main, dev, mb: int = 256, dense_mb: int = 4, cut_mb: int = 32
          f"find {cut_mb} MB cut: kernels != plain versions")
     say(f"phase 8 find {mb} MB k=1 sparse: positions == count {counts.tolist()}, 1 MB prefix == "
         f"oracle, {cut_mb} MB cut == plain versions on the card; branches {route}; "
-        f"{mbps:.1f} MB/s (best of 2, host fold and copy included)")
+        f"{mbps:.1f} MB/s (best of 2, warm writable: the hash, then the cached rows)")
 
     nine = random_pattern(9, seed=355).tobytes()
     cells = (
@@ -1287,10 +1309,13 @@ def phase_e2e_find(main, dev, mb: int = 256, dense_mb: int = 4, cut_mb: int = 32
              f"find dense {name}: branches {route}, expected {branch}")
         counts, mbps = gates(f"{dense_mb} MB dense {name}", sc, d, [pat], 2)
         say(f"phase 8 find {dense_mb} MB k=2 dense {name} (m = 9, the mask sweep): {counts[0]} "
-            f"positions == count, 1 MB prefix == oracle; branches {route}; {mbps:.1f} MB/s")
+            f"positions == count, 1 MB prefix == oracle; branches {route}; {mbps:.1f} MB/s (warm "
+            f"writable)")
 
 
-def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False) -> None:
+def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False):
+    """Phase 4 (and 4b with ``conv``): ``count`` at k = 0 on ``mb`` MB.
+    Returns the cell's ``(corpus, patterns, counts)``."""
     import torch
 
     import apm_torch
@@ -1305,7 +1330,9 @@ def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False) -> None:
         syn[pos : pos + 50] = p50
     pats = [p32.tobytes()] + [p50.tobytes()] * 5
     sc = apm_torch.Scanner(pats, 0, apm_torch.ApmConfig(device=str(dev)))
+    t0 = time.perf_counter()
     counts = main.run(f"{mb} MB k=0", ["corr_fused"], lambda: sc.count(syn))
+    first_ms = (time.perf_counter() - t0) * 1e3
     dev_bound = sc.device_window_bound(len(syn))
     syn_b = syn.tobytes()
     tail = count_matches(syn[dev_bound:], pats, 0)
@@ -1316,18 +1343,12 @@ def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False) -> None:
     del syn_b
     need(counts.tolist() == expected, f"{mb} MB k=0 gate: {counts.tolist()} != {expected}")
     need(expected[1] >= mb - 2, f"{mb} MB k=0: only {expected[1]} planted copies")
-    secs = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        again = sc.count(syn)
-        secs.append(time.perf_counter() - t0)
-        need(again.tolist() == expected, f"{mb} MB k=0: repeat counts differ")
-    mbps = len(syn) / statistics.median(secs) / 1e6
-    say(f"phase 4 e2e k=0 {mb} MB: gate ok, counts {counts.tolist()}, median "
-        f"{mbps:.1f} MB/s over 3 reps (host fold + host-to-device copy "
-        f"included; {torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev})")
+    three, mbps = cold_warm(sc, syn, expected)
+    say(f"phase 4 e2e k=0 {mb} MB: gate ok, counts {counts.tolist()}, first call {first_ms:.1f} "
+        f"ms; {three} "
+        f"({torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev})")
     if not conv:
-        return
+        return syn, pats, expected
     # apm's XLA correlation conv (plain PyTorch conv1d here): pinned on the
     # reference-shaped set, then auto past the fused kernel (m_max = 120)
     from apm_torch.models.pipeline import make_plan
@@ -1338,7 +1359,7 @@ def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False) -> None:
     got = main.run(f"{mb} MB k=0 corr_impl=conv", [], lambda: scc.count(syn))
     need(got.tolist() == expected, f"{mb} MB k=0 conv: {got.tolist()} != {expected}")
     say(f"phase 4b e2e k=0 {mb} MB corr_impl=conv: gate ok, median {_timed_counts(scc, syn):.1f} "
-        f"MB/s conv, {mbps:.1f} MB/s kernel B (auto), {dp_mbps:.1f} MB/s engine=dp")
+        f"MB/s conv, {mbps:.1f} MB/s kernel B (auto), {dp_mbps:.1f} MB/s engine=dp (all cold)")
     p120 = syn[4096 : 4096 + 120].tobytes()  # a planted 50-mer and the 70 bytes after it
     pats120 = [p32.tobytes(), p120]
     sc120 = apm_torch.Scanner(pats120, 0, cfg())
@@ -1352,7 +1373,8 @@ def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False) -> None:
     need(got.tolist() == want and want[1] >= 1, f"{mb} MB k=0 m_max=120: {got.tolist()} != {want}")
     dp120 = _timed_counts(apm_torch.Scanner(pats120, 0, cfg(engine="dp")), syn)
     say(f"phase 4b e2e k=0 {mb} MB m_max=120 (auto: the conv): gate ok, counts {got.tolist()}, "
-        f"median {_timed_counts(sc120, syn):.1f} MB/s conv, {dp120:.1f} MB/s engine=dp")
+        f"median {_timed_counts(sc120, syn):.1f} MB/s conv, {dp120:.1f} MB/s engine=dp (cold)")
+    return syn, pats, expected
 
 
 def phase_e2e_dp(main, dev, mb: int = 32) -> None:
@@ -1400,24 +1422,64 @@ def _dedup_oracle(prefix, pats, k):
     return [got[p] for p in pats]
 
 
-def _timed_counts(sc, c, reps: int = 3) -> float:
-    """Median MB/s of ``sc.count(c)`` over ``reps`` calls (host clock)."""
+def _timed_counts(sc, c, reps: int = 3, want=None, cold: bool = True) -> float:
+    """Median MB/s of ``sc.count(c)`` over ``reps`` calls (host clock).
+    ``cold``: the Scanner's device cache is emptied before each call, so
+    every call hashes, folds and copies. ``want``: each call's counts must
+    equal it."""
     secs = []
     for _ in range(reps):
+        if cold:
+            sc._dev_cache.clear()
         t0 = time.perf_counter()
-        sc.count(c)
+        got = sc.count(c)
         secs.append(time.perf_counter() - t0)
+        need(want is None or got.tolist() == list(want), f"timed count: {got.tolist()} != {want}")
     return len(c) / statistics.median(secs) / 1e6
 
 
-def device_busy(sc, c) -> str:
+def frozen_copy(c):
+    """A read-only copy of ``c``: the Scanner memoizes its key."""
+    f = c.copy()
+    f.setflags(write=False)
+    return f
+
+
+def cold_warm(sc, c, want, frozen=None):
+    """``sc.count(c)`` three ways, median MB/s of 3 each, every call gated
+    by ``want``: cold (cache emptied first), warm on a frozen copy (a hit,
+    the key memoized) and warm on the writable ``c`` (the full hash, then a
+    hit). A traced warm frozen call must show no ``fold`` and no ``copy``
+    span. Returns the line to print and the cold MB/s."""
+    frozen = frozen_copy(c) if frozen is None else frozen
+    cold = _timed_counts(sc, c, want=want)
+    sc.count(frozen)  # stages the rows and memoizes the frozen copy's key
+    warm = _timed_counts(sc, frozen, want=want, cold=False)
+    hashed = _timed_counts(sc, c, want=want, cold=False)
+    sc.meter.trace = True
+    try:
+        need(sc.count(frozen).tolist() == list(want), "traced warm call: counts differ")
+        spans = dict(sc.meter.last_spans)
+    finally:
+        sc.meter.trace = False
+    need(not {"fold", "copy"} & set(spans) and "fingerprint" in spans,
+         f"warm frozen call staged rows: spans {spans}")
+    return (f"cold {cold:.1f} MB/s, warm frozen {warm:.1f} MB/s, warm writable (hash only) "
+            f"{hashed:.1f} MB/s (medians of 3, each gated; warm frozen spans: no fold, no copy, "
+            f"fingerprint {spans['fingerprint']:.3f} ms)"), cold
+
+
+def device_busy(sc, c, cold: bool = False) -> str:
     """Device busy share of one ``sc.count(c)``: the union of the device
     activity intervals ``torch.profiler`` records (kernels, copies,
-    memsets), over the call's host-clock time."""
+    memsets), over the call's host-clock time. ``cold``: the device cache
+    is emptied first."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    if cold:
+        sc._dev_cache.clear()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         sc.count(c)
@@ -1443,24 +1505,31 @@ def device_busy(sc, c) -> str:
             + "; ".join(f"{n[:48]} {top[n] / 1e3:.3f} ms" for n in names))
 
 
-def breakdown(sc, c) -> str:
+def breakdown(sc, c, cold: bool) -> str:
     """Where one ``sc.count(c)`` spends its time: the Scanner's own spans
     (``Scanner.meter.trace``; medians of 3 calls), then the device's busy
-    share under ``torch.profiler``."""
+    share under ``torch.profiler``. ``cold``: the device cache is emptied
+    before each call; else ``c`` is a frozen array whose rows are cached."""
     sc.meter.trace = True
     runs, secs = [], []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        sc.count(c)
-        secs.append(time.perf_counter() - t0)
-        runs.append(sc.meter.last_spans)
-    sc.meter.trace = False
+    try:
+        for _ in range(3):
+            if cold:
+                sc._dev_cache.clear()
+            t0 = time.perf_counter()
+            sc.count(c)
+            secs.append(time.perf_counter() - t0)
+            runs.append(sc.meter.last_spans)
+    finally:
+        sc.meter.trace = False
+    if not cold:
+        need(not any({"fold", "copy"} & set(r) for r in runs), "warm breakdown: a call staged rows")
     spans = ", ".join(
         f"{name} {statistics.median(r.get(name, 0.0) for r in runs):.3f} ms"
         for name in runs[0]
     )
     return (f"count {statistics.median(secs) * 1e3:.1f} ms with spans on; {spans}; "
-            f"{device_busy(sc, c)}")
+            f"{device_busy(sc, c, cold=cold)}")
 
 
 def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: int = 200 << 10):
@@ -1502,12 +1571,13 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
         got = sc.count(prefix).tolist()
         want = _dedup_oracle(prefix, pats, k)
         need(got == want, f"{name} 1 MB prefix: {got} != oracle {want}")
-        auto_mbps = _timed_counts(sc, c)
+        frozen = frozen_copy(c)
+        three, auto_mbps = cold_warm(sc, c, counts.tolist(), frozen)
         dp_mbps = _timed_counts(apm_torch.Scanner(pats, k, cfg(engine="dp")), c)
         say(f"phase 5b {name} k={k}: auto == dp band, 1 MB prefix == oracle, counts "
             f"{counts.tolist()}, route {info['route']}, n_hot {info.get('n_hot', '-')} "
-            f"(bucket {info.get('max_hot', '-')}), median {auto_mbps:.1f} MB/s auto, "
-            f"{dp_mbps:.1f} MB/s engine=dp")
+            f"(bucket {info.get('max_hot', '-')}); auto {three}; engine=dp cold "
+            f"{dp_mbps:.1f} MB/s")
         if fused:  # phase 1 through kernel #7, gated by the same counts and prefix
             scf = apm_torch.Scanner(pats, k, cfg(corr_impl="fused"))
             got = main.run(f"{name} corr_impl=fused", ["pieces_fused"] + expect, lambda: scf.count(c))
@@ -1516,10 +1586,10 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
             finfo = scf.last_filtration  # of the 256 MB count, not of the prefix
             need(scf.count(prefix).tolist() == want, f"{name} fused 1 MB prefix != oracle {want}")
             say(f"phase 5c {name} k={k} corr_impl=fused: == dp band, 1 MB prefix == oracle, route "
-                f"{finfo['route']}, n_hot {finfo.get('n_hot', '-')}, median "
+                f"{finfo['route']}, n_hot {finfo.get('n_hot', '-')}, median (cold) "
                 f"{_timed_counts(scf, c):.1f} MB/s fused, {auto_mbps:.1f} MB/s auto (piece conv), "
                 f"{dp_mbps:.1f} MB/s engine=dp")
-        return sc, c
+        return sc, c, frozen
 
     # The kernels each route must launch: kernel A verifies at k <= 2 and
     # kernel C at k >= 3 (Myers mode under auto); kernel D is phase 1
@@ -1548,7 +1618,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     need(counts.tolist() == want, f"k=0 short set: {counts.tolist()} != {want}")
     need(counts[1] >= len(every_mb()), "k=0 short set: plants missed")
     say(f"phase 5b {mb}mb_k0_short_set (m 12, 20; kernel D): host count + oracle tail ok, "
-        f"counts {counts.tolist()}, median {_timed_counts(sc, c):.1f} MB/s")
+        f"counts {counts.tolist()}; {cold_warm(sc, c, want)[0]}")
     del c
 
     # Dense: a candidate in every row takes the density rescan
@@ -1559,8 +1629,8 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     info = sc.last_filtration
     need(info["route"] == "rescan", f"dense: route {info}")
     say(f"phase 5b dense {dense_mb} MB k=1 (a plant every 4 KB): auto == dp band, counts "
-        f"{counts.tolist()}, route {info['route']}, n_hot {info['n_hot']}, median "
-        f"{_timed_counts(sc, dense):.1f} MB/s")
+        f"{counts.tolist()}, route {info['route']}, n_hot {info['n_hot']}; "
+        f"{cold_warm(sc, dense, counts.tolist())[0]}")
     del dense
 
     # Overflow: more hot rows than the bucket, fewer than the density
@@ -1573,7 +1643,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     need(info["route"] == "count_hot_batch", f"overflow: route {info}")
     say(f"phase 5b overflow {mb} MB k=1 (a plant every {over_step >> 10} KB): auto == dp "
         f"band, counts {counts.tolist()}, route {info['route']}, n_hot {info['n_hot']} > "
-        f"bucket {info['max_hot']}, median {_timed_counts(sc, over):.1f} MB/s")
+        f"bucket {info['max_hot']}; {cold_warm(sc, over, counts.tolist())[0]}")
     return keep
 
 
@@ -1604,6 +1674,141 @@ def phase_entry(main, rec, dev) -> None:
     ms = cuda_ms(lambda: fn(*args), 5)
     say(f"phase 10 entry(): fn(*args) on the card == plain == oracle over the {bound} device-owned "
         f"windows, counts {got.tolist()[:2]}, {ms:.3f} ms a call")
+
+
+def host_ms(fn, reps: int = 3) -> float:
+    """Median milliseconds of ``fn`` on the host clock (one warm-up)."""
+    fn()
+    secs = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def phase_host(dev, n_rows: int = 32768) -> None:
+    """Phase 1's host layer on this machine's CPU: the native fold of a
+    256 MB chunk (the main path's 32768 rows of 8192 + 128 bytes) into
+    page-locked rows beside ``fold_corpus_ref`` into the same kind of rows
+    (equal bytes), ``hash_bytes`` of the chunk, and the EOF tails of phase
+    5b's k = 3 and k = 8 cells through ``Scanner.tail_counts`` (native)
+    beside the NumPy oracle on the same suffix (equal counts)."""
+    import torch
+
+    import apm_torch
+    from apm_torch.ops.common import fold_corpus, fold_corpus_ref
+    from apm_torch.utils import native
+    from apm_torch.utils.corpus import random_corpus, random_pattern
+    from apm_torch.utils.oracle import count_matches
+
+    wf, halo = 8192, 128
+    c = np.frombuffer(np.random.default_rng(5).bytes(n_rows * wf), np.uint8)
+    pin = dev.type == "cuda"
+    pinned = lambda: torch.empty((n_rows, wf + halo), dtype=torch.uint8, pin_memory=pin).numpy()
+    rows, ref = pinned(), pinned()
+    nat_ms = host_ms(lambda: fold_corpus(c, 0, n_rows, wf, halo, out=rows))
+    ref_ms = host_ms(lambda: fold_corpus_ref(c, 0, n_rows, wf, halo, out=ref))
+    need(np.array_equal(rows, ref), "phase 1: native fold != fold_corpus_ref")
+    hash_ms = host_ms(lambda: native.hash_bytes(c))
+    del rows, ref
+    say(f"phase 1 host layer, {os.cpu_count()} CPUs: fold of a {len(c) >> 20} MB chunk into page-locked "
+        f"rows native {nat_ms:.1f} ms ({len(c) / nat_ms / 1e6:.2f} GB/s), fold_corpus_ref "
+        f"{ref_ms:.1f} ms ({len(c) / ref_ms / 1e6:.2f} GB/s; equal rows); "
+        f"hash_bytes {hash_ms:.1f} ms ({len(c) / hash_ms / 1e6:.2f} GB/s, "
+        f"{min(16, os.cpu_count() or 1)} threads)")
+    p32, p50 = random_pattern(32, seed=11).tobytes(), random_pattern(50, seed=12).tobytes()
+    long2 = [random_pattern(120, seed=210 + i).tobytes() for i in range(2)]
+    for name, pats, k in (("k3_planted", [p32] + [p50] * 5, 3), ("k8_banded_tier", long2, 8)):
+        buf = random_corpus(1 << 20, seed=6)
+        buf[-40:] = np.frombuffer(pats[-1][:40], np.uint8)  # an EOF-truncated match
+        sc = apm_torch.Scanner(pats, k, apm_torch.ApmConfig(device=str(dev)))
+        bound = sc.device_window_bound(len(buf))
+        uniq = list(sc.scan_patterns.raw)
+        got = sc.tail_counts(buf, bound)
+        want = count_matches(buf[bound:], uniq, k)
+        need(got.tolist() == want and sum(want) > 0, f"phase 1 {name} tail: {got.tolist()} != {want}")
+        nat = host_ms(lambda: sc.tail_counts(buf, bound))
+        ora = host_ms(lambda: count_matches(buf[bound:], uniq, k))
+        say(f"phase 1 EOF tail of {name} ({len(uniq)} distinct patterns, m_max {sc.m_max}, "
+            f"{len(buf) - bound} bytes): native {nat:.3f} ms, NumPy oracle {ora:.3f} ms "
+            f"({ora / nat:.1f}x), counts equal {got.tolist()}")
+
+
+def phase_serving(main, dev, syn, pats, want, piece: int = 16 << 20, segment: int = 64 << 20,
+                  chunk: int = 128 << 20) -> None:
+    """Phase 11: ``count_file``, ``count_stream``, ``warmup``, prewarm and
+    an eviction on phase 4's 256 MB k = 0 cell, each gated by its counts
+    ``want``."""
+    import apm_torch
+
+    cfg = lambda **kw: apm_torch.ApmConfig(device=str(dev), **kw)
+    mb = len(syn) >> 20
+
+    def timed(what, expect, fn):
+        t0 = time.perf_counter()
+        got = main.run(what, expect, fn)
+        ms = (time.perf_counter() - t0) * 1e3
+        need(got.tolist() == want, f"{what}: {got.tolist()} != {want}")
+        return ms
+
+    fd, path = tempfile.mkstemp(suffix=".fa")
+    try:
+        with os.fdopen(fd, "wb") as f:
+            syn.tofile(f)
+        sc = apm_torch.Scanner(pats, 0, cfg())
+        first = timed(f"count_file {mb} MB k=0", ["corr_fused"], lambda: sc.count_file(path))
+        again = host_ms(lambda: need(sc.count_file(path).tolist() == want, "count_file repeat"))
+        say(f"phase 11 count_file {mb} MB k=0 (a read-only memmap): == count, first call "
+            f"{first:.1f} ms, repeat (a new mapping: hash, then a hit) {again:.1f} ms")
+    finally:
+        os.unlink(path)
+
+    pieces = lambda: (syn[i : i + piece].tobytes() for i in range(0, len(syn), piece))
+    ms = timed(f"count_stream {mb} MB in {piece >> 20} MB pieces", ["corr_fused"],
+               lambda: sc.count_stream(pieces(), segment_bytes=segment))
+    need(not sc._stream_scanner._dev_cache, "count_stream: a segment entered a cache")
+    say(f"phase 11 count_stream {mb} MB in {piece >> 20} MB pieces, {segment >> 20} MB segments: "
+        f"== count, {ms:.1f} ms "
+        f"({len(syn) / ms / 1e3:.1f} MB/s, the pieces' bytes copies included)")
+
+    cold_sc = apm_torch.Scanner(pats, 0, cfg())
+    t0 = time.perf_counter()
+    need(cold_sc.count(syn).tolist() == want, "first count without warmup")
+    no_warm = (time.perf_counter() - t0) * 1e3
+    del cold_sc
+    sw = apm_torch.Scanner(pats, 0, cfg())
+    t0 = time.perf_counter()
+    sw.warmup(len(syn))
+    warm_s = time.perf_counter() - t0
+    need(sw._dev_cache == {}, "warmup left zero-corpus rows in the cache")
+    first = timed(f"count {mb} MB k=0 after warmup", ["corr_fused"], lambda: sw.count(syn))
+    say(f"phase 11 warmup({mb} MB): {warm_s:.2f} s (count, find and count_batch on zeros); "
+        f"the first count after it {first:.1f} ms, a first count without warmup {no_warm:.1f} ms")
+
+    t0 = time.perf_counter()
+    sp = apm_torch.Scanner(pats, 0, cfg(prewarm_bytes=len(syn)))
+    need(sp.prewarm_join(timeout=600), "prewarm_join: the prewarm did not finish")
+    joined = time.perf_counter() - t0
+    first = timed(f"count {mb} MB k=0 after prewarm_join", ["corr_fused"], lambda: sp.count(syn))
+    say(f"phase 11 prewarm_bytes={mb} MB: constructor + prewarm_join {joined:.2f} s, then the "
+        f"first count {first:.1f} ms, == count")
+
+    probe = apm_torch.Scanner(pats, 0, cfg(chunk_bytes=chunk))
+    need(probe.count(syn).tolist() == want, "two chunks: counts differ")
+    sizes = [v.numel() for v in probe._dev_cache.values()]
+    need(len(sizes) == 2 and sizes[0] == sizes[1], f"two chunks: cache entries {sizes}")
+    one = sizes[0]
+    del probe
+    se = apm_torch.Scanner(pats, 0, cfg(chunk_bytes=chunk, cache_bytes=one))
+    first = timed(f"count {mb} MB k=0, cache_bytes of one chunk", ["corr_fused"],
+                  lambda: se.count(syn))
+    for rep in range(2):
+        need(len(se._dev_cache) == 1 and next(iter(se._dev_cache.values())).numel() == one,
+             f"eviction: cache holds {[v.numel() for v in se._dev_cache.values()]}, budget {one}")
+        need(se.count(syn).tolist() == want, f"eviction: repeat {rep} counts differ")
+    say(f"phase 11 eviction: {chunk >> 20} MB chunks, cache_bytes {one} (one chunk): each count keeps one "
+        f"chunk, evicting the other; == count ({first:.1f} ms the first call)")
 
 
 def phase_cli(device: str = "cuda") -> None:
@@ -1665,10 +1870,14 @@ def run(t_start: float) -> dict:
     t0 = time.perf_counter()
     _build.library()
     build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _build.host_library()
+    host_s = time.perf_counter() - t0
     regs = [l.strip() for l in _build.build_log().splitlines() if "registers" in l]
     say(f"phase 1 environment: torch {torch.__version__} CUDA {torch.version.cuda} "
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
-        f"kernels built/loaded in {build_s:.1f} s; ptxas: {' | '.join(regs)}")
+        f"kernels built/loaded in {build_s:.1f} s, host library (g++) in {host_s:.1f} s; "
+        f"ptxas: {' | '.join(regs)}")
     for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
         say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
     # kernel #6: the band's DPX body at k = 1 (text staged), and the Myers body
@@ -1681,6 +1890,7 @@ def run(t_start: float) -> dict:
             f"{sass_loops(str(_build.build()), kernel, nested=True)}")
         say(f"phase 1 ptxas of {kernel}: {ptxas_of(_build.build_log(), kernel)}")
     dev = torch.device("cuda", 0)
+    phase_host(dev)
 
     recs = {
         "dp_band": KernelRecord("dp_band", "apm_torch/csrc/dp_band.cu",
@@ -1713,18 +1923,21 @@ def run(t_start: float) -> dict:
     phase_pieces(recs["pieces_fused"], dev)
 
     main = MainPath()
-    for mb in (256, 512):  # one chunk, then two
-        phase_e2e_k0(main, dev, mb, conv=mb == 256)
+    k0_cell = phase_e2e_k0(main, dev, 256, conv=True)
+    phase_e2e_k0(main, dev, 512)  # two chunks
     phase_e2e_dp(main, dev)
     keep = phase_e2e_filter(main, dev)
     phase_e2e_batch(main, dev)
     phase_e2e_find(main, dev)
     phase_entry(main, recs["dp_dyn"], dev)
+    phase_serving(main, dev, *k0_cell)
+    del k0_cell
     launches = main.total
     need(all(v > 0 for v in launches.values()), f"a kernel never launched on the main path: {launches}")
     say(f"main path launches, all paths: {launches}")
-    for name, sc, c in keep:
-        say(f"phase 5b breakdown {name} (first 256 MB chunk): {breakdown(sc, c)}")
+    for name, sc, c, frozen in keep:
+        say(f"phase 5b breakdown {name} cold (first 256 MB chunk): {breakdown(sc, c, cold=True)}")
+        say(f"phase 5b breakdown {name} warm (frozen, cache hit): {breakdown(sc, frozen, cold=False)}")
     del keep
     phase_cli()
     say(f"total {time.perf_counter() - t_start:.1f} s")

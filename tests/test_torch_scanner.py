@@ -217,14 +217,17 @@ def test_scanner_correlation_routes(cfg, exc):
 @pytest.mark.parametrize(
     "k, engine, names",
     [
-        (0, "auto", {"fold", "copy", "corr", "fetch", "EOF tail"}),
-        (2, "dp", {"fold", "copy", "dp", "fetch", "EOF tail"}),
-        (3, "auto", {"fold", "copy", "phase 1", "phase 2", "fetch", "finalize", "EOF tail"}),
+        (0, "auto", {"fingerprint", "fold", "copy", "corr", "fetch", "EOF tail"}),
+        (2, "dp", {"fingerprint", "fold", "copy", "dp", "fetch", "EOF tail"}),
+        (3, "auto", {"fingerprint", "fold", "copy", "phase 1", "phase 2", "fetch",
+                     "finalize", "EOF tail"}),
     ],
 )
 def test_scanner_spans_name_each_phase(k, engine, names):
     """Meter.trace leaves the scan's phase spans in meter.last_spans, and
-    changes no count."""
+    changes no count. A repeated corpus is a device cache hit, whose spans
+    hold no fold and no copy; with the cache emptied the call stages
+    again."""
     from apm_torch.utils.corpus import plant
 
     c = _corpus(60_000, 300 + k)
@@ -236,5 +239,8 @@ def test_scanner_spans_name_each_phase(k, engine, names):
     assert sc.meter.last_spans == {}
     sc.meter.trace = True
     assert sc.count(c).tolist() == off == count_matches(c, pats, k)
+    assert set(sc.meter.last_spans) == names - {"fold", "copy"}
+    sc._dev_cache.clear()
+    assert sc.count(c).tolist() == off
     assert set(sc.meter.last_spans) == names
     assert all(ms >= 0 for ms in sc.meter.last_spans.values())
