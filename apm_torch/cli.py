@@ -16,8 +16,10 @@ Output (``sequential.c:79-82``, ``:151``, ``:157-160``):
   parallel variant (``%.100s``, ``patterns_over_ranks.c:229``), overridable
   with ``--[no-]truncate-echo``.
 
-The port runs on one device: a trailing strategy word still selects the
-echo rule, and the scan itself stays single-device. Flags: ``--device``
+A trailing strategy word sets ``ApmConfig.strategy`` as ``apm``'s does
+(``DB_OVER_RANKS`` -> ``database_over_devices``, ``PATTERNS_OVER_RANKS`` ->
+``patterns_over_devices``) and selects the echo rule; ``--devices`` caps
+the cards (on the CPU: the number of logical devices). Flags: ``--device``
 (default ``cuda``), ``--backend`` (``auto``/``cuda``/``torch``),
 ``--block-windows``, ``--engine``, ``--devices``, ``--verbose``, and
 ``--positions`` (after the counts, one ``Match positions for pattern
@@ -30,11 +32,11 @@ import sys
 from typing import List, Optional
 
 _STRATEGY_WORDS = {
-    "DB_OVER_RANKS",
-    "PATTERNS_OVER_RANKS",
-    "DATABASE_OVER_DEVICES",
-    "PATTERNS_OVER_DEVICES",
-    "SINGLE",
+    "DB_OVER_RANKS": "database_over_devices",
+    "PATTERNS_OVER_RANKS": "patterns_over_devices",
+    "DATABASE_OVER_DEVICES": "database_over_devices",
+    "PATTERNS_OVER_DEVICES": "patterns_over_devices",
+    "SINGLE": "single",
 }
 
 # flag -> (ApmConfig field, converter)
@@ -96,6 +98,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     # and only when at least one pattern remains before it). It selects the
     # reference's parallel variant, whose echo is cut to 100 chars.
     if len(rest) >= 4 and rest[-1].upper() in _STRATEGY_WORDS:
+        cfg.strategy = _STRATEGY_WORDS[rest[-1].upper()]
         rest = rest[:-1]
         if truncate_echo is None:
             truncate_echo = True

@@ -16,10 +16,14 @@ GATTACA and ACGTACGTACGT, k = 1, blocks of 1024 windows, tables padded to
   EOF-truncated ones included, as ``apm``'s non-TPU branch does.
 
 The two branches count different window sets, as ``apm``'s two do.
-Distribution (``dryrun_multichip``) is not ported yet (``ROADMAP.md``).
+
+:func:`dryrun_multichip` is the twin of ``__graft_entry__.py``'s: the
+sharded scans on small shapes, each case against the oracle.
 """
 
 from __future__ import annotations
+
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -100,3 +104,52 @@ def entry(device: str = "cuda"):
         torch.tensor(n, dtype=torch.int32, device=dev),
         torch.tensor(0, dtype=torch.int32, device=dev),
     )
+
+
+def dryrun_multichip(devices: Optional[Sequence] = None) -> None:
+    """Run the sharded scans once over ``devices`` (default: every visible
+    card, or 8 logical CPU devices without one; a device may repeat) on
+    ``apm``'s dry-run shapes, each case against the oracle: both strategies
+    at k = 1; filtration phase 1 through kernel D (``engine="filter"``) and
+    as a correlation (``fp1_conv``) under database sharding; k = 0 under
+    ``corr_impl`` "fused" and "conv"; and the 32-phase fused tables (m in
+    (66, 97]). Raises ``AssertionError`` on the first disagreement."""
+    from .models.pipeline import make_plan
+    from .models.scanner import Scanner
+    from .parallel.strategies import count_distributed
+    from .utils.config import ApmConfig
+    from .utils.oracle import count_matches
+
+    if devices is None:
+        if torch.cuda.is_available():
+            devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            devices = [torch.device("cpu")] * 8
+    devices = [torch.device(d) for d in devices]
+    assert len(devices) > 1, f"a dry run needs more than one device, got {devices}"
+
+    rng = np.random.default_rng(42)
+    alpha = np.frombuffer(b"ACGT\n", dtype=np.uint8)
+    corpus = alpha[rng.integers(0, 5, size=4096)]
+    pats = [alpha[rng.integers(0, 5, size=m)] for m in [5, 12, 33, 50, 8, 21, 17, 40]]
+
+    def check(name, pats, k, strategy="database_over_devices", **kw):
+        cfg = ApmConfig(device=str(devices[0]), block_windows=1024, **kw)
+        sc = Scanner(pats, k, cfg)
+        got = count_distributed(sc, corpus, strategy, devices)
+        got = got[: sc.scan_patterns.num_patterns][sc._inverse].tolist()
+        want = count_matches(corpus, pats, k)
+        assert got == want, (name, got, want)
+        return sc
+
+    for strategy in ("database_over_devices", "patterns_over_devices"):
+        check(strategy, pats, 1, strategy)
+    check("filter_sharded", pats, 1, engine="filter")
+    pats_fp1 = [alpha[rng.integers(0, 5, size=m)] for m in (50, 64)]
+    sc = check("fp1_conv_sharded", pats_fp1, 1)
+    assert make_plan(sc, len(corpus)).fp1_conv, "fp1_conv_sharded: no conv phase 1"
+    for corr_impl in ("fused", "conv"):
+        sc = check(f"corr_sharded[{corr_impl}]", pats, 0, engine="corr", corr_impl=corr_impl)
+        assert sc._routes(make_plan(sc, len(corpus)))[0] == corr_impl, corr_impl
+    pats_s32 = [bytes(corpus[100:180]), bytes(corpus[2000:2097])]
+    check("corr_sharded_s32", pats_s32, 0, engine="corr", corr_impl="fused")

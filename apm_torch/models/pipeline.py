@@ -11,16 +11,19 @@
   per-chunk results of :mod:`apm_torch.ops.fused` (zero candidates,
   density rescan, on-device verified counts, overflow recovery, clipped
   rows), with :func:`verify_rows_host` for overflow past the device
-  compaction cap.
+  compaction cap. The same tree takes the sharded scans of
+  :mod:`apm_torch.parallel` (totals on the first chunk only, no device
+  re-verify, row maps fetched lazily or not at all).
 
 Corpus access is a ``reader(j0, length) -> np.ndarray`` (zero-padded past
-EOF), as in ``apm``.
+EOF), as in ``apm``: :func:`buf_reader` over memory, :func:`file_reader`
+over a file.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Callable, List, Sequence
+from typing import TYPE_CHECKING, Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -49,6 +52,16 @@ def buf_reader(buf: np.ndarray) -> Reader:
         return out
 
     return read
+
+
+def file_reader(path) -> Reader:
+    """Reader over an on-disk corpus (native range reads; zero-padded)."""
+    import os
+
+    from ..utils import native
+
+    path = os.fspath(path)
+    return lambda j0, length: native.read_range(path, j0, length)
 
 
 @dataclass(frozen=True)
@@ -161,18 +174,23 @@ def make_plan(scanner: "Scanner", n: int) -> ScanPlan:
 
 @dataclass
 class FilterChunk:
-    """One chunk's fetched phase-2 results, and how to recover it on the
-    device if it overflowed its hot-row bucket."""
+    """One chunk's (or shard's) fetched phase-2 results, and how to recover
+    it if it overflowed its hot-row bucket."""
 
     c0: int  # global window start of the chunk
-    fcnt: np.ndarray  # (P,) candidate totals
-    vcnt: np.ndarray  # (P,) counts verified on the device
+    # (P,) candidate totals; None when another chunk carries the summed
+    # totals (the sharded scans put them on chunk 0)
+    fcnt: Optional[np.ndarray]
+    vcnt: Optional[np.ndarray]  # (P,) counts verified on the device; as fcnt
     n_hot: int  # full hot rows of the chunk
     clip_starts: np.ndarray  # (MAX_CLIP,) global starts of clipped hot rows
-    rowmap: object = None  # (R, P) device row map
+    # (R, P) row map: a device tensor, a callable that fetches it, or None
+    # where no process can fetch it (a multi-process scan)
+    rowmap: object = None
     # callable(n_hot) -> list of (P,) device count tensors over ALL the
     # chunk's full hot rows (fused.count_hot_batch), or None past the
-    # compaction cap
+    # compaction cap. Only a chunk whose vcnt is its own may carry one:
+    # the sharded scans, whose vcnt is summed, leave it None.
     verify_dev: object = None
 
 
@@ -196,7 +214,14 @@ def finalize_filtration(
     """Phase-2 decision tree over fetched per-chunk results (k >= 1),
     ``apm``'s branch for branch. Returns ``(p_pad,)`` int64 counts of the
     filtration patterns; ``rescan()`` must return banded-DP counts of
-    ``plan.plens_filter`` over the whole device-owned range."""
+    ``plan.plens_filter`` over the whole device-owned range.
+
+    ``scanner.last_filtration["route"]`` names the branch: "zero-candidates",
+    "rescan" (density), "device-verify", or for an overflowed bucket
+    "count_hot_batch" (re-verified on the device), "verify_rows_host"
+    (rows staged from the host, found through the row maps) or
+    "overflow-rescan" (a chunk without a fetchable row map: the banded
+    rescan)."""
     p_pad = scanner._pat.shape[0]
     out = np.zeros((p_pad,), dtype=np.int64)
     if scanner.k < 1:
@@ -207,8 +232,10 @@ def finalize_filtration(
     n_hots: List[int] = []
     clips: List[int] = []
     for ch in chunks:
-        fcnt += np.asarray(ch.fcnt, dtype=np.int64)
-        vcnt += np.asarray(ch.vcnt, dtype=np.int64)
+        if ch.fcnt is not None:
+            fcnt += np.asarray(ch.fcnt, dtype=np.int64)
+        if ch.vcnt is not None:
+            vcnt += np.asarray(ch.vcnt, dtype=np.int64)
         n_hots.append(int(ch.n_hot))
         clips.extend(int(j0) for j0 in np.asarray(ch.clip_starts).ravel() if j0 >= 0)
     clips = sorted(set(clips))
@@ -226,8 +253,12 @@ def finalize_filtration(
 
     overflow = [(ch, h) for ch, h in zip(chunks, n_hots) if h > max_hot]
     if overflow:
-        batches = [(ch, ch.verify_dev(h)) for ch, h in overflow]
-        if all(b is not None for _, b in batches):
+        batches = None
+        if all(ch.verify_dev is not None for ch, _ in overflow):
+            batches = [(ch, ch.verify_dev(h)) for ch, h in overflow]
+            if any(b is None for _, b in batches):
+                batches = None  # a chunk exceeded the compaction cap
+        if batches is not None:
             # Re-verify each overflowed chunk's hot rows on the device; the
             # other chunks keep their on-device counts. One fetch.
             info["route"] = "count_hot_batch"
@@ -241,13 +272,19 @@ def finalize_filtration(
             for _, hs in batches:
                 out += fetched[bi : bi + len(hs)].sum(axis=0)
                 bi += len(hs)
+        elif any(ch.rowmap is None for ch, _ in overflow):
+            # No process can read the row maps: rescan the filtration set
+            info["route"] = "overflow-rescan"
+            return rescan().astype(np.int64)
         else:
-            # A chunk exceeded the compaction cap: verify ALL full hot rows
-            # from host-staged copies.
+            # Verify ALL full hot rows from host-staged copies (a summed
+            # on-device vcnt cannot be split per chunk, so none is kept).
             info["route"] = "verify_rows_host"
             rows: List[int] = []
             for ch in chunks:
-                rm = ch.rowmap.cpu().numpy()
+                rm = ch.rowmap
+                rm = rm() if callable(rm) else rm
+                rm = rm.cpu().numpy() if isinstance(rm, torch.Tensor) else np.asarray(rm)
                 for r in np.nonzero(rm.any(axis=1))[0]:
                     j0 = ch.c0 + int(r) * plan.wf
                     if j0 + plan.wf <= plan.dev_bound:

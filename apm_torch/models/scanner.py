@@ -1,4 +1,4 @@
-"""End-to-end scan pipeline on one device (port of ``apm/models/scanner.py``).
+"""End-to-end scan pipeline (port of ``apm/models/scanner.py``).
 
 A :class:`Scanner` owns the pattern tables, plans a scan with
 :func:`apm_torch.models.pipeline.make_plan` (the same plan as ``apm``),
@@ -12,10 +12,20 @@ space, :meth:`Scanner.find` returns match positions, :meth:`Scanner.
 count_file` and :meth:`Scanner.count_stream` read a file or a stream, and
 :meth:`Scanner.warmup` (or ``ApmConfig.prewarm_bytes``, on a thread)
 builds and drives every path once before the first request.
+
+:meth:`Scanner.count` runs on one device or, as ``ApmConfig.strategy``
+and ``max_devices`` decide (``apm``'s dispatch), on several: the window
+axis or the pattern axis sharded over the visible cards
+(:mod:`apm_torch.parallel.strategies`); :func:`apm_torch.parallel.
+multihost.count_multihost` spreads a file over the processes of a
+``torch.distributed`` group. ``count_batch``, ``find`` and ``warmup``
+stay on one device, as in ``apm``; ``count_file`` and ``count_stream``
+scan through ``count``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import weakref
@@ -30,7 +40,8 @@ from ..utils.io import PatternSet
 from ..utils.oracle import Bytes, as_u8
 from ..utils.profiling import OFF, Spans
 
-_ROADMAP = "not ported yet (ROADMAP.md, 'Queue 1' #5)"
+# An argument left out (``_count_device``'s ``fp``): None is a valid key.
+_UNSET = object()
 
 
 class Scanner:
@@ -129,6 +140,16 @@ class Scanner:
         # (_corpus_fp).
         self._fp_memo: Dict[int, tuple] = {}
         self._stream_scanner: Optional["Scanner"] = None
+        # Shared host fold cache (key -> folded host rows), set on the
+        # pattern-shard sub-scanners of patterns_over_devices so the corpus
+        # is folded once for every group; its lock is the parent's.
+        self._fold_cache: Optional[Dict[tuple, torch.Tensor]] = None
+        self._fold_cache_lock = threading.Lock()
+        # Sub-scanners of the distribution strategies, cached per layout
+        # (_replicas, _pattern_shard_scanners).
+        self._replica_scanners: Dict[torch.device, "Scanner"] = {}
+        self._shard_scanners_key: Optional[tuple] = None
+        self._shard_scanners: List["Scanner"] = []
         self._prewarm_thread: Optional[threading.Thread] = None
         self._prewarm_error: Optional[BaseException] = None
         if self.config.prewarm_bytes:
@@ -170,20 +191,9 @@ class Scanner:
 
     def _check_config(self) -> None:
         """Refuse, up front, the options whose engine the port lacks."""
-        cfg = self.config
-        if cfg.strategy in ("database_over_devices", "patterns_over_devices"):
-            raise NotImplementedError(
-                f"strategy={cfg.strategy!r} (more than one device) is "
-                f"{_ROADMAP}"
-            )
-        if cfg.max_devices is not None and cfg.max_devices > 1:
-            raise NotImplementedError(
-                f"max_devices={cfg.max_devices}: more than one device is "
-                f"{_ROADMAP}"
-            )
         from .pipeline import check_dp_dtype
 
-        check_dp_dtype(cfg.dp_dtype)
+        check_dp_dtype(self.config.dp_dtype)
 
     @property
     def backend(self) -> str:
@@ -490,13 +500,17 @@ class Scanner:
         """Counts of the EOF tail windows ``j in [dev_bound, n-k)``, per
         scan (deduplicated) pattern, by the native verifier with the
         reference's EOF truncation (``apm``'s ``tail_counts``)."""
+        if dev_bound >= max(len(buf) - self.k, 0):
+            return np.zeros((self.scan_patterns.num_patterns,), dtype=np.int64)
+        return self.suffix_counts(buf[dev_bound:])
+
+    def suffix_counts(self, suffix: np.ndarray) -> np.ndarray:
+        """Per scan pattern, the windows of a corpus's suffix, EOF truncation
+        at the suffix's end (the part of :meth:`tail_counts` that reads no
+        more than the suffix: ``count_multihost`` reads it from the file)."""
         from ..utils import native
 
-        n = len(buf)
         out = np.zeros((self.scan_patterns.num_patterns,), dtype=np.int64)
-        if dev_bound >= max(n - self.k, 0):
-            return out
-        suffix = buf[dev_bound:]
         nw = max(0, len(suffix) - self.k)
         for i, raw in enumerate(self.scan_patterns.raw):
             out[i] = native.banded_count(
@@ -583,7 +597,7 @@ class Scanner:
         from ..ops import dp_kernel
 
         return dp_kernel.scan_folded_dp(
-            rows, self._dev_tables["pat"], bound, start,
+            rows, self._device_tables(fused_needed=False)["pat"], bound, start,
             k=self.k, m_max=self.m_max, wf=wf, halo=halo,
             plens=plens, alphabet=self._dp_alphabet(),
             dp_impl=self.config.dp_impl, peq=self._peq_for(plens),
@@ -592,15 +606,28 @@ class Scanner:
 
     def _stage(
         self, buf: np.ndarray, c0: int, n_rows: int, wf: int, halo: int, spans=OFF,
+        key=None,
     ):
         """Fold one chunk on the host and copy it to the device. On a CUDA
         device the rows go through page-locked memory and an asynchronous
         copy on the current stream (the caching host allocator keeps the
         buffer until the copy has run). ``spans`` times the two steps as
-        ``fold`` and ``copy``."""
-        with spans.host("fold"):
-            host = self._host_rows(n_rows, wf + halo)
-            fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
+        ``fold`` and ``copy``. With a shared fold cache (a pattern-shard
+        sub-scanner) and a content ``key``, the folded rows of one group
+        serve every other group (``apm``'s ``_fold_cache``)."""
+        fc = self._fold_cache if key is not None else None
+        with self._fold_cache_lock if fc is not None else contextlib.nullcontext():
+            # the lock is held over the fold: a group that asks for the
+            # same chunk meanwhile waits for it instead of folding it again
+            host = fc.get(key) if fc is not None else None
+            if host is None:
+                with spans.host("fold"):
+                    host = self._host_rows(n_rows, wf + halo)
+                    fold_corpus(buf, c0, n_rows, wf, halo, out=host.numpy())
+                if fc is not None:
+                    fc[key] = host
+                    while len(fc) > 4:  # host memory: about four chunks
+                        fc.pop(next(iter(fc)))
         with spans.device("copy"):
             return self._to_device(host)
 
@@ -713,7 +740,7 @@ class Scanner:
                 if rows is not None:
                     self._dev_cache[key] = rows  # now the most recent
                     return rows
-        rows = self._stage(buf, c0, n_rows, wf, halo, spans)
+        rows = self._stage(buf, c0, n_rows, wf, halo, spans, key if fp is not None else None)
         if fp is not None:
             budget = self._cache_byte_budget()
             if rows.numel() <= budget:
@@ -724,20 +751,25 @@ class Scanner:
                         total -= self._dev_cache.pop(next(iter(self._dev_cache))).numel()
         return rows
 
-    def _count_setup(self, plan) -> dict:
+    def _count_setup(self, plan, chunk_win: Optional[int] = None,
+                     max_hot: Optional[int] = None) -> dict:
         """What every chunk of a ``count`` scan of ``plan`` shares: the
         routes (:meth:`_routes`), the chunk's rows, the device tables and
-        the keyword arguments of the filtration calls."""
+        the keyword arguments of the filtration calls. The sharded scans
+        pass their own ``chunk_win`` (a multiple of ``plan.w``) and
+        hot-row bucket ``max_hot``."""
         from ..ops import fused
         from ..ops.corr_engine import _group_rows
 
         corr, fp1 = self._routes(plan)
-        chunk_win = max(
-            plan.w,
-            round_up(min(self.config.chunk_bytes, plan.dev_bound), plan.w),
-        )
+        if chunk_win is None:
+            chunk_win = max(
+                plan.w,
+                round_up(min(self.config.chunk_bytes, plan.dev_bound), plan.w),
+            )
         n_rows = chunk_win // plan.wf
-        max_hot = fused.pick_max_hot(n_rows, plan.wf, plan.plens_filter, self.k)
+        if max_hot is None:
+            max_hot = fused.pick_max_hot(n_rows, plan.wf, plan.plens_filter, self.k)
         plain = self.backend == "torch"
         common = dict(
             k=self.k, m_max=self.m_max, wf=plan.wf, halo=plan.halo,
@@ -754,15 +786,19 @@ class Scanner:
             conv=self._device_corr_conv() if corr == "conv" else None,
         )
 
-    def _launch_chunk(self, st: dict, drows: torch.Tensor, c0: int, spans=OFF):
+    def _launch_chunk(self, st: dict, drows: torch.Tensor, c0: int, spans=OFF,
+                      bound: Optional[int] = None):
         """Launch every kernel of one staged chunk without synchronising
         (the loop body of ``apm``'s ``_count_pallas``). Returns ``(handles,
         raw)``: the ``(p_pad,)`` device counts, and for a k >= 1
-        filtration chunk ``(c0, packed, rowmap, drows)``, else None."""
+        filtration chunk ``(c0, packed, rowmap, drows)``, else None.
+        ``bound`` (default ``plan.dev_bound``) is the exclusive bound of the
+        window starts the chunk owns: a shard's chunks stop at its end."""
         from ..ops import corr_engine, corr_fused, filter_kernel, fused
 
         plan, k, tabs, common = st["plan"], self.k, st["tabs"], st["common"]
-        wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
+        wf, halo = plan.wf, plan.halo
+        dev_bound = plan.dev_bound if bound is None else bound
         p_pad, n_rows = self._pat.shape[0], st["n_rows"]
         handles = []
         if st["corr"] == "fused":
@@ -825,9 +861,11 @@ class Scanner:
             n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, **common,
         )
 
-    def _count_device(self, buf: np.ndarray, n: int) -> np.ndarray:
+    def _count_device(self, buf: np.ndarray, n: int, fp=_UNSET) -> np.ndarray:
         """Chunked single-device scan (port of ``apm``'s ``_count_pallas``);
         ``(p_pad,)`` int64 counts per scan pattern slot, EOF tail included.
+        ``fp``: the corpus's cache key when the caller has it (the
+        pattern-shard sub-scanners share their parent's).
 
         Each chunk's staged rows come from the device corpus cache
         (:meth:`_staged_rows`, keyed by :meth:`_corpus_fp`), or are folded
@@ -865,8 +903,9 @@ class Scanner:
 
         spans = Spans(self.device, self.meter.trace)
         st = self._count_setup(plan)
-        with spans.host("fingerprint"):
-            fp = self._corpus_fp(buf)
+        if fp is _UNSET:
+            with spans.host("fingerprint"):
+                fp = self._corpus_fp(buf)
         handles = []  # (p_pad,) int32 device counts, fetched after the loop
         raw_chunks = []  # (c0, packed, rowmap, rows) of filtration chunks
         for c0 in range(0, dev_bound, st["chunk_win"]):
@@ -935,10 +974,106 @@ class Scanner:
             self.meter.last_spans = spans.totals()
         return counts
 
+    # -- distribution (apm's count dispatch and its sub-scanners) ------------
+
+    def devices(self) -> List[torch.device]:
+        """The devices a sharded ``count`` spreads over: on a CUDA device
+        the visible cards ``cuda:0 ... cuda:{n-1}``, capped by
+        ``config.max_devices``; on the CPU ``max_devices`` logical devices,
+        all the CPU (one by default), as ``apm``'s tests force several host
+        devices onto one CPU."""
+        if self.device.type == "cuda":
+            n = torch.cuda.device_count()
+            if self.config.max_devices is not None:
+                n = min(n, self.config.max_devices)
+            return [torch.device("cuda", i) for i in range(n)]
+        return [self.device] * max(1, self.config.max_devices or 1)
+
+    def _sub_config(self, device: torch.device, **kw) -> ApmConfig:
+        """This scanner's config for a sub-scanner on ``device``: one device,
+        no prewarm thread."""
+        from dataclasses import replace
+
+        return replace(self.config, device=str(device), strategy="single",
+                       max_devices=None, prewarm_bytes=None, **kw)
+
+    def _replicas(self, devices: Sequence[torch.device]) -> Dict[torch.device, "Scanner"]:
+        """One Scanner per distinct device of ``devices`` over this
+        scanner's patterns and tables (:meth:`tables` / :meth:`load_tables`,
+        so tables loaded from ``apm`` carry across), cached; this scanner
+        serves its own device."""
+        out = {}
+        for dev in devices:
+            dev = _concrete(dev)
+            if dev in out:
+                continue
+            if dev == _concrete(self.device):
+                out[dev] = self
+                continue
+            rep = self._replica_scanners.get(dev)
+            if rep is None:
+                rep = Scanner(list(self.patterns.raw), self.k, self._sub_config(dev))
+                rep.load_tables(self.tables())
+                self._replica_scanners[dev] = rep
+            out[dev] = rep
+        return out
+
+    def _pattern_shard_scanners(
+        self, groups: Sequence[Sequence[int]], devices: Sequence[torch.device],
+        block_windows: Optional[int] = None,
+    ) -> List["Scanner"]:
+        """Sub-scanners over pattern index groups, group ``d`` on
+        ``devices[d]`` (``patterns_over_devices``), cached per layout so a
+        repeated ``count`` reuses their device caches. ``block_windows``
+        pins every group to one block width, so their staging layouts agree
+        and one shared host fold serves them all (``apm``'s
+        ``_pattern_shard_scanners``)."""
+        key = (tuple(tuple(g) for g in groups), tuple(_concrete(d) for d in devices),
+               block_windows)
+        if self._shard_scanners_key == key:
+            return self._shard_scanners
+        subs = [
+            Scanner(
+                [self.scan_patterns.raw[i] for i in g], self.k,
+                self._sub_config(dev, dedup_patterns=False,
+                                 block_windows=block_windows or self.config.block_windows),
+            )
+            for g, dev in zip(groups, devices)
+        ]
+        fold_cache: Dict[tuple, torch.Tensor] = {}
+        for sub in subs:
+            sub._fold_cache = fold_cache
+            sub._fold_cache_lock = self._fold_cache_lock
+        self._shard_scanners_key, self._shard_scanners = key, subs
+        return subs
+
+    def _resolve_strategy(self, n: int, n_dev: int) -> str:
+        """``config.strategy``, with "auto" resolved as ``apm`` resolves it
+        (:func:`apm_torch.parallel.plan.choose_strategy`; the k = 0
+        correlation engine is flat in P, so a scan it takes stays on the
+        window axis)."""
+        strategy = self.config.strategy
+        if strategy != "auto":
+            return strategy
+        from ..parallel.plan import choose_strategy
+        from .pipeline import make_plan
+
+        flat_p = self.k == 0 and make_plan(self, n).use_corr
+        return choose_strategy(
+            n, self.m_max, self.scan_patterns.num_patterns, self.k, n_dev,
+            flat_p_engine=flat_p,
+        )
+
     # -- public API -----------------------------------------------------------
 
     def count(self, corpus: Bytes) -> np.ndarray:
-        """Per-pattern match counts (int64, length = number of patterns)."""
+        """Per-pattern match counts (int64, length = number of patterns).
+
+        Runs on one device, or sharded over :meth:`devices` where the
+        resolved strategy (:meth:`_resolve_strategy`) is
+        ``database_over_devices`` or ``patterns_over_devices`` and there is
+        more than one device (:func:`apm_torch.parallel.count_distributed`).
+        ``last_strategy`` names the strategy resolved."""
         buf = as_u8(corpus)
         n = len(buf)
         p = self.patterns.num_patterns
@@ -947,11 +1082,18 @@ class Scanner:
             self.last_duration = time.perf_counter() - t0
             return np.zeros((p,), dtype=np.int64)
 
-        counts = self._count_device(buf, n)
+        devices = self.devices()
+        strategy = self._resolve_strategy(n, len(devices))
+        if strategy == "single" or len(devices) == 1:
+            counts = self._count_device(buf, n)
+        else:
+            from ..parallel.strategies import count_distributed
+
+            counts = count_distributed(self, buf, strategy, devices)
         uniq = counts[: self.scan_patterns.num_patterns]
         expanded = uniq[self._inverse]
         self.last_duration = time.perf_counter() - t0
-        self.last_strategy = "single"
+        self.last_strategy = strategy
 
         from ..utils.profiling import ScanStats, info
 
@@ -960,7 +1102,7 @@ class Scanner:
             patterns=p,
             unique_patterns=self.scan_patterns.num_patterns,
             k=self.k,
-            strategy="single",
+            strategy=strategy,
             backend=self.backend,
             block_windows=self.block_windows_for(n),
             seconds=self.last_duration,
@@ -1563,6 +1705,15 @@ class Scanner:
         ]
         if metas:
             torch.cat(metas).cpu()
+
+
+def _concrete(dev) -> torch.device:
+    """``dev`` with a CUDA device's index filled in (``cuda`` -> ``cuda:i``,
+    the current card), so equal devices compare equal."""
+    dev = torch.device(dev)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
 
 
 def scan_counts(

@@ -1,8 +1,8 @@
 """Execution planner: the TPU analog of the reference's runtime cost model.
 
 Copy of ``apm/parallel/plan.py`` (pure Python), so the port imports without
-JAX and plans the same block width. The port is single-device so far; the
-strategy choice is kept for the distribution work in ``ROADMAP.md``.
+JAX and plans the same block width and the same strategy
+(``Scanner._resolve_strategy``, :mod:`apm_torch.parallel.strategies`).
 
 The reference picks between its two MPI strategies with a ratio heuristic
 (``getRatio`` at ``src/main.c:21-28``, applied at ``main.c:88-139``; the

@@ -3,9 +3,9 @@
 Replaces the reference's three config tiers (compile-time ``-D`` flags,
 ``OMP_NUM_THREADS``, CLI positionals + trailing strategy word — SURVEY.md §5)
 with one dataclass. The fields are ``apm``'s, so a config carries across;
-``device`` is new. Values the port does not implement yet (more than one
-device, the narrow DP dtypes) are accepted here and refused by the Scanner
-with a pointer to ``ROADMAP.md``.
+``device`` is new. The narrow DP dtypes, which the port does not implement,
+are accepted here and refused by the Scanner with a pointer to
+``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -31,12 +31,17 @@ class ApmConfig:
     block_windows: Optional[int] = None
     # Corpus bytes staged and copied to the device per chunk.
     chunk_bytes: int = 256 << 20
-    # Distribution strategy: the port is single-device, so only "auto" and
-    # "single" run; the sharded strategies raise NotImplementedError.
+    # Distribution strategy of Scanner.count (apm's): "auto" (the planner's
+    # choice, apm_torch.parallel.plan.choose_strategy), "single",
+    # "database_over_devices" (the window axis sharded) or
+    # "patterns_over_devices" (the pattern axis sharded), over
+    # Scanner.devices(). With one device every strategy runs single.
     strategy: str = "auto"
     # Emit per-scan timing info (reference APM_INFO analog).
     verbose: bool = False
-    # Optional cap on devices used (None = all visible; the port uses one).
+    # Devices a sharded count uses: on a CUDA device a cap on the visible
+    # cards (None = all of them); on the CPU the number of logical CPU
+    # devices (None = 1).
     max_devices: Optional[int] = None
     # Scan each distinct pattern once and expand counts to duplicates.
     dedup_patterns: bool = True

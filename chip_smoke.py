@@ -110,12 +110,29 @@ Phases, one line each; any failure exits non-zero:
    of the same bytes in 16 MB pieces, ``warmup(256 MB)`` timed and then the
    first ``count`` beside a first ``count`` without warmup, a Scanner with
    ``prewarm_bytes`` joined before its first call, and an eviction at a
-   ``cache_bytes`` of one chunk (128 MB chunks).
+   ``cache_bytes`` of one chunk (128 MB chunks);
+12. distribution, every shard on card 0 (the times are the cost of
+   sharding on one card, not scaling), each call gated by the counts
+   phases 4 and 5b gated: (a) ``count_distributed(...,
+   "database_over_devices", [cuda:0] * 2)`` and ``* 4`` on phase 4's
+   256 MB k = 0 cell and phase 5b's k1 (``corr_impl="fused"``), k3, k8,
+   dense and overflow cells, each with its ``last_filtration`` route and
+   cold ms beside the single-device call; (b) ``patterns_over_devices`` x 2
+   on the k = 3 cell; (c) ``Scanner.count`` under
+   ``strategy="database_over_devices"`` on the visible cards (``n_dev``,
+   ``last_strategy``); (d) ``count_multihost`` of the k = 0 and k = 3
+   cells written to files, in a 1-process ``nccl`` world and in 2
+   processes under ``gloo`` on card 0 (this script re-run as the worker,
+   ``--multihost-worker``, with a timeout; a non-zero exit fails the
+   phase); (e) ``graft_entry.dryrun_multichip([cuda:0] * 4)``;
+13. ``apm_torch.utils.fuzz.run_fuzz`` on the card: 36 trials, seed 0,
+   corpora of 64 to 512 KB, the oracle on the host's threads.
 
 The main path is the first ``Scanner.count`` of each end-to-end path of
 phases 4, 5 and 5b, the first ``count_batch`` or ``find`` of each path
-of phases 7 and 8, the first ``fn(*args)`` of phase 10 and each path of
-phase 11: every kernel
+of phases 7 and 8, the first ``fn(*args)`` of phase 10, each path of
+phase 11 and the first sharded call of each case of phases 12a, 12b and
+12d (the two workers' counts read in the workers): every kernel
 launch counter is set to 0 just before it
 and read just after, and each path must have launched the kernels its
 route runs (gates, prefixes and timed repeats are not counted). The line
@@ -428,16 +445,26 @@ class MainPath:
         }
         self.total = dict.fromkeys(self.counters, 0)
 
-    def run(self, what, expect, fn):
+    def reset(self):
         for mod, attr in self.counters.values():
             setattr(mod, attr, 0)
-        out = fn()
-        got = {name: getattr(mod, attr) for name, (mod, attr) in self.counters.items()}
+
+    def read(self):
+        return {name: getattr(mod, attr) for name, (mod, attr) in self.counters.items()}
+
+    def record(self, what, expect, got):
+        """Check and add the launches ``got`` of one counted run (read here,
+        or in a worker process of phase 12)."""
         need(all(got[name] > 0 for name in expect),
              f"{what}: expected launches of {expect}, got {got}")
         for name, v in got.items():
             self.total[name] += v
         say(f"main path {what}: launches {got}")
+
+    def run(self, what, expect, fn):
+        self.reset()
+        out = fn()
+        self.record(what, expect, self.read())
         return out
 
 
@@ -1414,11 +1441,16 @@ def phase_e2e_dp(main, dev, mb: int = 32) -> None:
 
 
 def _dedup_oracle(prefix, pats, k):
-    """Oracle counts of a pattern list, each distinct pattern counted once."""
+    """Oracle counts of a pattern list, each distinct pattern counted once,
+    the patterns on host threads of their own (NumPy releases the GIL in
+    its array loops)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from apm_torch.utils.oracle import count_matches
 
     uniq = list(dict.fromkeys(pats))
-    got = dict(zip(uniq, count_matches(prefix, uniq, k)))
+    with ThreadPoolExecutor(len(uniq)) as ex:
+        got = dict(zip(uniq, ex.map(lambda p: count_matches(prefix, [p], k)[0], uniq)))
     return [got[p] for p in pats]
 
 
@@ -1536,7 +1568,9 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     """Scanner.count at k >= 1 under engine="auto" on bench.py's cells,
     each gated by the same scan under engine="dp", dp_impl="band" (kernel
     A over the whole corpus) and by a 1 MB prefix against the oracle.
-    Returns the (name, scanner, corpus) of the cells to break down."""
+    Returns the (name, scanner, corpus, frozen copy) of the cells to break
+    down, and the cells phase 12 shards: (name, patterns, k, corpus,
+    counts, config keywords, the kernels the route launches)."""
     import apm_torch
     from apm_torch import ApmConfig
     from apm_torch.utils.corpus import plant, random_corpus, random_pattern
@@ -1558,7 +1592,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
              f"{name}: auto {counts.tolist()} != engine=dp band {band.tolist()}")
         return counts
 
-    def cell(name, pats, k, planted, expect, route=None, fused=False):
+    def cell(name, pats, k, planted, expect, route=None, fused=False, shard=False):
         c = base.copy()
         for i, p in enumerate(planted):
             plant(c, np.frombuffer(p, np.uint8), every_mb(i), k=k, seed=13 + i)
@@ -1578,6 +1612,8 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
             f"{counts.tolist()}, route {info['route']}, n_hot {info.get('n_hot', '-')} "
             f"(bucket {info.get('max_hot', '-')}); auto {three}; engine=dp cold "
             f"{dp_mbps:.1f} MB/s")
+        if shard:
+            shard_cells.append((name, pats, k, c, counts.tolist(), {}, expect))
         if fused:  # phase 1 through kernel #7, gated by the same counts and prefix
             scf = apm_torch.Scanner(pats, k, cfg(corr_impl="fused"))
             got = main.run(f"{name} corr_impl=fused", ["pieces_fused"] + expect, lambda: scf.count(c))
@@ -1589,19 +1625,23 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
                 f"{finfo['route']}, n_hot {finfo.get('n_hot', '-')}, median (cold) "
                 f"{_timed_counts(scf, c):.1f} MB/s fused, {auto_mbps:.1f} MB/s auto (piece conv), "
                 f"{dp_mbps:.1f} MB/s engine=dp")
+            if shard:
+                shard_cells.append((f"{name} corr_impl=fused", pats, k, c, counts.tolist(),
+                                    {"corr_impl": "fused"}, ["pieces_fused"] + expect))
         return sc, c, frozen
 
     # The kernels each route must launch: kernel A verifies at k <= 2 and
     # kernel C at k >= 3 (Myers mode under auto); kernel D is phase 1
     # where the piece conv is not.
-    keep = []
+    keep, shard_cells = [], []
     for k in (1, 2):
-        cell(f"{mb}mb_k{k}_planted", ref_set, k, [ref_set[1]], ["dp_band"], "device-verify", fused=True)
+        cell(f"{mb}mb_k{k}_planted", ref_set, k, [ref_set[1]], ["dp_band"], "device-verify",
+             fused=True, shard=k == 1)
     keep.append((f"{mb}mb_k3_planted",) + cell(
-        f"{mb}mb_k3_planted", ref_set, 3, [ref_set[1]], ["filter_pieces", "dp_myers"]))
+        f"{mb}mb_k3_planted", ref_set, 3, [ref_set[1]], ["filter_pieces", "dp_myers"], shard=True))
     cell(f"{mb}mb_k4_exact_tier", fifty, 4, fifty, ["dp_myers"])
     keep.append((f"{mb}mb_k8_banded_tier",) + cell(
-        f"{mb}mb_k8_banded_tier", long2, 8, long2, ["filter_pieces", "dp_myers"]))
+        f"{mb}mb_k8_banded_tier", long2, 8, long2, ["filter_pieces", "dp_myers"], shard=True))
     cell(f"{mb}mb_k12_myers_dp", fifty, 12, fifty, ["dp_myers"])
 
     # k = 0 on a short set: kernel D's candidates are the exact counts
@@ -1631,6 +1671,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     say(f"phase 5b dense {dense_mb} MB k=1 (a plant every 4 KB): auto == dp band, counts "
         f"{counts.tolist()}, route {info['route']}, n_hot {info['n_hot']}; "
         f"{cold_warm(sc, dense, counts.tolist())[0]}")
+    shard_cells.append((f"dense {dense_mb} MB", ref_set, 1, dense, counts.tolist(), {}, ["dp_band"]))
     del dense
 
     # Overflow: more hot rows than the bucket, fewer than the density
@@ -1644,7 +1685,8 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     say(f"phase 5b overflow {mb} MB k=1 (a plant every {over_step >> 10} KB): auto == dp "
         f"band, counts {counts.tolist()}, route {info['route']}, n_hot {info['n_hot']} > "
         f"bucket {info['max_hot']}; {cold_warm(sc, over, counts.tolist())[0]}")
-    return keep
+    shard_cells.append((f"overflow {mb} MB", ref_set, 1, over, counts.tolist(), {}, ["dp_band"]))
+    return keep, shard_cells
 
 
 def phase_entry(main, rec, dev) -> None:
@@ -1811,6 +1853,228 @@ def phase_serving(main, dev, syn, pats, want, piece: int = 16 << 20, segment: in
         f"chunk, evicting the other; == count ({first:.1f} ms the first call)")
 
 
+SHARDING_LABEL = "shards on one card: sharding cost, not scaling"
+
+
+def _expand(sc, counts):
+    """A distributed scan's per-slot counts as ``count`` returns them."""
+    return counts[: sc.scan_patterns.num_patterns][sc._inverse].tolist()
+
+
+def _cold_ms(sc, fn, reps: int = 3) -> float:
+    """Median host milliseconds of ``fn()`` with ``sc``'s device caches
+    emptied first (every call hashes, folds and copies)."""
+    secs = []
+    for _ in range(reps):
+        sc._dev_cache.clear()
+        for rep in sc._replica_scanners.values():
+            rep._dev_cache.clear()
+        t0 = time.perf_counter()
+        fn()
+        secs.append(time.perf_counter() - t0)
+    return statistics.median(secs) * 1e3
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def multihost_worker(argv) -> int:
+    """``chip_smoke.py --multihost-worker DEVICE PORT RANK WORLD OUT K|PATH|PATTERN,...``:
+    one process of phase 12d's two-process ``gloo`` group, on ``DEVICE``
+    (card 0 in phase 12; the CPU in a rehearsal). For
+    each cell, ``count_multihost`` of the file ``PATH`` at ``K``, the launch
+    counters set to 0 just before and read just after; the counts of the
+    distinct patterns and the launches go to the JSON file ``OUT``."""
+    import torch
+
+    device, port, rank, world, out, *cells = argv
+    if device.startswith("cuda") and not torch.cuda.is_available():
+        say("no CUDA device visible to torch")
+        return 1
+    import apm_torch
+    from apm_torch.parallel import multihost
+
+    main = MainPath()
+    multihost.initialize(f"localhost:{port}", int(world), int(rank), backend="gloo", timeout=600)
+    results = []
+    try:
+        for cell in cells:
+            k, path, pats = cell.split("|")
+            pats = [p.encode() for p in pats.split(",")]
+            sc = apm_torch.Scanner(pats, int(k), apm_torch.ApmConfig(device=device))
+            main.reset()
+            t0 = time.perf_counter()
+            counts = multihost.count_multihost(sc, path)
+            first = (time.perf_counter() - t0) * 1e3
+            launches = main.read()
+            t0 = time.perf_counter()
+            again = multihost.count_multihost(sc, path)
+            ms = (time.perf_counter() - t0) * 1e3
+            results.append({"k": int(k), "counts": _expand(sc, counts), "again": _expand(sc, again),
+                            "launches": launches, "first_ms": first, "ms": ms,
+                            "route": (sc.last_filtration or {}).get("route")})
+    finally:
+        multihost.shutdown()
+    with open(out, "w") as f:
+        json.dump({"rank": int(rank), "cells": results}, f)
+    return 0
+
+
+def phase_distribution(main, dev, k0_cell, shard_cells) -> None:
+    """Phase 12: the sharded scans on the card, each call gated by the
+    single-device counts phases 4 and 5b gated. (a) database_over_devices
+    on 2 and 4 shards of card 0 over phase 4's k = 0 cell and phase 5b's
+    shard cells; (b) patterns_over_devices on 2 shards over the 6-pattern
+    k = 3 cell; (c) Scanner.count under strategy="database_over_devices" on
+    the visible cards; (d) count_multihost of phase 4's k = 0 and phase
+    5b's k = 3 cell, each written to a file, in a 1-process nccl world and
+    in 2 processes under gloo, both on card 0; (e) dryrun_multichip on 4 shards of card 0. The first call of
+    (a), (b) and (d) in each case is on the main path; the times of (a)
+    and (b) are medians of 3 cold calls (device caches emptied), those of
+    (d) a second call (count_multihost stages from the file every call)."""
+    import apm_torch
+    from apm_torch.graft_entry import dryrun_multichip
+    from apm_torch.parallel import count_distributed, multihost
+
+    t_phase = time.perf_counter()
+    cfg = lambda **kw: apm_torch.ApmConfig(device=str(dev), **kw)
+    syn, pats0, want0 = k0_cell
+    cells = [(f"{len(syn) >> 20} MB k=0", pats0, 0, syn, want0, {}, ["corr_fused"])] + shard_cells
+    for name, pats, k, c, want, kw, expect in cells:
+        sc = apm_torch.Scanner(pats, k, cfg(**kw))
+        single_ms = _cold_ms(sc, lambda: need(sc.count(c).tolist() == want, f"12a {name}: single"))
+        parts = []
+        for n_sh in (2, 4):
+            shards = [dev] * n_sh
+            run = lambda: count_distributed(sc, c, "database_over_devices", shards)
+            got = main.run(f"12a {name} database_over_devices x{n_sh}", expect, run)
+            need(_expand(sc, got) == want, f"12a {name} x{n_sh}: {_expand(sc, got)} != {want}")
+            route = (sc.last_filtration or {}).get("route", "no filtration")
+            ms = _cold_ms(sc, lambda: need(_expand(sc, run()) == want, f"12a {name} x{n_sh}: repeat"))
+            parts.append(f"x{n_sh} {ms:.1f} ms (route {route})")
+        say(f"phase 12a {name}, database_over_devices ({SHARDING_LABEL}): == single-device counts "
+            f"{want}; single device {single_ms:.1f} ms; " + "; ".join(parts))
+
+    name, pats, k, c, want, _, _ = next(x for x in shard_cells if x[2] == 3)
+    sc = apm_torch.Scanner(pats, k, cfg())
+    single_ms = _cold_ms(sc, lambda: sc.count(c))
+    run = lambda: count_distributed(sc, c, "patterns_over_devices", [dev, dev])
+    got = main.run(f"12b {name} patterns_over_devices x2", ["dp_myers"], run)
+    need(_expand(sc, got) == want, f"12b {name}: {_expand(sc, got)} != {want}")
+    routes = [(sub.last_filtration or {}).get("route", "no filtration") for sub in sc._shard_scanners]
+    for sub in sc._shard_scanners:
+        sub._dev_cache.clear()
+    ms = _cold_ms(sc, lambda: need(_expand(sc, run()) == want, "12b: repeat"))
+    say(f"phase 12b {name}, patterns_over_devices x2 ({SHARDING_LABEL}): == single-device counts, "
+        f"{len(sc._shard_scanners)} groups, routes {routes}; single device {single_ms:.1f} ms, "
+        f"x2 {ms:.1f} ms (one thread a group, one host fold)")
+
+    sc = apm_torch.Scanner(pats0, 0, cfg(strategy="database_over_devices"))
+    need(sc.count(syn).tolist() == want0, "12c: counts differ")
+    say(f"phase 12c Scanner.count strategy=database_over_devices on the visible cards: n_dev "
+        f"{len(sc.devices())}, last_strategy {sc.last_strategy}, == phase 4's counts")
+
+    # (d): phase 4's k = 0 cell and phase 5b's k = 3 cell, each as a file
+    k3 = next(x for x in shard_cells if x[2] == 3)
+    mh_cells = [(0, syn, pats0, want0, ["corr_fused"]), (3, k3[3], k3[1], k3[4], k3[6])]
+    paths = []
+    try:
+        for _, c, _, _, _ in mh_cells:
+            fd, path = tempfile.mkstemp(suffix=".fa")
+            paths.append(path)
+            with os.fdopen(fd, "wb") as f:
+                c.tofile(f)
+        backend = "nccl" if dev.type == "cuda" else "gloo"  # gloo: a CPU rehearsal
+        multihost.initialize(f"localhost:{_free_port()}", 1, 0, backend=backend, timeout=600)
+        try:
+            for (k, c, pats, want, expect), path in zip(mh_cells, paths):
+                sc = apm_torch.Scanner(pats, k, cfg())
+                t0 = time.perf_counter()
+                got = main.run(f"12d count_multihost {len(c) >> 20} MB file k={k}, 1 process ({backend})",
+                               expect, lambda: multihost.count_multihost(sc, path))
+                first = (time.perf_counter() - t0) * 1e3
+                need(_expand(sc, got) == want, f"12d nccl k={k}: {_expand(sc, got)} != {want}")
+                route = (sc.last_filtration or {}).get("route", "no filtration")
+                t0 = time.perf_counter()
+                need(_expand(sc, multihost.count_multihost(sc, path)) == want, f"12d {backend} k={k}: again")
+                ms = (time.perf_counter() - t0) * 1e3
+                single_ms = _cold_ms(sc, lambda: sc.count(c))
+                say(f"phase 12d count_multihost {len(c) >> 20} MB file k={k}, a 1-process {backend} "
+                    f"world: == single-device counts {want}, route {route}; {ms:.1f} ms a call "
+                    f"(the first {first:.1f} ms); single-device count cold {single_ms:.1f} ms")
+        finally:
+            multihost.shutdown()
+        port = _free_port()
+        outs = [os.path.join(tempfile.gettempdir(), f"apm_smoke_mh{os.getpid()}_{i}.json") for i in range(2)]
+        args = [f"{k}|{path}|" + ",".join(dict.fromkeys(p.decode() for p in pats))
+                for (k, _, pats, _, _), path in zip(mh_cells, paths)]
+        procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--multihost-worker", str(dev),
+                 str(port), str(i), "2", outs[i], *args],
+                cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            )
+            for i in range(2)
+        ]
+        t0 = time.perf_counter()
+        try:
+            for i, p in enumerate(procs):
+                out, err = p.communicate(timeout=300)
+                need(p.returncode == 0, f"12d worker {i} exit {p.returncode}: {(out + err)[-3000:]}")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        wall = time.perf_counter() - t0
+        results = []
+        for o in outs:
+            with open(o) as f:
+                results.append(json.load(f))
+            os.unlink(o)
+    finally:
+        for path in paths:
+            os.unlink(path)
+    for res in results:
+        for cell, (k, _, pats, want, expect) in zip(res["cells"], mh_cells):
+            # a worker counts the distinct patterns; expand as count() does
+            inverse = apm_torch.Scanner(pats, k, cfg())._inverse
+            for key in ("counts", "again"):
+                got = [cell[key][i] for i in inverse]
+                need(got == want, f"12d gloo rank {res['rank']} k={k} ({key}): {got} != {want}")
+            main.record(f"12d count_multihost k={k}, 2 processes (gloo), rank {res['rank']}",
+                        expect, cell["launches"])
+    say(f"phase 12d count_multihost, 2 processes under gloo on card 0 ({SHARDING_LABEL}): every "
+        f"rank == single-device counts at k=0 and k=3; "
+        + "; ".join(f"rank {r['rank']}: " + ", ".join(
+            f"k={c['k']} {c['ms']:.1f} ms a call, the first {c['first_ms']:.1f} ms (route "
+            f"{c['route'] or 'no filtration'})" for c in r["cells"])
+            for r in results)
+        + f"; {wall:.1f} s for both processes, start-up and kernel loading included")
+
+    t0 = time.perf_counter()
+    dryrun_multichip([dev] * 4)
+    say(f"phase 12e dryrun_multichip on 4 shards of card 0: every case == oracle, "
+        f"{time.perf_counter() - t0:.1f} s; phase 12 in all {time.perf_counter() - t_phase:.1f} s")
+
+
+def phase_fuzz(dev, trials: int = 36, max_bytes: int = 512 << 10) -> None:
+    """Phase 13: ``run_fuzz`` on the card (seed 0), the oracle on every host
+    core while the card works."""
+    from apm_torch.utils.fuzz import run_fuzz
+
+    res = run_fuzz(trials, 0, str(dev), max_bytes, workers=os.cpu_count() or 1)
+    need(res.mismatch is None, f"phase 13 fuzz: {res.mismatch}")
+    need(res.passed == trials, f"phase 13 fuzz: {res.passed} of {trials} trials")
+    say(f"phase 13 fuzz: {res.passed} of {trials} trials passed (seed 0, corpora of 64 KB to "
+        f"{max_bytes >> 10} KB), checks {res.checks}, {res.seconds:.1f} s")
+
+
 def phase_cli(device: str = "cuda") -> None:
     from apm_torch.utils.corpus import plant, random_corpus, random_pattern
     from apm_torch.utils.oracle import banded_distances, count_matches
@@ -1926,12 +2190,13 @@ def run(t_start: float) -> dict:
     k0_cell = phase_e2e_k0(main, dev, 256, conv=True)
     phase_e2e_k0(main, dev, 512)  # two chunks
     phase_e2e_dp(main, dev)
-    keep = phase_e2e_filter(main, dev)
+    keep, shard_cells = phase_e2e_filter(main, dev)
     phase_e2e_batch(main, dev)
     phase_e2e_find(main, dev)
     phase_entry(main, recs["dp_dyn"], dev)
     phase_serving(main, dev, *k0_cell)
-    del k0_cell
+    phase_distribution(main, dev, k0_cell, shard_cells)
+    del k0_cell, shard_cells
     launches = main.total
     need(all(v > 0 for v in launches.values()), f"a kernel never launched on the main path: {launches}")
     say(f"main path launches, all paths: {launches}")
@@ -1940,6 +2205,7 @@ def run(t_start: float) -> dict:
         say(f"phase 5b breakdown {name} warm (frozen, cache hit): {breakdown(sc, frozen, cold=False)}")
     del keep
     phase_cli()
+    phase_fuzz(dev)
     say(f"total {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [r.json(launches[name]) for name, r in recs.items()]}))
     return {
@@ -1953,6 +2219,8 @@ def run(t_start: float) -> dict:
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        return multihost_worker(sys.argv[2:])
     try:
         result = run(time.perf_counter())
     except SmokeFailure as e:

@@ -141,9 +141,13 @@ _P50 = bytes(_corpus(50, 13, b"ACGT"))
     "cfg,k,pats,exc",
     [
         (dict(dp_dtype="int16"), 1, [b"ACGTACGTAC"], NotImplementedError),
-        (dict(strategy="database_over_devices"), 0, [b"ACGT"], NotImplementedError),
-        (dict(strategy="patterns_over_devices"), 0, [b"ACGT"], NotImplementedError),
-        (dict(max_devices=2), 0, [b"ACGT"], NotImplementedError),
+        # the sharded strategies run (tests/test_torch_parallel.py); the
+        # narrow DP dtypes stay refused under them too
+        (dict(dp_dtype="int8", strategy="database_over_devices"), 0, [b"ACGT"],
+         NotImplementedError),
+        (dict(dp_dtype="int16", strategy="patterns_over_devices"), 0, [b"ACGT"],
+         NotImplementedError),
+        (dict(dp_dtype="int8", max_devices=2), 0, [b"ACGT"], NotImplementedError),
     ],
 )
 def test_scanner_refuses_unported_options(cfg, k, pats, exc):
