@@ -14,138 +14,20 @@
 // 2k + 1 min-plus cells (band) or one bit-vector update (Myers) per
 // pattern, against one byte read and P bytes written per window.
 //
-// Design. A block walks tiles of kWin = 512 windows of one row,
-// grid-stride; each thread scans two neighbouring windows (lanes 2t and
-// 2t + 1 of the tile) and stores their verdicts as one 16-bit word, so a
-// warp writes 64 contiguous bytes per pattern. The tile's text (kWin +
-// m_max bytes) is staged once into shared memory; the pattern table (band)
-// or PEQ table (Myers) once per block.
-// - Band (apm_dp_band_mask): the two windows' band cells live in the two
-//   16-bit halves of one register and each step updates both with Hopper's
-//   DPX min-plus instructions. With u = v + 1 kept beside each cell v and
-//   x = text ^ pattern (0 iff equal, per half):
-//     v' = min(min(v + x, u), u_next, u_prev')   (__viaddmin, __vimin3)
-//     u' = v' + 1                                (one add: no carry)
-//   four instructions a cell for two windows. The cells are not clamped at
-//   k + 1 each step as in apm's kernel: min(v, k + 1) equals apm's clamped
-//   cell all the same (clamping commutes with the min-plus recurrence), so
-//   the <= k verdict is exact; a cell grows by at most 1 a step, and a
-//   clamp at k + 2 every kRenorm steps keeps each half below 2^16 for any
-//   length (k + 1 < kCapMax). The text pair of step x is bytes x - 1
-//   and x of the thread's staged text (one shared load a step, the other
-//   byte carried over); the pattern bytes come from a shared table of
-//   byte * 0x10001 words, so each step loads one word. The first ke steps,
-//   which reach the boundary column (y == 0 -> x, y < 0 -> k + 1), are
-//   unrolled with the band's width. The text is staged by cp.async one
-//   tile ahead (two buffers). A launch whose pattern table passes
-//   kTableBytes (one pattern longer than about 8 K bytes) stages nothing:
-//   its threads read the text from the staged rows and the pattern bytes
-//   from the table in global memory, on the same steps. Bands wider than
-//   kRegMax keep one window at a time in a global scratch slab (int32
-//   cells, kernel A's wide path), on the same tiles.
-// - Myers (apm_dp_myers_mask): the staged text is translated once per tile
-//   to alphabet channels (bytes outside the alphabet to a zero column of
-//   the shared PEQ table), so a step is one shared channel load and one
-//   match-word load per window with no branch. Up to k = 7 (2k + 1 <= 15
-//   bits) the thread's two windows share one VP/VN/centre word, one in each
-//   16-bit field: one chain of Hyyro's steps advances both (the add's carry
-//   stays inside its field's spare bits, which the masks clear; the centre
-//   values never exceed m < 2^16). Wider bands run the two windows as two
-//   independent chains.
-// Grid: blocks_per_sm(ke) blocks an SM, the same number as the kernels'
-// __launch_bounds__, cut so every block walks the same number of tiles.
-#include <algorithm>
+// Design: dp_pair.cuh's tile walk, two windows a thread (the paired 16-bit
+// DPX band, the packed or two-chain Myers band), shared with kernels A and
+// C; here each thread also stores its two verdicts as one 16-bit word, so
+// a warp writes 64 contiguous bytes per pattern, and every tile, owned or
+// not, writes its verdicts.
+#include "dp_pair.cuh"
 
-#include "scan_common.cuh"
+using namespace apm::pair;
 
 namespace {
 
-constexpr int kThreads = apm::kTile;  // threads a block
-constexpr int kWin = 2 * kThreads;    // windows a tile: two a thread
-constexpr int kRegMax = 16;           // widest band half-width in registers
-constexpr int kMaxBits = 29;          // Myers: 2k + 1 for apm's MYERS_KMAX = 14
-constexpr int kTableBytes = 32 * 1024;  // band: widest shared pattern table
-constexpr uint32_t kOne2 = 0x00010001u;
-constexpr int kRenorm = 1 << 14;      // band steps between clamps of the cells
-constexpr int kCapMax = 1 << 14;      // band: k + 1 below it (cells fit 16 bits)
-
-// Blocks an SM of the band kernel with half-width KE (KE < 0: the wide
-// band), for __launch_bounds__ and the grid: ptxas (sm_90a) gives the
-// pair in registers about 40 + 8 KE registers a thread (39 at KE = 1, 50
-// at 3, 156 at 16; the wide band 39), and an SM holds 64 K.
-constexpr int band_blocks(int ke) {
-  return ke <= 1 ? 6 : (256 / (40 + 8 * ke) > 1 ? 256 / (40 + 8 * ke) : 1);
-}
-constexpr int kMyersBlocks = 8;  // Myers mode: 32 registers a thread
-
-__device__ __forceinline__ void cp_async4(uint32_t* dst, const void* src, int n) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_prev() { asm volatile("cp.async.wait_group 1;\n" ::); }
-
-__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_all;\n" ::); }
-
-struct MaskArgs {
-  const uint8_t* rows;  // (n_rows, row_stride) staged corpus rows
-  int64_t n_rows;
-  int64_t row_stride;   // wf + halo
-  const uint8_t* pat;   // band: (n_pat, pat_stride) k-padded pattern table
-  int64_t pat_stride;   // band: m_max + 2k
-  const int32_t* peq;   // Myers: (n_pat * m_max, n_chan) match words
-  const uint8_t* alph;  // Myers: (n_chan,) distinct pattern bytes
-  int n_chan;
-  int n_pat;
-  int m_max;
-  const int32_t* plens; // (n_pat,) pattern lengths, 0 = padding slot
-  int k;
-  int ke;               // band: half-width computed, min(k, m_max)
-  int64_t wf;
-  int64_t bound;
-  const int64_t* dbound;  // optional device-side bound (overrides bound)
-  int64_t start;
-  int32_t* out;         // (n_pat,) counts, accumulated with atomics
-  uint8_t* mask;        // verdicts, row r at mask + r * mask_stride
-  int64_t mask_stride;
-  int32_t* scratch;     // wide bands only: (grid, 2ke + 1, kThreads) int32
-  int stage_words;      // staged text words a tile: (kWin + m_max) / 4 up
-  bool async_ok;        // rows and row_stride 4-byte aligned: cp.async
-  bool pair_store;      // wf, mask and mask_stride even: 16-bit stores
-  bool packed;          // Myers: both windows in one bit band (2k + 1 <= 15)
-};
-
-__device__ __forceinline__ int64_t tiles_per_row(const MaskArgs& a) {
-  return (a.wf + kWin - 1) / kWin;
-}
-
-// Copies the text of tile t (kWin + m_max bytes from its first lane, zeros
-// past the row's end) into dst: by cp.async when the rows are 4-byte
-// aligned (the caller commits and waits), else byte by byte.
-__device__ __forceinline__ void stage_text(const MaskArgs& a, int64_t t, uint32_t* dst) {
-  const int64_t r = t / tiles_per_row(a);
-  const int64_t lane0 = (t - r * tiles_per_row(a)) * kWin;
-  const uint8_t* src = a.rows + r * a.row_stride + lane0;
-  const int64_t avail = a.row_stride - lane0;
-  for (int w = threadIdx.x; w < a.stage_words; w += blockDim.x) {
-    const int64_t b = 4 * (int64_t)w;
-    if (a.async_ok) {  // avail is a multiple of 4: no word straddles the end
-      cp_async4(dst + w, b < avail ? src + b : src, b < avail ? 4 : 0);
-    } else {
-      uint32_t v = 0;
-      for (int i = 0; i < 4; ++i) {
-        if (b + i < avail) v |= (uint32_t)src[b + i] << (8 * i);
-      }
-      dst[w] = v;
-    }
-  }
-}
-
 // Stores the verdict pair `hits` (bit 0: lane, bit 1: lane + 1) of one
 // pattern; `v` points at the lane's byte of the pattern's mask line.
-__device__ __forceinline__ void store_pair(const MaskArgs& a, uint8_t* v, int64_t lane,
+__device__ __forceinline__ void store_pair(const Args& a, uint8_t* v, int64_t lane,
                                            int hits) {
   if (a.pair_store) {
     if (lane < a.wf) *reinterpret_cast<uint16_t*>(v) = (uint16_t)((hits & 1) | ((hits >> 1) << 8));
@@ -157,143 +39,10 @@ __device__ __forceinline__ void store_pair(const MaskArgs& a, uint8_t* v, int64_
 
 // ---------------------------------------------------------------- band mode
 
-// Where a window pair reads its text bytes (text(x): byte x from window
-// 2t's first) and its pattern words (word(i): byte i * 0x10001).
-struct SharedSrc {  // the block's staged tile and shared pattern table
-  const uint8_t* txt;
-  const uint32_t* pat;
-  __device__ __forceinline__ uint32_t text(int x) const { return txt[x]; }
-  __device__ __forceinline__ uint32_t word(int i) const { return pat[i]; }
-};
-
-struct GlobalSrc {  // the staged row and the k-padded table in global memory
-  const uint8_t* txt;
-  const uint8_t* pat;
-  int64_t avail;  // bytes of the row from txt on (an odd wf's last pair)
-  __device__ __forceinline__ uint32_t text(int x) const { return x < avail ? txt[x] : 0u; }
-  __device__ __forceinline__ uint32_t word(int i) const { return pat[i] * kOne2; }
-};
-
-// One DP step x of the window pair: the 2KE + 1 cells from the text pair
-// t2 and the pattern words pc. BOUNDARY steps (x <= KE) overwrite the
-// cells of column y = 0 with x and of y < 0 with k + 1.
-template <int KE, bool BOUNDARY>
-__device__ __forceinline__ void band_step(uint32_t (&v)[2 * KE + 1], uint32_t (&u)[2 * KE + 1],
-                                          const uint32_t (&pc)[2 * KE + 1], uint32_t t2, int x,
-                                          uint32_t cap) {
-  constexpr int BW = 2 * KE + 1;
-  uint32_t uprev = cap;  // read only from di = 1 on
-#pragma unroll
-  for (int di = 0; di < BW; ++di) {
-    uint32_t c = __viaddmin_u16x2(v[di], t2 ^ pc[di], u[di]);
-    if (di + 1 < BW) {
-      c = di > 0 ? __vimin3_u16x2(c, u[di + 1], uprev) : __vminu2(c, u[di + 1]);
-    } else if (di > 0) {
-      c = __vminu2(c, uprev);
-    }
-    if (BOUNDARY) {
-      const int y = x + di - KE;
-      if (y == 0) c = (uint32_t)x * kOne2;  // x <= KE <= k < k + 1
-      if (y < 0) c = cap;
-    }
-    v[di] = c;
-    u[di] = c + kOne2;  // no carry: halves < 2^16
-    uprev = u[di];
-  }
-}
-
-// Verdict pair (bit 0: window 2t, bit 1: window 2t + 1) of a band held in
-// registers; s.word(di) is the pattern's word of byte (x - 1 + di) at x = 1.
-template <int KE, class Src>
-__device__ __forceinline__ int verdict_pair(const Src& s, int m, int k) {
-  constexpr int BW = 2 * KE + 1;
-  const uint32_t cap = (uint32_t)(k + 1) * kOne2, cap1 = (uint32_t)(k + 2) * kOne2;
-  uint32_t v[BW], u[BW], pc[BW];
-#pragma unroll
-  for (int di = 0; di < BW; ++di) {
-    v[di] = di >= KE ? (uint32_t)(di - KE) * kOne2 : cap;  // D[0][y] = y; y < 0 out of band
-    u[di] = v[di] + kOne2;
-    pc[di] = 0;
-  }
-#pragma unroll
-  for (int di = 0; di + 1 < BW; ++di) pc[di + 1] = s.word(di);
-  uint32_t hi = s.text(0);
-#pragma unroll
-  for (int x = 1; x <= KE; ++x) {  // the steps that reach the boundary
-    if (x > m) break;
-#pragma unroll
-    for (int di = 0; di + 1 < BW; ++di) pc[di] = pc[di + 1];
-    pc[BW - 1] = s.word(x - 1 + BW - 1);
-    const uint32_t lo = hi;
-    hi = s.text(x);
-    band_step<KE, true>(v, u, pc, lo | (hi << 16), x, cap);
-  }
-  // A cell grows by at most 1 a step: clamping every kRenorm steps keeps
-  // each half below 2^16 (with the add's + 255) for any pattern length.
-  for (int x0 = KE + 1; x0 <= m; x0 += kRenorm) {
-    const int x1 = min(m, x0 + kRenorm - 1);
-#pragma unroll 2
-    for (int x = x0; x <= x1; ++x) {
-#pragma unroll
-      for (int di = 0; di + 1 < BW; ++di) pc[di] = pc[di + 1];
-      pc[BW - 1] = s.word(x - 1 + BW - 1);
-      const uint32_t lo = hi;
-      hi = s.text(x);
-      band_step<KE, false>(v, u, pc, lo | (hi << 16), x, cap);
-    }
-#pragma unroll
-    for (int di = 0; di < BW; ++di) {
-      v[di] = __vminu2(v[di], cap1);
-      u[di] = v[di] + kOne2;
-    }
-  }
-  return (int)((int)(v[KE] & 0xffffu) <= k) | ((int)((int)(v[KE] >> 16) <= k) << 1);
-}
-
-// Window 2t + w of any band width, cells in this thread's global scratch
-// column (cell di at cell[di * kThreads]); kernel A's wide path.
-template <class Src>
-__device__ int verdict_wide(const Src& s, int w, int m, int k, int ke, int32_t* __restrict__ cell) {
-  const int bw = 2 * ke + 1;
-  const int cap = k + 1;
-  for (int di = 0; di < bw; ++di) cell[di * kThreads] = di >= ke ? di - ke : cap;
-  for (int x = 1; x <= m; ++x) {
-    const int t = (int)s.text(x - 1 + w);
-    int prev = cap;
-    int cur = cell[0];
-    for (int di = 0; di < bw; ++di) {
-      const int y = x + di - ke;
-      const int nxt = di + 1 < bw ? cell[(di + 1) * kThreads] : cap;
-      int v = cur + (t != (int)(s.word(x - 1 + di) & 0xffffu) ? 1 : 0);
-      v = min(min(v, nxt + 1), min(prev + 1, cap));
-      if (y == 0) v = x;
-      if (y < 0) v = cap;
-      cell[di * kThreads] = v;
-      prev = v;
-      cur = nxt;
-    }
-  }
-  return cell[ke * kThreads] <= k ? 1 : 0;
-}
-
-// Verdict pair of the owned windows (`own`: bit 0 window 2t, bit 1 2t + 1).
-template <int KE, class Src>
-__device__ __forceinline__ int band_hits(const Src& s, const MaskArgs& a, int m, int own,
-                                         int32_t* cell) {
-  int hits;
-  if constexpr (KE >= 0) {
-    hits = verdict_pair<KE>(s, m, a.k);
-  } else {
-    hits = verdict_wide(s, 0, m, a.k, a.ke, cell);
-    if (own & 2) hits |= verdict_wide(s, 1, m, a.k, a.ke, cell) << 1;
-  }
-  return hits & own;
-}
-
 // KE >= 0: band pair in registers with half-width KE; KE < 0: wide band.
 // STAGED: text and pattern table in shared memory; else read from global.
 template <int KE, bool STAGED>
-__global__ void __launch_bounds__(kThreads, band_blocks(KE)) band_mask_kernel(MaskArgs a) {
+__global__ void __launch_bounds__(kThreads, band_blocks(KE)) band_mask_kernel(Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
   int* s_cnt = reinterpret_cast<int*>(smem);  // (n_pat,)
   int* s_plen = s_cnt + a.n_pat;              // (n_pat,)
@@ -356,10 +105,10 @@ __global__ void __launch_bounds__(kThreads, band_blocks(KE)) band_mask_kernel(Ma
           const SharedSrc s{
               reinterpret_cast<const uint8_t*>(s_txt + buf * a.stage_words) + 2 * threadIdx.x,
               s_pat + p0};
-          hits = band_hits<KE>(s, a, m, own, cell);
+          hits = band_hits<KE>(s, a, a.k, m, own, cell);
         } else {
           const GlobalSrc s{a.rows + r * a.row_stride + lane, a.pat + p0, a.row_stride - lane};
-          hits = band_hits<KE>(s, a, m, own, cell);
+          hits = band_hits<KE>(s, a, a.k, m, own, cell);
         }
       }
       store_pair(a, vrow + (int64_t)p * a.wf, lane, hits);
@@ -375,40 +124,14 @@ __global__ void __launch_bounds__(kThreads, band_blocks(KE)) band_mask_kernel(Ma
   apm::flush_counts(s_cnt, a.out, a.n_pat);
 }
 
-// Blocks an SM of the mask kernel for band half-width ke (ke < 0: Myers).
-int blocks_per_sm(int ke) {
-  return ke < 0 ? kMyersBlocks : band_blocks(ke > kRegMax ? -1 : ke);
-}
-
-// Grid of a mask launch over n_tiles tiles: blocks_per_sm blocks on every
-// SM, at most `cap` (when positive) and n_tiles, cut so that every block
-// walks the same number of tiles (no half wave).
-cudaError_t mask_grid(int64_t n_tiles, int per_sm, int cap, int* grid) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return e;
-  int64_t g = std::min<int64_t>((int64_t)sms * per_sm, n_tiles);
-  if (cap > 0) g = std::min<int64_t>(g, cap);
-  const int64_t per_block = (n_tiles + g - 1) / g;
-  *grid = (int)((n_tiles + per_block - 1) / per_block);
-  return cudaSuccess;
-}
-
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-}
-
 template <int KE, bool STAGED>
-cudaError_t band_launch(const MaskArgs& a, int cap, cudaStream_t stream) {
+cudaError_t band_launch(const Args& a, int cap, cudaStream_t stream) {
   size_t smem = sizeof(int) * 2 * (size_t)a.n_pat;
   if (STAGED) {
     smem += sizeof(uint32_t) * ((size_t)a.n_pat * a.pat_stride + 2 * (size_t)a.stage_words);
   }
   int grid = 0;
-  cudaError_t e = mask_grid(a.n_rows * ((a.wf + kWin - 1) / kWin), band_blocks(KE), cap, &grid);
+  cudaError_t e = pair_grid(n_tiles(a), band_blocks(KE), cap, &grid);
   if (e == cudaSuccess) e = allow_smem(band_mask_kernel<KE, STAGED>, smem);
   if (e != cudaSuccess) return e;
   band_mask_kernel<KE, STAGED><<<grid, kThreads, smem, stream>>>(a);
@@ -416,7 +139,7 @@ cudaError_t band_launch(const MaskArgs& a, int cap, cudaStream_t stream) {
 }
 
 template <int KE, bool STAGED>
-cudaError_t band_dispatch(const MaskArgs& a, int cap, cudaStream_t stream) {
+cudaError_t band_dispatch(const Args& a, int cap, cudaStream_t stream) {
   if (a.ke == KE) return band_launch<KE, STAGED>(a, cap, stream);
   if constexpr (KE < kRegMax) {
     return band_dispatch<KE + 1, STAGED>(a, cap, stream);
@@ -427,127 +150,9 @@ cudaError_t band_dispatch(const MaskArgs& a, int cap, cudaStream_t stream) {
 
 // ---------------------------------------------------------------- Myers mode
 
-// A bit band: VP, VN and the centre value. Packed, two windows share it,
-// one in each 16-bit field (`one` = 0x00010001, `mask` the band's bits of
-// both fields, cc two 16-bit counts); else `one` = 1.
-struct BitBand {
-  uint32_t vp, vn, cc;
-};
-
-// Hyyro's step. Packed, the add's carry out of the band's top bit lands in
-// the field's spare bits (2k + 1 <= 15), which every mask clears before
-// they reach anything but xh's unread top, so the fields never mix.
-__device__ __forceinline__ void bit_step(BitBand& s, uint32_t eq, uint32_t mask, int cbit,
-                                         uint32_t one) {
-  const uint32_t xv = eq | s.vn;
-  const uint32_t xh = (((eq & s.vp) + s.vp) ^ s.vp) | eq;
-  uint32_t ph = s.vn | (~(xh | s.vp) & mask);
-  uint32_t mh = s.vp & xh;
-  ph = ((ph << 1) & mask) | one;  // horizontal carry-in = +1
-  mh = (mh << 1) & mask;
-  s.cc += one - (((xh | s.vn) >> cbit) & one);
-  s.vp = mh | (~(xv | ph) & mask);
-  s.vn = ph & xv;
-}
-
-// Two windows packed in the 16-bit fields of one bit band (2k + 1 <= 15):
-// one chain for the pair, the match words of both joined into one.
-__device__ __forceinline__ int verdict_myers_packed(const uint8_t* ch, const uint32_t* peq,
-                                                    int c1, int m, int k) {
-  const int bw = 2 * k + 1;
-  const uint32_t mask = ((1u << bw) - 1u) * kOne2;
-  const uint32_t top = (1u << (bw - 1)) * kOne2;
-  BitBand s{mask, 0u, 0u};
-  const int xs = m < k ? m : k;
-  const uint32_t* row_k = peq + k * c1;
-  int hi = ch[0];
-  for (int x = 1; x <= xs; ++x) {
-    const int lo = hi;
-    hi = ch[x];
-    bit_step(s, row_k[lo] | (row_k[hi] << 16), mask, x - 1, kOne2);
-  }
-  if (m > k) {
-    s.vp = ((s.vp << 1) | kOne2) & mask;
-    s.vn = (s.vn << 1) & mask;
-    const uint32_t* row = peq + k * c1;
-#pragma unroll 2
-    for (int x = k + 1; x <= m; ++x) {
-      s.vp = ((s.vp >> 1) & mask) | top;  // field 1's low bit lands in field 0's spare
-      s.vn = (s.vn >> 1) & mask;
-      const int lo = hi;
-      hi = ch[x];
-      bit_step(s, row[lo] | (row[hi] << 16), mask, k, kOne2);
-      row += c1;
-    }
-  }
-  return ((int)(s.cc & 0xffffu) <= k ? 1 : 0) | ((int)(s.cc >> 16) <= k ? 2 : 0);
-}
-
-__device__ __forceinline__ void shift_band(BitBand& s, uint32_t topbit) {
-  s.vp = (s.vp >> 1) | topbit;
-  s.vn >>= 1;
-}
-
-// Verdict pair of two windows' bit bands (kernel C's three phases).
-// `ch` is the thread's first staged channel (window 2t's first byte),
-// `peq` this pattern's first PEQ row in shared memory (stride n_chan + 1,
-// the last column 0: bytes outside the alphabet).
-__device__ __forceinline__ int verdict_myers_pair(const uint8_t* ch, const uint32_t* peq,
-                                                  int c1, int m, int k) {
-  const int bw = 2 * k + 1;
-  const uint32_t mask = (1u << bw) - 1u;
-  const uint32_t topbit = 1u << (bw - 1);
-  BitBand s0{mask, 0u, 0u}, s1{mask, 0u, 0u};
-  const int xs = m < k ? m : k;
-  const uint32_t* row_k = peq + k * c1;
-  int hi = ch[0];
-  for (int x = 1; x <= xs; ++x) {
-    const int lo = hi;
-    hi = ch[x];
-    bit_step(s0, row_k[lo], mask, x - 1, 1u);
-    bit_step(s1, row_k[hi], mask, x - 1, 1u);
-  }
-  if (m > k) {
-    s0.vp = ((s0.vp << 1) | 1u) & mask;
-    s0.vn = (s0.vn << 1) & mask;
-    s1.vp = ((s1.vp << 1) | 1u) & mask;
-    s1.vn = (s1.vn << 1) & mask;
-    const uint32_t* row = peq + k * c1;
-#pragma unroll 2
-    for (int x = k + 1; x <= m; ++x) {
-      shift_band(s0, topbit);
-      shift_band(s1, topbit);
-      const int lo = hi;
-      hi = ch[x];
-      bit_step(s0, row[lo], mask, k, 1u);
-      bit_step(s1, row[hi], mask, k, 1u);
-      row += c1;
-    }
-  }
-  return ((int)s0.cc <= k ? 1 : 0) | ((int)s1.cc <= k ? 2 : 0);
-}
-
-__global__ void __launch_bounds__(kThreads, kMyersBlocks) myers_mask_kernel(MaskArgs a) {
+__global__ void __launch_bounds__(kThreads, kMyersBlocks) myers_mask_kernel(Args a) {
   extern __shared__ __align__(16) uint32_t smem[];
-  const int c1 = a.n_chan + 1;
-  const int n_words = a.n_pat * a.m_max * c1;
-  int* s_cnt = reinterpret_cast<int*>(smem);       // (n_pat,)
-  int* s_plen = s_cnt + a.n_pat;                   // (n_pat,)
-  uint32_t* s_peq = smem + 2 * a.n_pat;            // (n_pat * m_max, n_chan + 1)
-  uint32_t* s_ch = s_peq + n_words;                // (stage_words,) channels
-  uint8_t* s_lut = reinterpret_cast<uint8_t*>(s_ch + a.stage_words);  // (256,)
-
-  for (int i = threadIdx.x; i < a.n_pat; i += blockDim.x) {
-    s_cnt[i] = 0;
-    s_plen[i] = a.plens[i];
-  }
-  for (int i = threadIdx.x; i < n_words; i += blockDim.x) {
-    const int row = i / c1, c = i - row * c1;
-    s_peq[i] = c < a.n_chan ? (uint32_t)a.peq[row * a.n_chan + c] : 0u;
-  }
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_lut[i] = (uint8_t)a.n_chan;
-  __syncthreads();
-  if (threadIdx.x < a.n_chan) s_lut[a.alph[threadIdx.x]] = (uint8_t)threadIdx.x;
+  const MyersSmem s = load_myers(a, smem);
 
   const int64_t bound = a.dbound != nullptr ? *a.dbound : a.bound;
   const int64_t tpr = tiles_per_row(a);
@@ -557,82 +162,42 @@ __global__ void __launch_bounds__(kThreads, kMyersBlocks) myers_mask_kernel(Mask
     const int64_t lane0 = (t - r * tpr) * kWin;
     const int64_t limit = apm::owned_limit(r, a.n_rows, a.wf, bound, a.start);
     __syncthreads();  // the LUT (first tile), or every thread done with the last tile's text
-    if (lane0 < limit) {  // uniform: stage the tile's channels
-      const uint8_t* src = a.rows + r * a.row_stride + lane0;
-      const int64_t avail = a.row_stride - lane0;
-      for (int w = threadIdx.x; w < a.stage_words; w += blockDim.x) {
-        const int64_t b = 4 * (int64_t)w;
-        uint32_t bytes = 0;
-        if (a.async_ok && b + 4 <= avail) {
-          bytes = *reinterpret_cast<const uint32_t*>(src + b);
-        } else {
-          for (int i = 0; i < 4; ++i) {
-            if (b + i < avail) bytes |= (uint32_t)src[b + i] << (8 * i);
-          }
-        }
-        uint32_t chans = 0;
-        for (int i = 0; i < 4; ++i) {
-          const uint32_t c = b + i < avail ? s_lut[(bytes >> (8 * i)) & 0xffu] : (uint32_t)a.n_chan;
-          chans |= c << (8 * i);
-        }
-        s_ch[w] = chans;
-      }
-    }
+    if (lane0 < limit) stage_channels(a, r, lane0, s);  // uniform
     __syncthreads();
 
     const int64_t lane = lane0 + 2 * threadIdx.x;
     const int own = (lane < limit ? 1 : 0) | (lane + 1 < limit ? 2 : 0);
-    const uint8_t* ch = reinterpret_cast<const uint8_t*>(s_ch) + 2 * threadIdx.x;
     uint8_t* vrow = a.mask + r * a.mask_stride + lane;
     for (int p = 0; p < a.n_pat; ++p) {
-      const int m = s_plen[p];
+      const int m = s.plen[p];
       if (m <= 0 || lane0 >= limit) {  // uniform, as in the band kernel
         store_pair(a, vrow + (int64_t)p * a.wf, lane, 0);
         continue;
       }
-      int hits = 0;
-      if (own != 0) {
-        const uint32_t* peq = s_peq + (int64_t)p * a.m_max * c1;
-        hits = (a.packed ? verdict_myers_packed(ch, peq, c1, m, a.k)
-                         : verdict_myers_pair(ch, peq, c1, m, a.k)) & own;
-      }
+      const int hits = own != 0 ? myers_hits(a, s, p, m, own) : 0;
       store_pair(a, vrow + (int64_t)p * a.wf, lane, hits);
-      apm::add_hits(s_cnt, p, (hits & 1) + (hits >> 1));
+      apm::add_hits(s.cnt, p, (hits & 1) + (hits >> 1));
     }
   }
   __syncthreads();
-  apm::flush_counts(s_cnt, a.out, a.n_pat);
-}
-
-MaskArgs base_args(const uint8_t* rows, int64_t n_rows, int64_t row_stride, int n_pat,
-                   int m_max, const int32_t* plens, int k, int64_t wf, int64_t bound,
-                   const int64_t* dbound, int64_t start, int32_t* out, uint8_t* mask,
-                   int64_t mask_stride) {
-  MaskArgs a{};
-  a.rows = rows;
-  a.n_rows = n_rows;
-  a.row_stride = row_stride;
-  a.n_pat = n_pat;
-  a.m_max = m_max;
-  a.plens = plens;
-  a.k = k;
-  a.wf = wf;
-  a.bound = bound;
-  a.dbound = dbound;
-  a.start = start;
-  a.out = out;
-  a.mask = mask;
-  a.mask_stride = mask_stride;
-  a.stage_words = (int)((kWin + m_max + 3) / 4);
-  a.async_ok = (uintptr_t)rows % 4 == 0 && row_stride % 4 == 0;
-  a.pair_store = wf % 2 == 0 && (uintptr_t)mask % 2 == 0 && mask_stride % 2 == 0;
-  return a;
+  apm::flush_counts(s.cnt, a.out, a.n_pat);
 }
 
 bool bad_common(int64_t n_rows, int64_t row_stride, int n_pat, int m_max, int64_t wf,
                 uint8_t* mask, int64_t mask_stride) {
   return n_rows <= 0 || n_pat <= 0 || m_max <= 0 || wf <= 0 || row_stride < wf + m_max - 1 ||
          mask == nullptr || mask_stride < n_pat * wf;
+}
+
+Args mask_args(const uint8_t* rows, int64_t n_rows, int64_t row_stride, int n_pat, int m_max,
+               const int32_t* plens, int k, int64_t wf, int64_t bound, const int64_t* dbound,
+               int64_t start, int32_t* out, uint8_t* mask, int64_t mask_stride) {
+  Args a = base_args(rows, n_rows, row_stride, n_pat, m_max, plens, k, wf, bound, dbound, start,
+                     out);
+  a.mask = mask;
+  a.mask_stride = mask_stride;
+  a.pair_store = wf % 2 == 0 && (uintptr_t)mask % 2 == 0 && mask_stride % 2 == 0;
+  return a;
 }
 
 }  // namespace
@@ -659,8 +224,8 @@ extern "C" int apm_dp_band_mask(const uint8_t* rows, int64_t n_rows, int64_t row
       (ke > kRegMax && (scratch == nullptr || grid <= 0))) {
     return (int)cudaErrorInvalidValue;
   }
-  MaskArgs a = base_args(rows, n_rows, row_stride, n_pat, m_max, plens, k, wf, bound, dbound,
-                         start, out, mask, mask_stride);
+  Args a = mask_args(rows, n_rows, row_stride, n_pat, m_max, plens, k, wf, bound, dbound,
+                     start, out, mask, mask_stride);
   a.pat = pat;
   a.pat_stride = pat_stride;
   a.ke = ke;
@@ -680,34 +245,34 @@ extern "C" int apm_dp_myers_mask(const uint8_t* rows, int64_t n_rows, int64_t ro
                                  int64_t bound, const int64_t* dbound, int64_t start,
                                  int32_t* out, uint8_t* mask, int64_t mask_stride, int grid,
                                  void* stream) {
-  if (bad_common(n_rows, row_stride, n_pat, m_max, wf, mask, mask_stride) || k < 1 ||
-      2 * k + 1 > kMaxBits || k >= m_max || n_chan < 1 || n_chan > 32) {
+  if (bad_common(n_rows, row_stride, n_pat, m_max, wf, mask, mask_stride) ||
+      bad_myers(n_rows, n_pat, m_max, n_chan, k, wf)) {
     return (int)cudaErrorInvalidValue;
   }
-  MaskArgs a = base_args(rows, n_rows, row_stride, n_pat, m_max, plens, k, wf, bound, dbound,
-                         start, out, mask, mask_stride);
+  Args a = mask_args(rows, n_rows, row_stride, n_pat, m_max, plens, k, wf, bound, dbound,
+                     start, out, mask, mask_stride);
   a.peq = peq;
   a.alph = alph;
   a.n_chan = n_chan;
   a.packed = 2 * k + 1 <= 15;
-  const size_t smem = sizeof(int) * 2 * (size_t)n_pat +
-                      sizeof(uint32_t) * ((size_t)n_pat * m_max * (n_chan + 1) +
-                                          (size_t)a.stage_words) + 256;
+  const size_t smem = myers_smem(a);
   int g = 0;
-  cudaError_t e = mask_grid(n_rows * ((wf + kWin - 1) / kWin), kMyersBlocks, grid, &g);
+  cudaError_t e = pair_grid(n_tiles(a), kMyersBlocks, grid, &g);
   if (e == cudaSuccess) e = allow_smem(myers_mask_kernel, smem);
   if (e != cudaSuccess) return (int)e;
   myers_mask_kernel<<<g, kThreads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-// Blocks of the grid that apm_dp_band_mask (ke >= 0, no cap) or
-// apm_dp_myers_mask (ke < 0) launches over n_rows rows of wf windows, or a
-// negative cudaError_t: what a timer launches an empty kernel with
-// (apm_empty_launch, 256 threads a block) to read the launch floor.
+// Blocks of the grid that a pair kernel launches over n_rows rows of wf
+// windows with no cap: the band kernels of half-width ke (ke >= 0;
+// apm_dp_band_mask, _count, _batch, _dyn) or the Myers kernels (ke < 0),
+// or a negative cudaError_t. A wrapper sizes a wide band's scratch by it;
+// a timer launches an empty kernel with it (apm_empty_launch, 256 threads
+// a block) to read the launch floor.
 extern "C" int apm_dp_mask_grid(int64_t n_rows, int64_t wf, int ke) {
   if (n_rows <= 0 || wf <= 0) return -(int)cudaErrorInvalidValue;
   int grid = 0;
-  const cudaError_t e = mask_grid(n_rows * ((wf + kWin - 1) / kWin), blocks_per_sm(ke), 0, &grid);
+  const cudaError_t e = pair_grid(n_rows * ((wf + kWin - 1) / kWin), blocks_per_sm(ke), 0, &grid);
   return e == cudaSuccess ? grid : -(int)e;
 }

@@ -42,9 +42,11 @@ bytes and a PEQ table of at most 64 KB, under ``dp_impl="auto"`` only from
 
 The public functions launch kernel C (``csrc/dp_myers.cu``) or kernel A
 (``csrc/dp_band.cu``) for a CUDA tensor, as that dispatch decides (the mask
-mode: the two mask kernels of ``csrc/dp_mask.cu``), and run the plain
-version of the chosen mode for a CPU tensor, or on any device when the
-caller asks for it (``plain=True``, the Scanner's ``backend="torch"``).
+mode: the two mask kernels of ``csrc/dp_mask.cu``; all of them walk tiles
+of two windows a thread on ``csrc/dp_pair.cuh``, and size their own grid),
+and run the plain version of the chosen mode for a CPU tensor, or on any
+device when the caller asks for it (``plain=True``, the Scanner's
+``backend="torch"``).
 """
 
 from __future__ import annotations
@@ -76,16 +78,14 @@ FOLD = 8  # rows per block of the batch mode (apm's int32 fold)
 # Patterns per launch: bounds the kernel's shared per-pattern counters to
 # 32 KB, under the default dynamic shared-memory limit.
 _PAT_GROUP = 8192
-# Resident blocks per SM the grid is sized for (256 threads each).
-_BLOCKS_PER_SM = 8
-# Mask mode: a launch stages its patterns' table, 4 bytes a byte, in
-# shared memory when it fits 32 KB (csrc/dp_mask.cu's kTableBytes), else
+# Band mode: a launch stages its patterns' table, 4 bytes a byte, in
+# shared memory when it fits 32 KB (csrc/dp_pair.cuh's kTableBytes), else
 # reads it from global memory, so patterns go to launches in groups that
 # fit, or all together when one pattern alone does not.
-_MASK_TABLE_BYTES = 32 << 10
+_TABLE_BYTES = 32 << 10
 # Wide bands (ke > 16) keep their cells in global scratch; this caps it.
 _SCRATCH_BYTES = 256 << 20
-_TILE = 256  # threads (= windows) per block, apm::kTile
+_THREADS = 256  # threads per block of the pair kernels, apm::kTile
 
 Bound = Union[int, torch.Tensor]
 
@@ -301,10 +301,20 @@ def _bound_args(bound: Bound, dev):
     return int(bound), None, None
 
 
-def _grid(dev, n_rows: int, wf: int) -> int:
-    n_tiles = n_rows * -(-wf // _TILE)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, min(n_tiles, sms * _BLOCKS_PER_SM))
+def _wide_scratch(lib, dev, n_rows: int, wf: int, ke: int):
+    """``(grid cap, scratch)`` of a band launch: ``(0, None)`` (the entry
+    sizes its grid) unless the band is wider than the register path, whose
+    int32 cells take a global slab a block; then the entry's own grid
+    (``apm_dp_mask_grid``), cut to fit ``_SCRATCH_BYTES``."""
+    from ._build import check
+
+    if ke <= lib.apm_dp_band_reg_max():
+        return 0, None
+    grid = lib.apm_dp_mask_grid(n_rows, wf, ke)
+    check(0 if grid > 0 else -grid, "apm_dp_mask_grid")
+    slab = (2 * ke + 1) * _THREADS * 4
+    grid = max(1, min(grid, _SCRATCH_BYTES // slab))
+    return grid, torch.empty((grid * slab // 4,), dtype=torch.int32, device=dev)
 
 
 @functools.lru_cache(maxsize=64)
@@ -317,9 +327,9 @@ def _device_consts(plens: tuple, alphabet: tuple, dev: torch.device):
     return dplen, alph
 
 
-def _mask_group(pat_stride: int) -> int:
-    """Patterns a band mask launch takes (see ``_MASK_TABLE_BYTES``)."""
-    return _MASK_TABLE_BYTES // (4 * pat_stride) or _PAT_GROUP
+def _table_group(pat_stride: int) -> int:
+    """Patterns a band launch takes (see ``_TABLE_BYTES``)."""
+    return _TABLE_BYTES // (4 * pat_stride) or _PAT_GROUP
 
 
 def _outputs(rows, n_pat, wf, meta, mask):
@@ -357,19 +367,11 @@ def _launch(rows, pat, bound, start, k, m_max, wf, plens, meta=None, mask=False)
     dplen, _ = _device_consts(plens, (), dev)
     bval, bptr, _keep = _bound_args(bound, dev)
     ke = min(k, m_max)
-    wide = ke > lib.apm_dp_band_reg_max()
-    # The mask entry sizes its own grid: it takes one only as the cap of a
-    # wide band's scratch.
-    grid = _grid(dev, n_rows, wf) if wide or vmask is None else 0
-    scratch = None
-    if wide:
-        slab = (2 * ke + 1) * _TILE * 4
-        grid = max(1, min(grid, _SCRATCH_BYTES // slab))
-        scratch = torch.empty((grid * slab // 4,), dtype=torch.int32, device=dev)
+    grid, scratch = _wide_scratch(lib, dev, n_rows, wf, ke)
     sptr = scratch.data_ptr() if scratch is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = (rows.data_ptr(), n_rows, rows.shape[1])
-    group = _mask_group(pat.shape[1]) if vmask is not None else _PAT_GROUP
+    group = _table_group(pat.shape[1])
     for g0 in range(0, n_pat, group):
         ng = min(group, n_pat - g0)
         # Mask mode launches every group: its verdicts are zeros too.
@@ -420,8 +422,7 @@ def _launch_myers(rows, peq, bound, start, k, m_max, wf, plens, alphabet,
         rows.data_ptr(), rows.shape[0], rows.shape[1], peq.data_ptr(), n_pat,
         m_max, len(alphabet), alph.data_ptr(), dplen.data_ptr(), k, wf,
     )
-    grid = 0 if vmask is not None else _grid(dev, rows.shape[0], wf)  # 0: the mask entry sizes it
-    tail = (grid, torch.cuda.current_stream(dev).cuda_stream)
+    tail = (0, torch.cuda.current_stream(dev).cuda_stream)  # 0: the entry sizes its grid
     if meta is not None:
         err = lib.apm_dp_myers_batch(*head, meta.data_ptr(), out.data_ptr(), n_pat, *tail)
         check(err, "apm_dp_myers_batch")
@@ -511,16 +512,12 @@ def scan_folded(
     bval, bptr, _keep_b = _bound_args(bound, dev)
     sval, sptr, _keep_s = _bound_args(start, dev)
     ke = min(k, m_max)
-    grid = _grid(dev, n_rows, wf)
-    scratch = None
-    if ke > lib.apm_dp_band_reg_max():
-        slab = (2 * ke + 1) * _TILE * 4
-        grid = max(1, min(grid, _SCRATCH_BYTES // slab))
-        scratch = torch.empty((grid * slab // 4,), dtype=torch.int32, device=dev)
+    grid, scratch = _wide_scratch(lib, dev, n_rows, wf, ke)
     sptr_scratch = scratch.data_ptr() if scratch is not None else None
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for g0 in range(0, n_pat, _PAT_GROUP):
-        ng = min(_PAT_GROUP, n_pat - g0)
+    group = _table_group(pat.shape[1])
+    for g0 in range(0, n_pat, group):
+        ng = min(group, n_pat - g0)
         err = lib.apm_dp_band_dyn(
             rows.data_ptr(), n_rows, rows.shape[1], pat[g0].data_ptr(), ng,
             pat.shape[1], dplen[g0].data_ptr(), k, ke, wf, bval, bptr, sval,

@@ -20,10 +20,12 @@ A case may only call what both trees to be compared have.
 ``--e2e`` times whole calls instead (``E2E``): ``Scanner.count`` of
 ``chip_smoke.py`` phase 5b's 256 MB k = 3 and k = 8 cells, on a writable
 array and on a frozen copy of the same bytes, and ``Scanner.count_batch``
-of phase 7's 64 corpora at k = 0, 1 and 3. Each prints ``E2E LABEL ...``:
-the first call, the median of 3 more on the host clock (every result equal
-to the first), the Scanner's own spans of one traced call, and for
-``count`` the device's busy share of one call (``torch.profiler``).
+of phase 7's 64 corpora at k = 0, 1 and 3 (``--cases e2e_batch`` runs
+one of the two). Each prints ``E2E LABEL ...``: the first call, the
+median, least and most of ``--reps`` (3) more on the host clock (every
+result equal to the first), the Scanner's own spans of one traced call,
+and for ``count`` the device's busy share of one call
+(``torch.profiler``).
 
 To compare two commits on one card, unpack the parent into a directory
 that ``.gitignore`` lists (``git archive``) and run parent, change, change,
@@ -127,12 +129,13 @@ def corr_batch_cases(cs, dev):
 
 
 def dp_cases(cs, dev):
-    """Kernels A, C, #4 and #9, which share no code with #6 since its
-    redesign: the shapes their records in ``chip_smoke.py`` time (A: the
-    pair 32 + 50 at k = 1, C: six 50-mers at k = 12, both on 4096 rows;
-    #4: the first 1024-row group of the 40-corpus staging at k = 1; #9:
-    k = 1, P = 8 with device lengths), held to the plain versions, 5 calls
-    each."""
+    """Kernels A, C, #4 and #9: the shapes their records in
+    ``chip_smoke.py`` time (A: the pair 32 + 50 at k = 1, C: six 50-mers
+    at k = 12, both on 4096 rows; C at the density rescan's shape, the
+    pair at k = 3 on the 32768 rows of a 256 MB chunk; #4: the first
+    1024-row group of the 40-corpus staging at k = 1, band, and at k = 3
+    and 12, Myers; #9: k = 1, P = 8 with device lengths), held to the
+    plain versions, 5 calls each (3 at 256 MB)."""
     import torch
     from apm_torch.ops import dp_kernel
     from apm_torch.ops.common import round_up
@@ -158,15 +161,33 @@ def dp_cases(cs, dev):
         yield (f"{name} R={n_rows}", f"dp_{impl}_kernel",
                lambda a=args, kw=kw: dp_kernel.scan_folded_dp(*a, **kw),
                lambda a=args, f=plain: f(*a), 5)
-    pat, _, plens, m_max = cs._pattern_table(pair, 1)
-    halo = round_up(m_max + 2, 128)
+    # the rescan's shape: a whole 256 MB chunk, the reference-shaped set's
+    # two distinct patterns at k = 3 (Myers, both windows in one word)
+    main_rows = 32768
+    big = random_corpus(main_rows * wf + 4096, seed=70)
+    pat, _, plens, m_max = cs._pattern_table(pair, 3)
+    halo = round_up(m_max + 6, 128)
+    alph = tuple(sorted(set(b"".join(pair))))
+    peq = torch.from_numpy(dp_kernel.build_peq(pat, 3, m_max, alph)).to(dev)
+    args = (cs.staged(big, 0, main_rows, wf, halo, dev), torch.from_numpy(pat).to(dev),
+            main_rows * wf - m_max + 1, 0)
+    base = dict(k=3, m_max=m_max, wf=wf, halo=halo, plens=plens)
+    yield (f"C k=3 P=2 R={main_rows} (the rescan)", "dp_myers_kernel",
+           lambda a=args, kw=dict(base, alphabet=alph, peq=peq, dp_impl="myers"):
+           dp_kernel.scan_folded_dp(*a, **kw),
+           lambda a=args, kw=dict(base, alphabet=alph, peq=peq): dp_kernel.scan_folded_myers_ref(*a, **kw), 3)
+    del big
     corpora = cs.mixed_corpora(40, 64 << 10, 4 << 20, 303, [(pair[1], 40_000, 1), (pair[0], 90_000, 0)])
-    rows, meta, _ = cs.batch_groups(corpora, 8 * wf, wf, halo, lambda n: max(0, min(n - m_max + 1, n - 1)))[0]
-    args = (torch.from_numpy(rows).to(dev), torch.from_numpy(pat).to(dev), torch.from_numpy(meta).to(dev))
-    kw = dict(k=1, m_max=m_max, wf=wf, halo=halo, plens=plens)
-    yield (f"#4 k=1 R={rows.shape[0]}", "dp_band_kernel",
-           lambda a=args, kw=kw: dp_kernel.scan_folded_dp_batch(*a, **kw),
-           lambda a=args, kw=kw: dp_kernel.scan_folded_dp_batch_ref(*a, **kw), 5)
+    for k, impl in ((1, "band"), (3, "myers"), (12, "myers")):
+        pat, _, plens, m_max = cs._pattern_table(pair, k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows, meta, _ = cs.batch_groups(corpora, 8 * wf, wf, halo,
+                                        lambda n: max(0, min(n - m_max + 1, n - k)))[0]
+        args = (torch.from_numpy(rows).to(dev), torch.from_numpy(pat).to(dev), torch.from_numpy(meta).to(dev))
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=tuple(sorted(set(b"".join(pair)))))
+        yield (f"#4 {impl} k={k} R={rows.shape[0]}", f"dp_{impl}_kernel",
+               lambda a=args, kw=kw: dp_kernel.scan_folded_dp_batch(*a, **kw),
+               lambda a=args, kw=kw: dp_kernel.scan_folded_dp_batch_ref(*a, **kw), 5)
     lens = [12, 30, 41, 64]
     rng = np.random.default_rng(371)
     pats = [bytes(corpus[q : q + m]) for q, m in zip(rng.integers(0, n_rows * wf // 2, 4), lens)]
@@ -269,19 +290,21 @@ def e2e_batch(cs, dev):
 E2E = (e2e_count, e2e_batch)
 
 
-def run_e2e(cs, dev, label) -> int:
+def run_e2e(cs, dev, label, only=(), reps=3) -> int:
     import statistics
     import time
 
     import torch
 
     for cases in E2E:
+        if only and cases.__name__ not in only:
+            continue
         for what, sc, fn, corpus in cases(cs, dev):
             t0 = time.perf_counter()
             first = fn()
             first_ms = (time.perf_counter() - t0) * 1e3
             secs = []
-            for _ in range(3):
+            for _ in range(reps):
                 t0 = time.perf_counter()
                 got = fn()
                 secs.append((time.perf_counter() - t0) * 1e3)
@@ -297,8 +320,8 @@ def run_e2e(cs, dev, label) -> int:
             torch.cuda.synchronize()
             busy = f"; {cs.device_busy(sc, corpus)}" if corpus is not None else ""
             print(f"E2E {label} {what}: first {first_ms:.1f} ms, median {statistics.median(secs):.1f}"
-                  f" ms of 3; spans " + ", ".join(f"{n} {v:.3f}" for n, v in spans.items())
-                  + busy, flush=True)
+                  f" ms of {reps} (min {min(secs):.1f}, max {max(secs):.1f}); spans "
+                  + ", ".join(f"{n} {v:.3f}" for n, v in spans.items()) + busy, flush=True)
     return 0
 
 
@@ -306,8 +329,9 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("tree")
     ap.add_argument("label")
-    ap.add_argument("--cases", default="", help="comma-separated CASES names (default: all)")
+    ap.add_argument("--cases", default="", help="comma-separated CASES (or E2E) names (default: all)")
     ap.add_argument("--e2e", action="store_true", help="time whole calls (E2E), not kernels")
+    ap.add_argument("--reps", type=int, default=3, help="timed repeats of each E2E call")
     args = ap.parse_args()
     tree = os.path.abspath(args.tree)
     sys.path.insert(0, tree)
@@ -328,9 +352,9 @@ def main() -> int:
         print(f"imported {apm_torch.__file__}, not the tree {tree}")
         return 1
     dev = torch.device("cuda", 0)
-    if args.e2e:
-        return run_e2e(cs, dev, args.label)
     only = {c for c in args.cases.split(",") if c}
+    if args.e2e:
+        return run_e2e(cs, dev, args.label, only, args.reps)
     for cases in CASES:
         if only and cases.__name__ not in only:
             continue

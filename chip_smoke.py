@@ -22,8 +22,8 @@ Phases, one line each; any failure exits non-zero:
 2b. kernel C (bit-parallel Myers band, ``csrc/dp_myers.cu``) against its
    plain version and against kernel A at 4096 rows, k in {3, 4, 8, 12, 14},
    P = 2 (m 32, 50) and P = 6 (m 50), a case with start > 0 and a mid-row
-   bound held in device memory, and P = 6 at k = 12 on the 32768 rows of a
-   256 MB chunk;
+   bound held in device memory, and P = 6 at k = 12 and the pair at k = 3
+   (the density rescan's shape) on the 32768 rows of a 256 MB chunk;
 3. kernel B (fused k = 0 correlation, ``csrc/corr_fused.cu``) against its
    plain version (the TPU's bit-plane matmul formulation) at P = 2, P = 64
    (int8 tables) and m = 80 (32-phase tables), and at P = 2 and P = 64 on
@@ -209,78 +209,60 @@ def host_exact_count(corpus: bytes, pat: bytes) -> int:
 HBM_BYTES_PER_S = 3.35e12
 INT_ISSUE_PER_S = 132 * 128 * 1.98e9
 
-# Instructions per unit of work, read from the kernels' SASS
-# (`cuobjdump -sass` of the sm_90a build, printed by phase 1 through
-# sass_loops; loads, address arithmetic and loop overhead included): kernel A's k = 1 step loop (dp_band.cu, KE = 1)
-# issues 80 instructions per 4 unrolled steps of 3 band cells; kernel C's
-# static and moving loops (dp_myers.cu) 103 and 125 per 4 unrolled steps.
-# The work of an exact scan is counted the same whatever implements it:
-# the early-exit byte compares it needs (bytes compared up to the first
+# Instructions per unit of work, counted from the work whatever implements
+# it, at the fewest instructions the card needs. The work of an exact scan
+# is the early-exit byte compares it needs (bytes compared up to the first
 # mismatch), 3 each (load, compare, branch). Kernels B, #8 and #7 compare
 # each pattern or piece at every position they own; kernel D compares each
 # piece's head bytes (its first min(li, 8) bytes, or min(8, li // 2) in the
 # banded tier) at every text position an owned window reaches (lanes
 # [0, limit + span) from o + s_lo), which any exact or banded piece test
 # must do at least. Steps of one design (a shift OR per window and shift,
-# the band on the survivors) are not counted: a bound
-# that counted them would credit a kernel that skips them with work it
-# does not do.
-BAND_K1_STEP_INSTR = 20
-MYERS_STATIC_STEP_INSTR = 103 / 4
-MYERS_MOVING_STEP_INSTR = 125 / 4
+# the band on the survivors) are not counted: a bound that counted them
+# would credit a kernel that skips them with work it does not do.
 COMPARE_OPS = 3
-# Kernel #6 (the mask kernels) is counted from its work, at the fewest
-# instructions the card needs, not from one design's SASS. A band cell is a
-# compare and three min-plus terms: four instructions for the two windows
-# of a paired 16-bit word on Hopper's DPX forms (XOR, VIADDMNMX, VIMNMX3,
-# VIADDMNMX), so 2 a window. A Myers step is Hyyro's bit-vector update with
-# each logic term of up to three inputs one LOP3: eq & vp, the add, xh and
-# xv (4), ph (2), mh (1), ph's and mh's shifts with their masks (4), the
-# centre bit and the count (3), vp (2) and vn (1), 17 in all, plus the
-# match word's load; the moving band re-indexes VP and VN first (3 more).
-# Where the band fits a 16-bit field (2k + 1 <= 15) one update advances two
-# windows packed in one word, for two match-word loads and one instruction
-# that joins the two words: 20 a pair (23 moving), 10 and 11.5 a window.
-MASK_BAND_CELL_INSTR = 2
-MASK_MYERS_STATIC_STEP_INSTR = 18
-MASK_MYERS_MOVING_STEP_INSTR = 21
-MASK_MYERS_PAIR_STATIC_STEP_INSTR = 20
-MASK_MYERS_PAIR_MOVING_STEP_INSTR = 23
+# The banded DP (kernels A, C, #4, #6 and #9, count and mask alike): a band
+# cell is a compare and three min-plus terms, four instructions for the two
+# windows of a paired 16-bit word on Hopper's DPX forms (XOR, VIADDMNMX,
+# VIMNMX3, VIADDMNMX), so 2 a window; a window costs m_p steps of
+# 2 min(k, m_max) + 1 cells per pattern. A Myers step is Hyyro's bit-vector
+# update with each logic term of up to three inputs one LOP3: eq & vp, the
+# add, xh and xv (4), ph (2), mh (1), ph's and mh's shifts with their masks
+# (4), the centre bit and the count (3), vp (2) and vn (1), 17 in all, plus
+# the match word's load; the moving band re-indexes VP and VN first (3
+# more). Where the band fits a 16-bit field (2k + 1 <= 15) one update
+# advances two windows packed in one word, for two match-word loads and one
+# instruction that joins the two words: 20 a pair (23 moving), 10 and 11.5
+# a window.
+BAND_CELL_INSTR = 2
+MYERS_STATIC_STEP_INSTR = 18
+MYERS_MOVING_STEP_INSTR = 21
+MYERS_PAIR_STATIC_STEP_INSTR = 20
+MYERS_PAIR_MOVING_STEP_INSTR = 23
 
 
-def band_k1_instr(owned: int, plens) -> int:
-    """Instructions of kernel A at k = 1 over ``owned`` windows."""
-    return owned * sum(plens) * BAND_K1_STEP_INSTR
+def band_instr(owned: int, plens, k: int) -> int:
+    """Least instructions of the band over ``owned`` windows: m_p steps of
+    2 min(k, m_p) + 1 cells per pattern (wider diagonals never reach
+    D[m_p][m_p])."""
+    return owned * sum(m * (2 * min(k, m) + 1) for m in plens) * BAND_CELL_INSTR
 
 
 def myers_instr(owned: int, plens, k: int) -> int:
-    """Instructions of kernel C over ``owned`` windows: min(k, m) static
-    steps and m - k moving steps per pattern."""
-    per_window = sum(min(k, m) * MYERS_STATIC_STEP_INSTR + max(m - k, 0) * MYERS_MOVING_STEP_INSTR
-                     for m in plens if m)
-    return int(owned * per_window)
-
-
-def mask_band_instr(owned: int, plens, k: int) -> int:
-    """Least instructions of kernel #6's band mode over ``owned`` windows:
-    m_p steps of 2k + 1 cells per pattern (k = ke: m_max > k here)."""
-    return owned * sum(plens) * (2 * k + 1) * MASK_BAND_CELL_INSTR
-
-
-def mask_myers_instr(owned: int, plens, k: int) -> int:
-    """Least instructions of kernel #6's Myers mode over ``owned`` windows:
-    a window pair per update where 2k + 1 <= 15, else one window."""
+    """Least instructions of the Myers band over ``owned`` windows: min(k, m)
+    static steps and m - k moving steps per pattern, a window pair per
+    update where 2k + 1 <= 15, else one window."""
     if 2 * k + 1 <= 15:
-        per_pair = sum(min(k, m) * MASK_MYERS_PAIR_STATIC_STEP_INSTR
-                       + max(m - k, 0) * MASK_MYERS_PAIR_MOVING_STEP_INSTR for m in plens if m)
+        per_pair = sum(min(k, m) * MYERS_PAIR_STATIC_STEP_INSTR
+                       + max(m - k, 0) * MYERS_PAIR_MOVING_STEP_INSTR for m in plens if m)
         return owned * per_pair // 2
-    return owned * sum(min(k, m) * MASK_MYERS_STATIC_STEP_INSTR
-                       + max(m - k, 0) * MASK_MYERS_MOVING_STEP_INSTR for m in plens if m)
+    return owned * sum(min(k, m) * MYERS_STATIC_STEP_INSTR
+                       + max(m - k, 0) * MYERS_MOVING_STEP_INSTR for m in plens if m)
 
 
 def sass_loops(lib_path: str, kernel: str, nested: bool = False, ops: bool = False) -> str:
     """Instruction counts of the innermost loops of ``kernel`` in the built
-    library's SASS (``cuobjdump -sass``), the source of the per-step counts
+    library's SASS (``cuobjdump -sass``), to set beside the work counted
     above: ``start-end: N instructions, L global and S shared loads`` for
     each backward branch that encloses no other. ``nested``: every loop
     instead, each counted without the loops inside it. ``ops``: each loop's
@@ -528,7 +510,7 @@ def phase_dp(rec, dev, n_rows: int = 4096) -> None:
         if record:
             owned = int(owned_lanes(n, wf, bound, start).sum())
             rec.measured(ms, plain, rows.numel() + pat.nbytes + 4 * len(plens),
-                         band_k1_instr(owned, plens), what)
+                         band_instr(owned, plens, k), what)
 
     pair = [p32.tobytes(), p50.tobytes()]
     full = n_rows * wf - 50 + 1
@@ -631,7 +613,8 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     for i, p in enumerate(six):
         plant(corpus, p, [q + 300 + 70 * i for q in pos], k=3, seed=75 + i)
 
-    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=1, timed=True, record=False):
+    def case(pats, k, n, start_row, bound, what, reps=5, plain_reps=1, timed=True, record=False,
+             keep=True):
         pat, _, plens, m_max = _pattern_table(pats, k)
         alph = tuple(sorted(set(b"".join(pats))))
         need(dp_kernel._myers_mode(k, alph, "int32", "myers", len(plens), m_max),
@@ -658,7 +641,7 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
         if record:
             owned = int(owned_lanes(n, wf, int(bound), start).sum())
             rec.measured(ms, plain_ms, rows.numel() + peq.numel() * 4 + 4 * len(plens),
-                         myers_instr(owned, plens, k), what)
+                         myers_instr(owned, plens, k), what, keep=keep)
 
     pair = [p32.tobytes(), p50.tobytes()]
     six_b = [p.tobytes() for p in six]
@@ -666,12 +649,17 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     for k in (3, 4, 8, 12, 14):
         case(pair, k, n_rows, 0, full, f"P=2 m=32,50 k={k} R={n_rows}")
         # k = 12 on six 50-mers: the k12_myers_dp cell's patterns
-        case(six_b, k, n_rows, 0, full, f"P=6 m=50 k={k} R={n_rows}", record=k == 12)
+        case(six_b, k, n_rows, 0, full, f"P=6 m=50 k={k} R={n_rows}", record=k == 12, keep=False)
     mid = torch.tensor(3 * wf + (n_rows - 13) * wf + 4321, device=dev)
     case(pair, 5, n_rows - 8, 3, mid,
          f"P=2 k=5 R={n_rows - 8} start>0, mid-row bound in device memory")
     case(six_b, 12, main_rows, 0, main_rows * wf - 50 + 1,
          f"P=6 m=50 k=12 R={main_rows} (a 256 MB chunk)", reps=3, timed=False)
+    # the density rescan's shape: the reference-shaped set's two distinct
+    # patterns at k = 3 (both windows of a thread in one word) on a chunk
+    case(pair, 3, main_rows, 0, main_rows * wf - 50 + 1,
+         f"P=2 m=32,50 k=3 R={main_rows} (the rescan's shape, a 256 MB chunk)", reps=3,
+         record=True)
 
 
 def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768, edge_rows: int = 512) -> None:
@@ -847,7 +835,7 @@ def phase_batch_dp(rec, dev, n_corpora: int = 40, lo: int = 64 << 10, hi: int = 
         if k == 1:  # count_batch's k = 1 main path
             owned = int(limits.sum())
             rec.measured(ms, plain, rows.nbytes + meta.nbytes + pat.nbytes + 4 * meta.shape[0] * len(plens),
-                         band_k1_instr(owned, plens), what)
+                         band_instr(owned, plens, k), what)
 
 
 def phase_mask(rec, dev, n_rows: int = 512, edge_rows: int = 40) -> None:
@@ -901,7 +889,7 @@ def phase_mask(rec, dev, n_rows: int = 512, edge_rows: int = 40) -> None:
             f"{counts[:2].tolist()}, kernel {ms:.3f} ms, plain {plain:.3f} ms; then on find's "
             f"path: bit pack {pack:.3f} ms, per-row top-{fused.POS_CAP} {topk:.3f} ms")
         owned = int(owned_lanes(n_rows, wf, bound).sum())
-        instr = mask_band_instr(owned, plens, k) if mode == "band" else mask_myers_instr(owned, plens, k)
+        instr = band_instr(owned, plens, k) if mode == "band" else myers_instr(owned, plens, k)
         rec.measured(ms, plain, rows.numel() + pat.nbytes + 4 * len(plens) + mask.numel(),
                      instr, what, keep=k == 1)
     # edge cases, small: each against the plain version, counts and mask
@@ -1067,7 +1055,7 @@ def phase_dyn(rec, dev, n_rows: int = 4096) -> None:
             owned = int(owned_lanes(n_rows, wf, bound, start).sum())
             # rows, table, lengths, bound and start in; the counts out
             rec.measured(ms, plain_ms, rows.numel() + pat.nbytes + 4 * len(plens) + 8 + 4 * len(plens),
-                         band_k1_instr(owned, now), f"k=1 P=8 R={n_rows}")
+                         band_instr(owned, now, 1), f"k=1 P=8 R={n_rows}")
 
 
 def phase_pieces(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
@@ -2142,10 +2130,10 @@ def run(t_start: float) -> dict:
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
         f"kernels built/loaded in {build_s:.1f} s, host library (g++) in {host_s:.1f} s; "
         f"ptxas: {' | '.join(regs)}")
-    for kernel in ("dp_band_kernelILi1EE", "dp_myers_kernel"):
-        say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel)}")
-    # kernel #6: the band's DPX body at k = 1 (text staged), and the Myers body
-    for kernel in ("band_mask_kernelILi1ELb1E", "myers_mask_kernel"):
+    # kernels A and #6: the paired DPX band at k = 1 (text staged); C and #6:
+    # the Myers bodies (dp_pair.cuh)
+    for kernel in ("dp_band_kernelILi1ELb1E", "band_mask_kernelILi1ELb1E", "dp_myers_kernel",
+                   "myers_mask_kernel"):
         say(f"phase 1 SASS inner loops of {kernel}: {sass_loops(str(_build.build()), kernel, ops=True)}")
         say(f"phase 1 ptxas of {kernel}: {ptxas_of(_build.build_log(), kernel)}")
     # the exact-scan kernels (B, #7, #8) and kernel D

@@ -359,7 +359,7 @@ def test_dp_mask_kernel_matches_plain(dev, k, dp_impl, case):
               alphabet=tuple(b"ACGT"), dp_impl=dp_impl)
     assert dp_kernel._is_myers(k, m_max, plens, tuple(b"ACGT"), dp_impl) == (dp_impl == "myers")
     bound = wf + (n_rows - 4) * wf + 333
-    launches = 1 if dp_impl == "myers" else -(-n_pad // dp_kernel._mask_group(pat.shape[1]))
+    launches = 1 if dp_impl == "myers" else -(-n_pad // dp_kernel._table_group(pat.shape[1]))
     assert launches == (2 if case == "many" else 1)
     before = dp_kernel.MASK_LAUNCHES
     counts, mask = dp_kernel.scan_folded_dp_mask(rows, dpat, bound, wf, **kw)
@@ -589,3 +589,90 @@ def test_scanner_conv_k0_on_card_matches_oracle(dev, lengths, cfg):
     corpora = [c[:70_000], c[70_000:70_100], c[100_000:]]
     got = sc.count_batch(corpora)
     assert [g.tolist() for g in got] == [count_matches(x, pats, 0) for x in corpora]
+
+
+@pytest.mark.parametrize(
+    "k,dp_impl,case",
+    [(0, "band", "random"), (1, "band", "random"), (3, "band", "random"),
+     (3, "myers", "random"), (7, "myers", "random"),  # the widest packed Myers band
+     (8, "myers", "random"), (12, "myers", "random"),  # two chains a thread
+     (16, "band", "random"), (17, "band", "random"),  # registers, then scratch
+     (1, "band", "odd-wf"), (3, "myers", "odd-wf"),  # wf % 512 != 0: a partial last tile
+     (1, "band", "all-A"), (3, "myers", "all-A"),  # two hits a thread
+     (1, "band", "foreign"), (2, "myers", "foreign"),  # NUL and bytes outside ACGT
+     (1, "band", "long")],  # a 40 000-byte pattern: table past 32 KB, read from global
+)
+def test_dp_pair_count_kernels_match_plain(dev, k, dp_impl, case):
+    # kernels A and C on csrc/dp_pair.cuh's tile walk, in count, batch and
+    # (band) dynamic-length mode: start and bound mid-row, an odd number of
+    # windows owned in the bound's row (a thread's pair straddles it), a
+    # bound in device memory, per-block batch limits of 0, odd and whole
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import fold_corpus
+
+    wf, n_rows = (1000 if case == "odd-wf" else 1024), 40
+    alphabet = b"ACGT\x00N\xff" if case == "foreign" else b"ACGT"
+    corpus = _corpus(n_rows * wf + 512 + (50_000 if case == "long" else 0), 400 + k, alphabet)
+    if case == "long":
+        pats = [bytes(corpus[3000:43000]), b"ACGTTGCAAC"]
+    elif case == "all-A":
+        corpus[:] = ord("A")
+        pats = [b"A" * 40, b"A" * 12, b"A" * (k + 1)]
+    elif case == "foreign":
+        pats = [bytes(_corpus(40, 7)), bytes(_corpus(12, 8)), b"ACGTTGCAAC"]
+        corpus[3000:3040] = np.frombuffer(pats[0], np.uint8)
+        corpus[7000:7012] = np.frombuffer(pats[1], np.uint8)
+    else:
+        pats = [bytes(corpus[3000:3040]), bytes(corpus[7000:7012]), b"ACGTTGCAAC"]
+    pat, _, plens, m_max, halo = _tables(pats, k)
+    rows = torch.from_numpy(fold_corpus(corpus, wf, n_rows, wf, halo)).to(dev)
+    dpat = torch.from_numpy(pat).to(dev)
+    alph = tuple(b"ACGT")
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, alphabet=alph, dp_impl=dp_impl)
+    assert dp_kernel._is_myers(k, m_max, plens, alph, dp_impl) == (dp_impl == "myers")
+    bound = wf + (n_rows - 4) * wf + 333
+    ref = dp_kernel.scan_folded_dp_ref(rows, dpat, bound, wf, k=k, m_max=m_max, wf=wf,
+                                       halo=halo, plens=plens)
+    for b in (bound, torch.tensor(bound, device=dev)):
+        got = dp_kernel.scan_folded_dp(rows, dpat, b, wf, **kw)
+        assert got.tolist() == ref.tolist()
+    assert int(ref.sum()) >= 2
+    if case == "all-A":  # every owned window of every real pattern
+        assert ref[:3].tolist() == [bound - wf] * 3
+    # batch mode: per-block [bound, start] pairs over the same rows
+    limits = [0, 3 * wf + 77, 8 * wf, 5 * wf + 1, 2 * wf]
+    meta = torch.tensor([[b * 8 * wf + lim, b * 8 * wf] for b, lim in enumerate(limits)],
+                        dtype=torch.int32, device=dev)
+    before = dp_kernel.BATCH_LAUNCHES
+    got = dp_kernel.scan_folded_dp_batch(rows, dpat, meta, **kw)
+    assert dp_kernel.BATCH_LAUNCHES == before + 1
+    want = dp_kernel.scan_folded_dp_batch_ref(rows, dpat, meta, **kw)
+    assert torch.equal(got, want) and int(got[0].sum()) == 0
+    if dp_impl == "band":  # kernel #9: lengths outside [1, m_max] count nothing
+        lens = (plens[0], m_max + 1, plens[2] if len(pats) > 2 else 0, -1, 0, 0, 0, 0)
+        dplen = torch.tensor(lens, dtype=torch.int32, device=dev)
+        got = dp_kernel.scan_folded(rows, dpat, dplen, torch.tensor(bound, device=dev),
+                                    torch.tensor(wf, device=dev), k=k, m_max=m_max, wf=wf, halo=halo)
+        live = torch.tensor([max(m, 0) if m <= m_max else 0 for m in lens], dtype=torch.int32)
+        want = dp_kernel.scan_folded_ref(rows, dpat, live.to(dev), bound, wf, k=k, m_max=m_max,
+                                         wf=wf, halo=halo)
+        assert got.tolist() == want.tolist()
+
+
+@pytest.mark.parametrize("k", [16382, 20000])
+def test_dp_band_count_past_16_bit_cells(dev, k):
+    # k + 1 past the paired cells' 16 bits with m_max <= 16 (the register
+    # path): D[m][m] <= m <= k, so every owned window of a live pattern
+    # counts, as the plain band says for any k >= m
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import fold_corpus
+
+    wf, n_rows = 1024, 16
+    corpus = _corpus(n_rows * wf + 512, 7)
+    pats = [bytes(corpus[100:112]), b"ACGTTGCA"]
+    pat, _, plens, m_max, halo = _tables(pats, k)
+    rows = torch.from_numpy(fold_corpus(corpus, 0, n_rows, wf, halo)).to(dev)
+    bound = (n_rows - 2) * wf + 77
+    got = dp_kernel.scan_folded_dp(rows, torch.from_numpy(pat).to(dev), bound, 0, k=k,
+                                   m_max=m_max, wf=wf, halo=halo, plens=plens)
+    assert got.tolist() == [bound, bound] + [0] * 6
