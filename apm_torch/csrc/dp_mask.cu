@@ -19,6 +19,15 @@
 // C; here each thread also stores its two verdicts as one 16-bit word, so
 // a warp writes 64 contiguous bytes per pattern, and every tile, owned or
 // not, writes its verdicts.
+//
+// Any k: the band kernel on the register path (ke = min(k, m_max) <=
+// kRegMax) decides at kv = min(k, kCapMax - 2), so its 16-bit cells hold
+// any k, as kernel A's count does (dp_band.cu). Past the cap, k >= 16383 >
+// kRegMax, so ke = m_max <= 16 there: every live pattern has m <= 16 < kv,
+// and D[m][m] <= m, so every owned window's verdict is 1 at kv and at k
+// alike, mask and count. The pattern table keeps the caller's k: its rows
+// are laid out for it (offset k - ke). The wide path (int32 cells) decides
+// at k itself.
 #include "dp_pair.cuh"
 
 using namespace apm::pair;
@@ -59,6 +68,7 @@ __global__ void __launch_bounds__(kThreads, band_blocks(KE)) band_mask_kernel(Ar
   }
 
   const int64_t bound = a.dbound != nullptr ? *a.dbound : a.bound;
+  const int kv = KE >= 0 ? min(a.k, kCapMax - 2) : a.k;  // the verdict's k (see above)
   const int64_t tpr = tiles_per_row(a);
   const int64_t n_tiles = a.n_rows * tpr;
   // Tile t needs text iff its first lane is owned.
@@ -105,10 +115,10 @@ __global__ void __launch_bounds__(kThreads, band_blocks(KE)) band_mask_kernel(Ar
           const SharedSrc s{
               reinterpret_cast<const uint8_t*>(s_txt + buf * a.stage_words) + 2 * threadIdx.x,
               s_pat + p0};
-          hits = band_hits<KE>(s, a, a.k, m, own, cell);
+          hits = band_hits<KE>(s, a, kv, m, own, cell);
         } else {
           const GlobalSrc s{a.rows + r * a.row_stride + lane, a.pat + p0, a.row_stride - lane};
-          hits = band_hits<KE>(s, a, a.k, m, own, cell);
+          hits = band_hits<KE>(s, a, kv, m, own, cell);
         }
       }
       store_pair(a, vrow + (int64_t)p * a.wf, lane, hits);
@@ -220,7 +230,7 @@ extern "C" int apm_dp_band_mask(const uint8_t* rows, int64_t n_rows, int64_t row
                                 void* stream) {
   const int m_max = (int)(pat_stride - 2 * (int64_t)k);
   if (bad_common(n_rows, row_stride, n_pat, m_max, wf, mask, mask_stride) || k < 0 ||
-      k + 1 >= kCapMax || ke != std::min(k, m_max) ||
+      ke != std::min(k, m_max) ||
       (ke > kRegMax && (scratch == nullptr || grid <= 0))) {
     return (int)cudaErrorInvalidValue;
   }

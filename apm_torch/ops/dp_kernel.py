@@ -566,9 +566,13 @@ def _reduce(hits, rows, bound, start, meta, mask, wf):
 def _band_verdicts(rows, pat, *, k, wf, plens) -> torch.Tensor:
     """Verdicts of the clamped band of ``apm/ops/xla_engine.py::
     scan_block_xla``: one step loop over ``x`` advancing every live
-    pattern's ``2k + 1`` diagonals as ``(P_live, R, wf)`` int32 tensors,
-    cells clamped at ``k + 1``, ``D[m_p][m_p]`` captured at step
-    ``x == m_p``."""
+    pattern's diagonals as ``(P_live, R, wf)`` int32 tensors, cells clamped
+    at ``k + 1``, ``D[m_p][m_p]`` captured at step ``x == m_p``. Only the
+    ``2 ke + 1`` diagonals ``|d| <= ke = min(k, max m_p)`` are kept, as the
+    kernels keep them: ``D[m][m]`` reads cells with ``0 <= x, y <= m``
+    alone, so wider diagonals never reach it, and the verdict is ``apm``'s
+    at every k (at k >= 16383 the band would otherwise hold 32 767
+    tensors)."""
     dev = rows.device
     out = torch.zeros((len(plens), rows.shape[0], wf), dtype=torch.bool, device=dev)
     live = [p for p, m in enumerate(plens) if m > 0]
@@ -577,25 +581,26 @@ def _band_verdicts(rows, pat, *, k, wf, plens) -> torch.Tensor:
     n_rows = rows.shape[0]
     cap = k + 1
     lens = [plens[p] for p in live]
-    pl = pat[live].to(torch.int32)  # (L, m_max + 2k)
+    ke = min(k, max(lens))
+    pl = pat[live].to(torch.int32)[:, k - ke :]  # (L, m_max + k + ke): column y - 1 + ke
     shape = (len(live), n_rows, wf)
     band = [
         torch.full(shape, d if d >= 0 else cap, dtype=torch.int32, device=dev)
-        for d in range(-k, k + 1)
+        for d in range(-ke, ke + 1)
     ]
     res = torch.full(shape, cap, dtype=torch.int32, device=dev)
     for x in range(1, max(lens) + 1):
         tx = rows[:, x - 1 : x - 1 + wf].to(torch.int32)[None]  # (1, R, wf)
         prev = None
         new = []
-        for di in range(2 * k + 1):
-            y = x + di - k
+        for di in range(2 * ke + 1):
+            y = x + di - ke
             if y == 0:
                 v = torch.full(shape, min(x, cap), dtype=torch.int32, device=dev)
             else:
                 pc = pl[:, x - 1 + di].view(-1, 1, 1)
                 v = band[di] + (tx != pc).to(torch.int32)
-                if di < 2 * k:
+                if di < 2 * ke:
                     v = torch.minimum(v, band[di + 1] + 1)
                 if prev is not None:
                     v = torch.minimum(v, prev + 1)
@@ -605,7 +610,7 @@ def _band_verdicts(rows, pat, *, k, wf, plens) -> torch.Tensor:
         band = new
         for i, m in enumerate(lens):
             if m == x:
-                res[i] = band[k][i]
+                res[i] = band[ke][i]
     out[live] = res <= k
     return out
 

@@ -124,10 +124,14 @@ def banded_distances(corpus: Bytes, pattern: Bytes, k: int) -> np.ndarray:
     """Clamped distances ``min(dist_j, k+1)`` for every window start ``j``.
 
     Vectorized over all ``n - k`` window starts at once. Maintains the DP band
-    ``B[d] = D[x][x+d]`` for ``d in [-k, k]`` with every cell clamped at
-    ``CAP = k + 1``; clamping commutes with the min-plus recurrence, so the
-    returned value is exactly ``min(true_distance, k+1)`` and the predicate
-    ``dist <= k`` is preserved.
+    ``B[d] = D[x][x+d]`` for ``d in [-ke, ke]``, ``ke = min(k, m)``, with
+    every cell clamped at ``CAP = k + 1``; clamping commutes with the
+    min-plus recurrence, so the returned value is exactly
+    ``min(true_distance, k+1)`` and the predicate ``dist <= k`` is
+    preserved. ``apm``'s oracle keeps all ``2k + 1`` diagonals; the result
+    is the same, since ``D[s][s]`` (``s <= m``) reads cells with
+    ``0 <= x, y <= s`` alone, but here a band past the pattern's length
+    (k >= 16383 against a 16-byte pattern) costs what ``k = m`` costs.
     """
     buf = as_u8(corpus)
     p = as_u8(pattern)
@@ -143,33 +147,34 @@ def banded_distances(corpus: Bytes, pattern: Bytes, k: int) -> np.ndarray:
     # Pad text so step reads past EOF are in-bounds (their cells are garbage
     # that can never influence a captured result — see SURVEY.md §7).
     bufp = np.concatenate([buf, np.zeros(m, dtype=np.uint8)])
-    # Pad pattern by k on both sides so index y-1+k is always in range.
-    ppad = np.concatenate([np.zeros(k, np.uint8), p, np.zeros(k, np.uint8)])
+    ke = min(k, m)
+    # Pad pattern by ke on both sides so index y-1+ke is always in range.
+    ppad = np.concatenate([np.zeros(ke, np.uint8), p, np.zeros(ke, np.uint8)])
 
-    band = np.full((2 * k + 1, nw), cap, dtype=np.int32)
-    for d in range(0, k + 1):
-        band[k + d, :] = d  # row x=0: D[0][y] = y, y = d
+    band = np.full((2 * ke + 1, nw), cap, dtype=np.int32)
+    for d in range(0, ke + 1):
+        band[ke + d, :] = d  # row x=0: D[0][y] = y, y = d
     res = np.full(nw, cap, dtype=np.int32)
 
     for x in range(1, m + 1):
         tx = bufp[w + (x - 1)]
         new = np.empty_like(band)
         prev = np.full(nw, cap, dtype=np.int32)  # insertion chain B_x[d-1]
-        for d in range(-k, k + 1):
+        for d in range(-ke, ke + 1):
             y = x + d
-            pc = ppad[y - 1 + k]
+            pc = ppad[y - 1 + ke]
             c = (tx != pc).astype(np.int32)
-            sub = band[k + d] + c
-            dele = (band[k + d + 1] if d < k else np.full(nw, cap, np.int32)) + 1
+            sub = band[ke + d] + c
+            dele = (band[ke + d + 1] if d < ke else np.full(nw, cap, np.int32)) + 1
             v = np.minimum(np.minimum(sub, dele), prev + 1)
             if y == 0:
-                # boundary column D[x][0] = x (only reachable when x <= k)
+                # boundary column D[x][0] = x (only reachable when x <= ke)
                 v = np.full(nw, x, dtype=np.int32)
             v = np.minimum(v, cap)
-            new[k + d] = v
+            new[ke + d] = v
             prev = v
         band = new
-        res = np.where(size == x, band[k], res)
+        res = np.where(size == x, band[ke], res)
     return res
 
 

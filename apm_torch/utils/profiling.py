@@ -1,14 +1,17 @@
-"""Throughput metering (port of ``apm/utils/profiling.py``).
+"""Tracing, profiling and throughput metering (port of
+``apm/utils/profiling.py``).
 
+* :func:`trace` — a ``torch.profiler`` bracket around a scan that writes a
+  Chrome trace (``apm``'s is a ``jax.profiler`` one), viewable in
+  Perfetto or ``chrome://tracing``; :func:`profiler` is the profiler it
+  opens;
 * :class:`ScanStats` / :class:`Meter` — bytes/s throughput accounting, the
   north-star metric;
 * :class:`Spans` — named per-phase times of one scan, recorded where the
   work is dispatched (``Meter.trace`` turns them on);
+* :class:`Stopwatch` — a minimal phase timer;
 * :func:`info` — the ``APM_INFO`` analog, gated by config/env instead of a
   compile-time ``-D`` flag.
-
-``apm``'s ``trace`` (a ``jax.profiler`` bracket) has no counterpart yet; a
-``torch.profiler`` one is measurement work in ``ROADMAP.md``.
 """
 
 from __future__ import annotations
@@ -18,13 +21,53 @@ import sys
 import time
 from contextlib import contextmanager
 from dataclasses import dataclass, field
-from typing import Dict, List
+from typing import Dict, Iterator, List
 
 
 def info(msg: str, *, enabled: bool = True) -> None:
     """APM_INFO analog: runtime-gated progress line on stderr."""
     if enabled or os.environ.get("APM_INFO"):
         print(f"[apm] {msg}", file=sys.stderr, flush=True)
+
+
+def profiler(cpu: bool = True):
+    """A ``torch.profiler.profile`` over the host's operators (``cpu``)
+    and, when a card is present, its kernels, copies and memsets."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU] if cpu else []
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    return profile(activities=acts)
+
+
+@contextmanager
+def trace(log_dir: str = "/tmp/apm_trace") -> Iterator[str]:
+    """Capture a ``torch.profiler`` trace around a scan.
+
+    Usage::
+
+        with profiling.trace("/tmp/apm_trace"):
+            scanner.count(corpus)
+
+    On exit, as ``apm``'s, the trace is written whether or not the block
+    raised, to ``log_dir/trace_<pid>_<ns>.json`` (Chrome trace format); an
+    exception from the block propagates."""
+    import torch
+
+    os.makedirs(log_dir, exist_ok=True)
+    prof = profiler()
+    prof.start()
+    try:
+        yield log_dir
+    finally:
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the block's kernels end inside the trace
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+        )
 
 
 @dataclass
@@ -147,3 +190,18 @@ class Meter:
     @property
     def aggregate_mb_per_s(self) -> float:
         return self.total_bytes / max(self.total_seconds, 1e-12) / 1e6
+
+
+class Stopwatch:
+    """Minimal phase timer (the gettimeofday-bracket analog)."""
+
+    def __init__(self) -> None:
+        self.t0 = time.perf_counter()
+        self.laps: List[tuple] = []
+
+    def lap(self, name: str) -> float:
+        now = time.perf_counter()
+        dt = now - self.t0
+        self.laps.append((name, dt))
+        self.t0 = now
+        return dt

@@ -66,7 +66,8 @@ Phases, one line each; any failure exits non-zero:
    mid-row bound: counts and verdicts byte for byte, each timed against its
    bound; the bit pack and per-row top-k timed; edge cases at 40 rows
    (k = 16 and 17, m < k, NUL and foreign bytes, all-A text, an odd wf, a
-   bound in device memory);
+   bound in device memory; k = 16382 and 20000 at m_max <= 16, past the
+   paired cells' 16 bits: every owned window a match);
 3c. kernel #8 (the batch mode of kernel B) against its plain version on the
    same kind of staging at P = 2, P = 64 (int8 tables) and m = 70, 80, and
    on 6 corpora patterns of 1, 3 and 7 bytes and all-A text against A^m;
@@ -97,10 +98,12 @@ Phases, one line each; any failure exits non-zero:
    that order); at k = 0 also
    ``corr_impl="conv"`` (the batched conv), gated by the kernel #8 route's
    counts;
-8. ``Scanner.find``: 256 MB k = 1 sparse (kernel D, then #6) and two 4 MB
-   dense cells of a 9-byte pattern at k = 2 (the mask sweep: the ``gpos``
-   decode on random text, the packed-mask fallback on all-A text), gated by
-   ``count``, a 1 MB oracle prefix and a 32 MB cut under the plain versions;
+8. ``Scanner.find``: 256 MB k = 1 sparse (kernel D, then #6), 1 MB at
+   k = 16383 (12- and 16-byte patterns: every window < n - k, equal to the
+   plain versions' positions on the card) and two 4 MB dense cells of a
+   9-byte pattern at k = 2 (the mask sweep: the ``gpos`` decode on random
+   text, the packed-mask fallback on all-A text), gated by ``count``, a 1 MB
+   oracle prefix and a 32 MB cut under the plain versions;
 9. the CLI with ``--positions`` against lines built from the oracle;
 10. ``apm_torch.graft_entry.entry()``: ``fn(*args)`` on the card (kernel
    #9), equal to its plain version and to the oracle over the device-owned
@@ -126,7 +129,14 @@ Phases, one line each; any failure exits non-zero:
    ``--multihost-worker``, with a timeout; a non-zero exit fails the
    phase); (e) ``graft_entry.dryrun_multichip([cuda:0] * 4)``;
 13. ``apm_torch.utils.fuzz.run_fuzz`` on the card: 36 trials, seed 0,
-   corpora of 64 to 512 KB, the oracle on the host's threads.
+   corpora of 64 to 512 KB, the oracle on the host's threads;
+14. the roofline and the trace (``apm_torch.utils.roofline``,
+   ``profiling.trace``), run after the breakdowns: ``mfu_fields`` of every
+   warm frozen ``count`` of phases 4 and 5b at the MB/s they measured (a
+   share or ``hbm_frac`` above 1 fails), one warm k = 3 call traced (the
+   trace must name kernels D and C), and one k = 0 ``corr_impl="conv"``
+   call traced, printing its kernels (cuDNN's conv: the evidence for the
+   TF32 tensor-core peak).
 
 The main path is the first ``Scanner.count`` of each end-to-end path of
 phases 4, 5 and 5b, the first ``count_batch`` or ``find`` of each path
@@ -153,6 +163,30 @@ import tempfile
 import time
 
 import numpy as np
+
+# The least time the card could take for a kernel's work (``bound_ms``) is
+# the larger of its bytes over the H100's memory rate and its integer
+# instructions over the card's issue rate (``PEAK_HBM``, ``PEAK_INT_ISSUE``);
+# the instructions are counted from the work whatever implements it
+# (``COMPARE_OPS``, ``BAND_CELL_INSTR``, the ``MYERS_*_STEP_INSTR``, and the
+# counters ``band_instr``, ``myers_instr``, ``compare_ops``, ``filter_ops``).
+# All of them live in ``apm_torch.utils.roofline``, whose per-byte models
+# give phase 14's shares.
+from apm_torch.utils.roofline import (
+    BAND_CELL_INSTR,
+    COMPARE_OPS,
+    MYERS_MOVING_STEP_INSTR,
+    MYERS_PAIR_MOVING_STEP_INSTR,
+    MYERS_PAIR_STATIC_STEP_INSTR,
+    MYERS_STATIC_STEP_INSTR,
+    PEAK_HBM,
+    PEAK_INT_ISSUE,
+    band_instr,
+    compare_ops,
+    filter_ops,
+    mfu_fields,
+    myers_instr,
+)
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -195,69 +229,6 @@ def host_exact_count(corpus: bytes, pat: bytes) -> int:
         n += 1
         i = corpus.find(pat, i + 1)
     return n
-
-
-# The least time the card could take for a kernel's work (``bound_ms``) is
-# the larger of its bytes over the H100's memory rate (3.35 TB/s) and its
-# integer instructions over the card's issue rate: each of an SM's four
-# schedulers issues one 32-lane instruction per clock, so 132 SMs x 128
-# lanes x 1.98 GHz boost clock (the float32 row of the card's table, 67
-# TFLOP/s, is the same issue rate at two flops per FMA). Integer work uses
-# both the INT32 pipe and the FMA pipe (nvcc emits IMAD forms of adds and
-# moves), so the INT32 pipe alone (64 lanes per SM) is not a ceiling. Both
-# rates are the published peaks of the SXM part at 700 W.
-HBM_BYTES_PER_S = 3.35e12
-INT_ISSUE_PER_S = 132 * 128 * 1.98e9
-
-# Instructions per unit of work, counted from the work whatever implements
-# it, at the fewest instructions the card needs. The work of an exact scan
-# is the early-exit byte compares it needs (bytes compared up to the first
-# mismatch), 3 each (load, compare, branch). Kernels B, #8 and #7 compare
-# each pattern or piece at every position they own; kernel D compares each
-# piece's head bytes (its first min(li, 8) bytes, or min(8, li // 2) in the
-# banded tier) at every text position an owned window reaches (lanes
-# [0, limit + span) from o + s_lo), which any exact or banded piece test
-# must do at least. Steps of one design (a shift OR per window and shift,
-# the band on the survivors) are not counted: a bound that counted them
-# would credit a kernel that skips them with work it does not do.
-COMPARE_OPS = 3
-# The banded DP (kernels A, C, #4, #6 and #9, count and mask alike): a band
-# cell is a compare and three min-plus terms, four instructions for the two
-# windows of a paired 16-bit word on Hopper's DPX forms (XOR, VIADDMNMX,
-# VIMNMX3, VIADDMNMX), so 2 a window; a window costs m_p steps of
-# 2 min(k, m_max) + 1 cells per pattern. A Myers step is Hyyro's bit-vector
-# update with each logic term of up to three inputs one LOP3: eq & vp, the
-# add, xh and xv (4), ph (2), mh (1), ph's and mh's shifts with their masks
-# (4), the centre bit and the count (3), vp (2) and vn (1), 17 in all, plus
-# the match word's load; the moving band re-indexes VP and VN first (3
-# more). Where the band fits a 16-bit field (2k + 1 <= 15) one update
-# advances two windows packed in one word, for two match-word loads and one
-# instruction that joins the two words: 20 a pair (23 moving), 10 and 11.5
-# a window.
-BAND_CELL_INSTR = 2
-MYERS_STATIC_STEP_INSTR = 18
-MYERS_MOVING_STEP_INSTR = 21
-MYERS_PAIR_STATIC_STEP_INSTR = 20
-MYERS_PAIR_MOVING_STEP_INSTR = 23
-
-
-def band_instr(owned: int, plens, k: int) -> int:
-    """Least instructions of the band over ``owned`` windows: m_p steps of
-    2 min(k, m_p) + 1 cells per pattern (wider diagonals never reach
-    D[m_p][m_p])."""
-    return owned * sum(m * (2 * min(k, m) + 1) for m in plens) * BAND_CELL_INSTR
-
-
-def myers_instr(owned: int, plens, k: int) -> int:
-    """Least instructions of the Myers band over ``owned`` windows: min(k, m)
-    static steps and m - k moving steps per pattern, a window pair per
-    update where 2k + 1 <= 15, else one window."""
-    if 2 * k + 1 <= 15:
-        per_pair = sum(min(k, m) * MYERS_PAIR_STATIC_STEP_INSTR
-                       + max(m - k, 0) * MYERS_PAIR_MOVING_STEP_INSTR for m in plens if m)
-        return owned * per_pair // 2
-    return owned * sum(min(k, m) * MYERS_STATIC_STEP_INSTR
-                       + max(m - k, 0) * MYERS_MOVING_STEP_INSTR for m in plens if m)
 
 
 def sass_loops(lib_path: str, kernel: str, nested: bool = False, ops: bool = False) -> str:
@@ -312,7 +283,7 @@ def ptxas_of(log: str, kernel: str) -> str:
 def bound_of(n_bytes: float, ops: float):
     """``(bound_ms, bound_by)`` of work that moves ``n_bytes`` and issues
     ``ops`` integer instructions."""
-    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / INT_ISSUE_PER_S
+    t_bytes, t_ops = n_bytes / PEAK_HBM, ops / PEAK_INT_ISSUE
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -320,46 +291,6 @@ def owned_lanes(n_rows, wf, bound, start=0):
     """(R,) owned lanes of staged rows under a window bound, on the host."""
     r = np.arange(n_rows, dtype=np.int64)
     return np.clip(bound - start - r * wf, 0, wf)
-
-
-def compare_ops(rows, seqs, limits, wf, width=None) -> int:
-    """Integer operations of early-exit byte compares over the owned
-    windows of staged rows (the data decides where each exits): for each
-    ``(bytes, offset)`` in ``seqs``, a window at lane ``l`` compares
-    ``bytes`` with the text at ``l + offset`` until the first mismatch.
-    ``limits[r]`` lanes of row ``r`` are scanned, of ``width`` (default
-    ``wf``) positions per row."""
-    import torch
-
-    dev = rows.device
-    width = width or wf
-    lane = torch.arange(width, device=dev)
-    own = lane[None, :] < torch.as_tensor(np.asarray(limits), device=dev)[:, None]
-    total = 0
-    for seq, off in seqs:
-        alive = own.clone()
-        for i, b in enumerate(seq):
-            n = int(alive.sum())
-            if n == 0:
-                break
-            total += n
-            alive &= rows[:, off + i : off + i + width] == int(b)
-    return total * COMPARE_OPS
-
-
-def filter_ops(rows, raw, plens, k, limits, wf) -> int:
-    """Integer operations of kernel D's work on these inputs (the rule
-    above): each piece's head bytes compared, up to the first mismatch, at
-    every position an owned window of its row reaches."""
-    from apm_torch.ops.filter_kernel import piece_layout
-
-    table, pstart = piece_layout(tuple(int(m) for m in plens), k)
-    total = 0
-    for p in range(len(plens)):
-        for off, span, _li, _kp, o, _t, n_head, _n in table[pstart[p] : pstart[p + 1]].tolist():
-            reach = np.where(limits > 0, limits + span, 0)
-            total += compare_ops(rows, [(raw[p, o : o + n_head], off)], reach, wf, width=wf + span)
-    return total
 
 
 class KernelRecord:
@@ -426,6 +357,9 @@ class MainPath:
             "dp_dyn": (dp_kernel, "DYN_LAUNCHES"),
         }
         self.total = dict.fromkeys(self.counters, 0)
+        # (cell, corpus bytes, warm frozen MB/s, mfu_fields) of each warm
+        # frozen count that cold_warm timed, for phase 14
+        self.shares = []
 
     def reset(self):
         for mod, attr in self.counters.values():
@@ -847,7 +781,8 @@ def phase_mask(rec, dev, n_rows: int = 512, edge_rows: int = 40) -> None:
     one update a window pair where 2k + 1 <= 15).
     Also times the bit pack and the per-row top-k that follow it on find's
     path. Edge cases at ``edge_rows`` rows: k = 16 and 17 (the register
-    limit, then the scratch path), patterns shorter than k, NUL and bytes
+    limit, then the scratch path), k = 16382 and 20000 at m_max <= 16
+    (past the paired cells' 16 bits), patterns shorter than k, NUL and bytes
     outside the alphabet, all-A text (every window a hit), an odd wf (byte
     stores, unaligned rows), Myers at k = 8 (two chains, not packed), a
     40 000-byte pattern (its table read from global memory), 200 patterns
@@ -908,7 +843,11 @@ def phase_mask(rec, dev, n_rows: int = 512, edge_rows: int = 40) -> None:
              (1, "band", base, mixed, ew - 1), (3, "myers", base, mixed, ew - 1),
              (8, "myers", base, mixed, ew),  # too wide to pack: two chains a thread
              (1, "band", base, [bytes(base[3000:43000]), b"ACGTTGCAAC"], ew),  # table from global
-             (1, "band", base, [bytes(base[q : q + 50]) for q in range(1000, 20_400, 97)], ew)]
+             (1, "band", base, [bytes(base[q : q + 50]) for q in range(1000, 20_400, 97)], ew),
+             # past the paired cells' 16 bits (k + 1 >= 2^14), m_max <= 16:
+             # the register path decides at k' = 16382, every owned window hits
+             (16382, "band", base, [bytes(base[3000:3012]), b"ACGTTGCA"], ew),
+             (20000, "band", base, [bytes(base[3000:3016]), b"ACGTTGCA"], ew)]
     for k, impl, text, pats, w in cases:
         pat, _, plens, m_max = _pattern_table(pats, k)
         halo = round_up(m_max + 2 * k, 128)
@@ -927,6 +866,8 @@ def phase_mask(rec, dev, n_rows: int = 512, edge_rows: int = 40) -> None:
             rec.compare(got[0], ref[0], what + " counts")
             rec.compare(got[1], ref[1], what + " mask")
         need(int(ref[0].sum()) > 0, f"kernel #6 {what}: no matches at all")
+        need(k < 16383 or ref[0][: len(pats)].tolist() == [bound - w] * len(pats),
+             f"kernel #6 {what}: not every owned window matched")
         say(f"phase 2d kernel #6 {what}: counts and mask equal (bound as a value and on the "
             f"device), counts {ref[0][:len(pats)].tolist()}")
 
@@ -1261,7 +1202,9 @@ def _prefix_positions(c, pat, k, n):
 
 def phase_e2e_find(main, dev, mb: int = 256, dense_mb: int = 4, cut_mb: int = 32) -> None:
     """Scanner.find end to end: a sparse cell (``mb`` MB, k = 1, the
-    reference-shaped set, one planted 50-mer per MB: kernel D, then #6) and
+    reference-shaped set, one planted 50-mer per MB: kernel D, then #6), a
+    1 MB cell at k = 16383 (patterns of 12 and 16 bytes: every window
+    matches, the plain versions' positions and ``count`` its gates) and
     two dense cells (``dense_mb`` MB, one 9-byte pattern at k = 2, which
     filtration cannot take: the mask sweep). Gates: per pattern as many
     positions as ``count``, the positions of a 1 MB prefix equal to the
@@ -1306,6 +1249,24 @@ def phase_e2e_find(main, dev, mb: int = 256, dense_mb: int = 4, cut_mb: int = 32
     say(f"phase 8 find {mb} MB k=1 sparse: positions == count {counts.tolist()}, 1 MB prefix == "
         f"oracle, {cut_mb} MB cut == plain versions on the card; branches {route}; "
         f"{mbps:.1f} MB/s (best of 2, warm writable: the hash, then the cached rows)")
+
+    # k past the paired cells' 16 bits (m_max <= 16): kernel #6 decides at
+    # k' = 16382 on the register path; every window < n - k matches
+    wide = c[: 1 << 20]
+    pats_k = [random_pattern(12, seed=357).tobytes(), random_pattern(16, seed=358).tobytes()]
+    k = 16383
+    sc = apm_torch.Scanner(pats_k, k, cfg())
+    pos = main.run(f"find 1 MB k={k}", ["dp_mask"], lambda: sc.find(wide))
+    route = sc.last_find
+    plain = apm_torch.Scanner(pats_k, k, cfg(backend="torch")).find(wide)
+    want = np.arange(len(wide) - k)
+    need([p.tolist() for p in pos] == [p.tolist() for p in plain],
+         f"find 1 MB k={k}: kernels != plain versions")
+    need(all(np.array_equal(p, want) for p in pos), f"find 1 MB k={k}: not every window < n - k")
+    need(sc.count(wide).tolist() == [len(want)] * 2, f"find 1 MB k={k}: count != n - k")
+    say(f"phase 8 find 1 MB k={k} (m 12, 16; the mask sweep past 16-bit cells): {len(want)} "
+        f"positions each == plain versions on the card == every window < n - k == count; "
+        f"branches {route}")
 
     nine = random_pattern(9, seed=355).tobytes()
     cells = (
@@ -1358,7 +1319,7 @@ def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False):
     del syn_b
     need(counts.tolist() == expected, f"{mb} MB k=0 gate: {counts.tolist()} != {expected}")
     need(expected[1] >= mb - 2, f"{mb} MB k=0: only {expected[1]} planted copies")
-    three, mbps = cold_warm(sc, syn, expected)
+    three, mbps = cold_warm(main, f"{mb} MB k=0", sc, syn, expected)
     say(f"phase 4 e2e k=0 {mb} MB: gate ok, counts {counts.tolist()}, first call {first_ms:.1f} "
         f"ms; {three} "
         f"({torch.cuda.get_device_name(0) if dev.type == 'cuda' else dev})")
@@ -1465,16 +1426,20 @@ def frozen_copy(c):
     return f
 
 
-def cold_warm(sc, c, want, frozen=None):
+def cold_warm(main, name, sc, c, want, frozen=None):
     """``sc.count(c)`` three ways, median MB/s of 3 each, every call gated
     by ``want``: cold (cache emptied first), warm on a frozen copy (a hit,
     the key memoized) and warm on the writable ``c`` (the full hash, then a
     hit). A traced warm frozen call must show no ``fold`` and no ``copy``
-    span. Returns the line to print and the cold MB/s."""
+    span. The warm frozen MB/s is also read against the card's peaks
+    (``mfu_fields``, kept in ``main.shares`` under ``name``). Returns the
+    line to print and the cold MB/s."""
     frozen = frozen_copy(c) if frozen is None else frozen
     cold = _timed_counts(sc, c, want=want)
     sc.count(frozen)  # stages the rows and memoizes the frozen copy's key
     warm = _timed_counts(sc, frozen, want=want, cold=False)
+    shares = mfu_fields(sc, len(c), warm * 1e6)
+    main.shares.append((name, len(c), warm, shares))
     hashed = _timed_counts(sc, c, want=want, cold=False)
     sc.meter.trace = True
     try:
@@ -1484,7 +1449,7 @@ def cold_warm(sc, c, want, frozen=None):
         sc.meter.trace = False
     need(not {"fold", "copy"} & set(spans) and "fingerprint" in spans,
          f"warm frozen call staged rows: spans {spans}")
-    return (f"cold {cold:.1f} MB/s, warm frozen {warm:.1f} MB/s, warm writable (hash only) "
+    return (f"cold {cold:.1f} MB/s, warm frozen {warm:.1f} MB/s {shares}, warm writable (hash only) "
             f"{hashed:.1f} MB/s (medians of 3, each gated; warm frozen spans: no fold, no copy, "
             f"fingerprint {spans['fingerprint']:.3f} ms)"), cold
 
@@ -1496,11 +1461,12 @@ def device_busy(sc, c, cold: bool = False) -> str:
     is emptied first."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from apm_torch.utils.profiling import profiler
 
     if cold:
         sc._dev_cache.clear()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profiler(cpu=False) as prof:  # profiling.trace's, device activity only
         t0 = time.perf_counter()
         sc.count(c)
         torch.cuda.synchronize()
@@ -1552,6 +1518,70 @@ def breakdown(sc, c, cold: bool) -> str:
             f"{device_busy(sc, c, cold=cold)}")
 
 
+def trace_kernels(log_dir: str) -> dict:
+    """Device time in ms by kernel name in the Chrome traces that
+    ``profiling.trace`` wrote into ``log_dir``."""
+    ms = {}
+    for f in os.listdir(log_dir):
+        with open(os.path.join(log_dir, f)) as fh:
+            events = json.load(fh)["traceEvents"]
+        for e in events:
+            if isinstance(e, dict) and e.get("cat") == "kernel":
+                ms[e["name"]] = ms.get(e["name"], 0.0) + e.get("dur", 0.0) / 1e3
+    return ms
+
+
+def phase_roofline(main, dev, k3_cell, k0_text, k0_pats) -> None:
+    """Phase 14: the roofline and the trace on the main path. (a) Every
+    warm frozen ``count`` of phases 4 and 5b (``main.shares``) read
+    against the card's peaks (``mfu_fields`` at the MB/s ``cold_warm``
+    measured, not timed again):
+    a share above 1 fails, since it would credit work the call did not
+    need. (b) One warm k = 3 call under ``profiling.trace``: the trace
+    must name kernels D and C. (c) One k = 0 ``corr_impl="conv"`` call
+    under ``profiling.trace``: the kernels it names (cuDNN's conv, whose
+    precision decides the tensor-core peak of ``mfu_tc``)."""
+    import torch
+
+    import apm_torch
+    from apm_torch.utils import profiling
+
+    for name, n, mbps, shares in main.shares:
+        say(f"phase 14 {name} ({n >> 20} MB) warm frozen {mbps:.1f} MB/s: {shares}")
+        need(bool(shares), f"phase 14 {name}: no model")
+        over = {key: v for key, v in shares.items()
+                if key in ("mfu_int", "mfu_tc", "hbm_frac") and v > 1.0}
+        need(not over, f"phase 14 {name}: share above 1 {over}")
+    name, sc, _, frozen = k3_cell
+    want = sc.count(frozen).tolist()
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            got = sc.count(frozen).tolist()
+        kern = trace_kernels(d)
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+    need(got == want, f"phase 14 traced {name}: {got} != {want}")
+    named = {tag: [k for k in kern if tag in k] for tag in ("filter_pieces_kernel", "dp_myers_kernel")}
+    need(all(named.values()), f"phase 14 traced {name}: kernels D and C not both in the trace: "
+                              f"{sorted(kern)[:12]}")
+    say(f"phase 14 {name} warm frozen under profiling.trace ({size} bytes of Chrome trace, "
+        f"{len(kern)} kernel names): D {sum(kern[k] for k in named['filter_pieces_kernel']):.3f} ms, "
+        f"C {sum(kern[k] for k in named['dp_myers_kernel']):.3f} ms of device time; counts equal")
+    cfg = lambda **kw: apm_torch.ApmConfig(device=str(dev), **kw)
+    want = apm_torch.Scanner(k0_pats, 0, cfg()).count(k0_text).tolist()
+    scc = apm_torch.Scanner(k0_pats, 0, cfg(corr_impl="conv"))
+    scc.count(k0_text)  # cuDNN picks its algorithm on the first call
+    with tempfile.TemporaryDirectory() as d:
+        with profiling.trace(d):
+            got = scc.count(k0_text).tolist()
+        kern = trace_kernels(d)
+    need(got == want, f"phase 14 k=0 conv: {got} != kernel B's {want}")
+    top = sorted(kern, key=kern.get, reverse=True)[:4]
+    say(f"phase 14 k=0 corr_impl=conv, {len(k0_text) >> 20} MB under profiling.trace "
+        f"(torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}, "
+        f"torch.backends.cuda.matmul.allow_tf32 = {torch.backends.cuda.matmul.allow_tf32}): "
+        f"top kernels by device time: " + "; ".join(f"{k} {kern[k]:.3f} ms" for k in top))
+
+
 def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: int = 200 << 10):
     """Scanner.count at k >= 1 under engine="auto" on bench.py's cells,
     each gated by the same scan under engine="dp", dp_impl="band" (kernel
@@ -1594,7 +1624,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
         want = _dedup_oracle(prefix, pats, k)
         need(got == want, f"{name} 1 MB prefix: {got} != oracle {want}")
         frozen = frozen_copy(c)
-        three, auto_mbps = cold_warm(sc, c, counts.tolist(), frozen)
+        three, auto_mbps = cold_warm(main, name, sc, c, counts.tolist(), frozen)
         dp_mbps = _timed_counts(apm_torch.Scanner(pats, k, cfg(engine="dp")), c)
         say(f"phase 5b {name} k={k}: auto == dp band, 1 MB prefix == oracle, counts "
             f"{counts.tolist()}, route {info['route']}, n_hot {info.get('n_hot', '-')} "
@@ -1646,7 +1676,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     need(counts.tolist() == want, f"k=0 short set: {counts.tolist()} != {want}")
     need(counts[1] >= len(every_mb()), "k=0 short set: plants missed")
     say(f"phase 5b {mb}mb_k0_short_set (m 12, 20; kernel D): host count + oracle tail ok, "
-        f"counts {counts.tolist()}; {cold_warm(sc, c, want)[0]}")
+        f"counts {counts.tolist()}; {cold_warm(main, f'{mb}mb_k0_short_set', sc, c, want)[0]}")
     del c
 
     # Dense: a candidate in every row takes the density rescan
@@ -1658,7 +1688,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     need(info["route"] == "rescan", f"dense: route {info}")
     say(f"phase 5b dense {dense_mb} MB k=1 (a plant every 4 KB): auto == dp band, counts "
         f"{counts.tolist()}, route {info['route']}, n_hot {info['n_hot']}; "
-        f"{cold_warm(sc, dense, counts.tolist())[0]}")
+        f"{cold_warm(main, f'dense {dense_mb} MB', sc, dense, counts.tolist())[0]}")
     shard_cells.append((f"dense {dense_mb} MB", ref_set, 1, dense, counts.tolist(), {}, ["dp_band"]))
     del dense
 
@@ -1672,7 +1702,7 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
     need(info["route"] == "count_hot_batch", f"overflow: route {info}")
     say(f"phase 5b overflow {mb} MB k=1 (a plant every {over_step >> 10} KB): auto == dp "
         f"band, counts {counts.tolist()}, route {info['route']}, n_hot {info['n_hot']} > "
-        f"bucket {info['max_hot']}; {cold_warm(sc, over, counts.tolist())[0]}")
+        f"bucket {info['max_hot']}; {cold_warm(main, f'overflow {mb} MB', sc, over, counts.tolist())[0]}")
     shard_cells.append((f"overflow {mb} MB", ref_set, 1, over, counts.tolist(), {}, ["dp_band"]))
     return keep, shard_cells
 
@@ -2130,6 +2160,11 @@ def run(t_start: float) -> dict:
         f"python {sys.version.split()[0]}; {torch.cuda.get_device_name(0)}; "
         f"kernels built/loaded in {build_s:.1f} s, host library (g++) in {host_s:.1f} s; "
         f"ptxas: {' | '.join(regs)}")
+    say(f"phase 1 work counted for the bounds (apm_torch.utils.roofline), to set beside the "
+        f"SASS loops below: a band cell {BAND_CELL_INSTR} instructions a window, a Myers step "
+        f"{MYERS_STATIC_STEP_INSTR} static / {MYERS_MOVING_STEP_INSTR} moving a window, "
+        f"{MYERS_PAIR_STATIC_STEP_INSTR} / {MYERS_PAIR_MOVING_STEP_INSTR} a packed pair, an exact "
+        f"byte compare {COMPARE_OPS}")
     # kernels A and #6: the paired DPX band at k = 1 (text staged); C and #6:
     # the Myers bodies (dp_pair.cuh)
     for kernel in ("dp_band_kernelILi1ELb1E", "band_mask_kernelILi1ELb1E", "dp_myers_kernel",
@@ -2184,6 +2219,7 @@ def run(t_start: float) -> dict:
     phase_entry(main, recs["dp_dyn"], dev)
     phase_serving(main, dev, *k0_cell)
     phase_distribution(main, dev, k0_cell, shard_cells)
+    k0_text, k0_pats = k0_cell[0][: 32 << 20].copy(), k0_cell[1]  # phase 14's conv call
     del k0_cell, shard_cells
     launches = main.total
     need(all(v > 0 for v in launches.values()), f"a kernel never launched on the main path: {launches}")
@@ -2191,7 +2227,8 @@ def run(t_start: float) -> dict:
     for name, sc, c, frozen in keep:
         say(f"phase 5b breakdown {name} cold (first 256 MB chunk): {breakdown(sc, c, cold=True)}")
         say(f"phase 5b breakdown {name} warm (frozen, cache hit): {breakdown(sc, frozen, cold=False)}")
-    del keep
+    phase_roofline(main, dev, keep[0], k0_text, k0_pats)
+    del keep, k0_text
     phase_cli()
     phase_fuzz(dev)
     say(f"total {time.perf_counter() - t_start:.1f} s")

@@ -676,3 +676,42 @@ def test_dp_band_count_past_16_bit_cells(dev, k):
     got = dp_kernel.scan_folded_dp(rows, torch.from_numpy(pat).to(dev), bound, 0, k=k,
                                    m_max=m_max, wf=wf, halo=halo, plens=plens)
     assert got.tolist() == [bound, bound] + [0] * 6
+
+
+@pytest.mark.parametrize("k", [16382, 20000])
+def test_dp_band_mask_past_16_bit_cells(dev, k):
+    # the mask entry of kernel #6 at the same k: the register path decides
+    # at k' = 16382, and every owned window of a live pattern is a 1 in the
+    # mask, byte for byte the plain mask mode's
+    from apm_torch.ops import dp_kernel
+    from apm_torch.ops.common import fold_corpus
+
+    wf, n_rows = 1024, 40
+    corpus = _corpus(n_rows * wf + 512, 8)
+    pats = [bytes(corpus[100:116]), b"ACGTTGCA"]
+    pat, _, plens, m_max, halo = _tables(pats, k)
+    rows = torch.from_numpy(fold_corpus(corpus, 0, n_rows, wf, halo)).to(dev)
+    dpat = torch.from_numpy(pat).to(dev)
+    bound = (n_rows - 3) * wf + 77
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens, dp_impl="band")
+    before = dp_kernel.MASK_LAUNCHES
+    counts, mask = dp_kernel.scan_folded_dp_mask(rows, dpat, bound, 0, **kw)
+    assert dp_kernel.MASK_LAUNCHES == before + 1
+    rc, rm = dp_kernel.scan_folded_dp_mask_ref(rows, dpat, bound, 0, **kw)
+    assert counts.tolist() == rc.tolist() == [bound, bound] + [0] * 6
+    assert torch.equal(mask, rm)
+
+
+@pytest.mark.parametrize("k", [16383, 20000])
+def test_find_past_16_bit_cells(dev, k):
+    # Scanner.find at such k: the kernels' positions equal the plain
+    # versions' on the card, every window start below n - k
+    import apm_torch
+
+    n = k + 300_000
+    c = _corpus(n, 9)
+    pats = [bytes(c[500:512]), b"ACGTTGCA"]
+    got = apm_torch.Scanner(pats, k, apm_torch.ApmConfig(device="cuda")).find(c)
+    plain = apm_torch.Scanner(pats, k, apm_torch.ApmConfig(device="cuda", backend="torch")).find(c)
+    assert [p.tolist() for p in got] == [p.tolist() for p in plain]
+    assert all(p.tolist() == list(range(n - k)) for p in got)

@@ -108,6 +108,18 @@ def test_dp_ref_short_patterns_below_k():
     assert got[0] == got[1] == bound
 
 
+def test_dp_ref_band_past_the_pattern_lengths():
+    # k > m_max: the plain band keeps the 2 m_max + 1 diagonals that reach
+    # D[m][m], apm's kernel all 2k + 1; the counts agree
+    k, n_rows = 12, 8
+    rows, pat, plens, m_max, halo = _setup([3, 6, 9], k, n_rows, seed=45)
+    bound = n_rows * WF - m_max + 1 - 5
+    want = _apm(rows, pat, bound, 0, k, m_max, halo, plens)
+    got = _port(rows, pat, bound, 0, k, m_max, halo, plens)
+    assert got.tolist() == want.tolist()
+    assert got[:3].tolist() == [bound] * 3
+
+
 def test_dp_wrapper_checks_its_inputs():
     rows, pat, plens, m_max, halo = _setup([10], 1, 8, seed=50)
     r, p = torch.from_numpy(rows), torch.from_numpy(pat)

@@ -238,3 +238,26 @@ def test_find_torch_backend_uses_the_device_layout(monkeypatch):
 def test_find_constants_match_apm():
     for name in ("FIND_BATCH", "POS_CAP", "SWEEP_MASK_BYTES"):
         assert getattr(tfused, name) == getattr(jfused, name), name
+
+
+@pytest.mark.parametrize("k", [16383, 20000])
+def test_find_past_16_bit_cells(k):
+    # k past the card's paired 16-bit band cells, patterns of at most 16
+    # bytes: every window start below n - k matches. Held to the port's
+    # oracle and to the reference's square Levenshtein (apm.utils.oracle,
+    # no band) window by window; apm's find is not run here: its band of
+    # 2k + 1 diagonals is too slow for a CPU test at this k.
+    from apm.utils.oracle import levenshtein_square
+    from apm_torch.utils.oracle import banded_distances as port_distances
+
+    c = _corpus(k + 2500, 980 + k % 7)
+    pats = [bytes(c[300:312]), b"ACGTTGCAACGTTGCA"]
+    tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024))
+    got = tsc.find(c)
+    assert tsc.count(c).tolist() == [len(c) - k] * 2
+    for pi, pat in enumerate(pats):
+        want = [j for j in range(len(c) - k)
+                if levenshtein_square(pat, c[j : j + len(pat)]) <= k]
+        assert got[pi].tolist() == want == list(range(len(c) - k))
+        assert np.nonzero(port_distances(c, pat, k) <= k)[0].tolist() == want
+    assert set(tsc.last_find) == {"dense"}

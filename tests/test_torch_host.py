@@ -46,8 +46,10 @@ def _patterns(lengths, seed, alphabet=b"ACGT"):
     return [bytes(_corpus(m, seed + i, alphabet)) for i, m in enumerate(lengths)]
 
 
-@pytest.mark.parametrize("k", [0, 1, 2, 4])
+@pytest.mark.parametrize("k", [0, 1, 2, 4, 11, 40])
 def test_oracle_matches_apm(k):
+    # k = 11 and 40 pass some or all of the pattern lengths (13, 5, 10):
+    # the port's band keeps min(k, m) diagonals a side, apm's all k
     from apm.utils import oracle as jo
     from apm_torch.utils import oracle as to
 
