@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..ops.common import round_up
+from ..utils.profiling import OFF
 
 if TYPE_CHECKING:  # pragma: no cover
     from .scanner import Scanner
@@ -210,6 +211,7 @@ def finalize_filtration(
     rescan: Callable[[], np.ndarray],
     *,
     max_hot: int,
+    spans=OFF,
 ) -> np.ndarray:
     """Phase-2 decision tree over fetched per-chunk results (k >= 1),
     ``apm``'s branch for branch. Returns ``(p_pad,)`` int64 counts of the
@@ -221,7 +223,12 @@ def finalize_filtration(
     "count_hot_batch" (re-verified on the device), "verify_rows_host"
     (rows staged from the host, found through the row maps) or
     "overflow-rescan" (a chunk without a fetchable row map: the banded
-    rescan)."""
+    rescan).
+
+    ``spans`` (:class:`~apm_torch.utils.profiling.Spans`) counts ``hot
+    windows``, the windows of the hot rows that the density decision
+    weighs, and ``candidates <slot>``, each filtration slot's candidate
+    total, and brackets each blocking read of device counts as ``wait``."""
     p_pad = scanner._pat.shape[0]
     out = np.zeros((p_pad,), dtype=np.int64)
     if scanner.k < 1:
@@ -242,11 +249,15 @@ def finalize_filtration(
     # The outcome, for callers that report the route taken.
     info = {"route": "zero-candidates", "n_hot": sum(n_hots), "max_hot": max_hot}
     scanner.last_filtration = info
+    hot_total = sum(n_hots) + len(clips)
+    spans.count("hot windows", hot_total * plan.wf)
+    if spans.enabled:
+        for slot in np.flatnonzero(plan.fmask):
+            spans.count(f"candidates {slot}", fcnt[slot])
 
     if int(fcnt.sum()) == 0:
         return out  # zero candidates: nothing to verify
 
-    hot_total = sum(n_hots) + len(clips)
     if candidate_density_dense(hot_total, plan.wf, plan.dev_bound):
         info["route"] = "rescan"
         return rescan().astype(np.int64)
@@ -263,7 +274,10 @@ def finalize_filtration(
             # other chunks keep their on-device counts. One fetch.
             info["route"] = "count_hot_batch"
             handles = [h for _, hs in batches for h in hs]
-            fetched = torch.stack(handles).cpu().numpy().astype(np.int64)
+            fetched = torch.stack(handles)
+            with spans.host("wait"):
+                fetched = fetched.cpu()
+            fetched = fetched.numpy().astype(np.int64)
             redone = {id(ch) for ch, _ in overflow}
             for ch in chunks:
                 if id(ch) not in redone:
@@ -289,7 +303,7 @@ def finalize_filtration(
                     j0 = ch.c0 + int(r) * plan.wf
                     if j0 + plan.wf <= plan.dev_bound:
                         rows.append(j0)
-            out += verify_rows_host(scanner, reader, n, sorted(set(rows)), plan)
+            out += verify_rows_host(scanner, reader, n, sorted(set(rows)), plan, spans)
     else:
         info["route"] = "device-verify"
         out += vcnt
@@ -306,9 +320,11 @@ def verify_rows_host(
     n: int,
     rows: Sequence[int],
     plan: ScanPlan,
+    spans=OFF,
 ) -> np.ndarray:
     """Verify full hot rows staged from the host: one ``(bucket, wf +
-    halo)`` array, one banded-DP call over the filtration patterns."""
+    halo)`` array, one banded-DP call over the filtration patterns; the
+    read of its counts is ``spans``'s ``wait``."""
     from ..ops.filter_kernel import FOLD
 
     p_pad = scanner._pat.shape[0]
@@ -323,7 +339,9 @@ def verify_rows_host(
         stage[i] = reader(j0, wf + halo)
     drows = torch.from_numpy(stage).to(scanner.device)
     counts = scanner._scan_dp(drows, n_hot * wf, 0, plan.plens_filter, wf=wf, halo=halo)
-    out += counts.cpu().numpy().astype(np.int64)
+    with spans.host("wait"):
+        counts = counts.cpu()
+    out += counts.numpy().astype(np.int64)
     return out
 
 

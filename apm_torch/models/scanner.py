@@ -26,6 +26,7 @@ scan through ``count``.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
 import weakref
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from ..ops.common import fold_corpus, round_up
+from ..utils import profiling
 from ..utils.config import ApmConfig
 from ..utils.io import PatternSet
 from ..utils.oracle import Bytes, as_u8
@@ -115,8 +117,6 @@ class Scanner:
         self._peq_np = None  # Myers-mode PEQ table, built on demand
         self._dev_tables: Dict[str, object] = {}  # device copies
 
-        from ..utils.profiling import Meter
-
         self.last_duration: Optional[float] = None
         self.last_strategy: Optional[str] = None
         # The last scan's filtration outcome (pipeline.finalize_filtration):
@@ -127,7 +127,8 @@ class Scanner:
         # the packed mask ("bits"), of gpos decodes ("gpos") and of gather
         # batches ("gather").
         self.last_find: Dict[str, Dict[str, int]] = {}
-        self.meter = Meter()
+        self.meter = profiling.Meter()
+        self._call_ids = itertools.count(1)  # the traced calls' ids
 
         # Device corpus cache: (fingerprint, wf, halo, n_rows, c0) -> the
         # chunk's staged rows on the device, least recently used first,
@@ -732,14 +733,17 @@ class Scanner:
         (no fold, no copy), else folded and copied (:meth:`_stage`) and,
         with a key ``fp``, kept. Least recently used entries go first once
         the cache passes its byte budget; an evicted tensor stays alive
-        while a launch of the running call still holds it."""
+        while a launch of the running call still holds it. ``spans``
+        counts each lookup as ``cache hit`` or ``cache miss``."""
         key = (fp, wf, halo, n_rows, c0)
         if fp is not None:
             with self._dev_cache_lock:
                 rows = self._dev_cache.pop(key, None)
                 if rows is not None:
                     self._dev_cache[key] = rows  # now the most recent
-                    return rows
+            spans.count("cache hit" if rows is not None else "cache miss", 1)
+            if rows is not None:
+                return rows
         rows = self._stage(buf, c0, n_rows, wf, halo, spans, key if fp is not None else None)
         if fp is not None:
             budget = self._cache_byte_budget()
@@ -861,7 +865,7 @@ class Scanner:
             n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, **common,
         )
 
-    def _count_device(self, buf: np.ndarray, n: int, fp=_UNSET) -> np.ndarray:
+    def _count_device(self, buf: np.ndarray, n: int, fp=_UNSET, spans=OFF) -> np.ndarray:
         """Chunked single-device scan (port of ``apm``'s ``_count_pallas``);
         ``(p_pad,)`` int64 counts per scan pattern slot, EOF tail included.
         ``fp``: the corpus's cache key when the caller has it (the
@@ -881,36 +885,48 @@ class Scanner:
         tail run on the host. The density rescan reads the rows the first
         pass staged: no chunk is staged twice in one call.
 
-        With ``self.meter.trace`` on, the scan leaves its per-phase times
-        in ``self.meter.last_spans`` (:class:`Spans`): host
-        ``fingerprint``, host ``fold`` and device ``copy`` (on cache misses
-        only), ``corr``, ``dp``, ``phase 1``, ``phase 2``, host ``fetch``,
-        ``finalize`` (which holds the device ``count_hot_batch`` and the
-        ``rescan dp``) and host ``EOF tail``.
+        ``spans`` (the call's :class:`Spans`, from :meth:`count`) records
+        host ``plan`` (the plan and the shared set-up), ``fingerprint``,
+        ``fold`` and device ``copy`` (on cache misses only), host ``launch``
+        around each chunk's enqueue, holding the device ``corr``, ``dp``,
+        ``phase 1`` and ``phase 2``, host ``fetch``, ``finalize`` (which
+        holds the device ``count_hot_batch`` and the ``rescan dp``) and
+        ``EOF tail``, and host ``wait`` around each blocking read of device
+        results. Its counters: ``cache hit`` and ``cache miss`` per chunk
+        looked up, ``windows`` (each chunk's owned windows), ``rescan
+        windows`` and ``rescan cells`` (window x pattern pairs and their
+        pattern bytes, per ``rescan dp`` launch) and, from
+        :func:`~apm_torch.models.pipeline.finalize_filtration`, ``hot
+        windows`` and ``candidates <slot>``.
         """
         from ..ops import fused
         from .pipeline import FilterChunk, buf_reader, finalize_filtration, make_plan
 
-        plan = make_plan(self, n)
+        with spans.host("plan"):
+            plan = make_plan(self, n)
         wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
         self.last_filtration = None
         p_pad = self._pat.shape[0]
         counts = np.zeros((p_pad,), dtype=np.int64)
         n_scan = self.scan_patterns.num_patterns
         if dev_bound <= 0:
-            counts[:n_scan] += self.tail_counts(buf, dev_bound)
+            with spans.host("EOF tail"):
+                counts[:n_scan] += self.tail_counts(buf, dev_bound)
             return counts
 
-        spans = Spans(self.device, self.meter.trace)
-        st = self._count_setup(plan)
+        with spans.host("plan"):
+            st = self._count_setup(plan)
+        chunk_win = st["chunk_win"]
         if fp is _UNSET:
             with spans.host("fingerprint"):
                 fp = self._corpus_fp(buf)
         handles = []  # (p_pad,) int32 device counts, fetched after the loop
         raw_chunks = []  # (c0, packed, rowmap, rows) of filtration chunks
-        for c0 in range(0, dev_bound, st["chunk_win"]):
+        for c0 in range(0, dev_bound, chunk_win):
             drows = self._staged_rows(buf, fp, c0, st["n_rows"], wf, halo, spans)
-            got, raw = self._launch_chunk(st, drows, c0, spans)
+            with spans.host("launch"):
+                got, raw = self._launch_chunk(st, drows, c0, spans)
+            spans.count("windows", min(chunk_win, dev_bound - c0))
             handles += got
             if raw is not None:
                 raw_chunks.append(raw)
@@ -918,10 +934,12 @@ class Scanner:
         # ONE device-to-host fetch for all per-chunk vectors.
         small = handles + [pk for _, pk, _, _ in raw_chunks]
         with spans.host("fetch"):
-            fetched = (
-                torch.cat([s.reshape(-1) for s in small]).cpu().numpy().astype(np.int64)
-                if small else np.zeros((0,), np.int64)
-            )
+            fetched = np.zeros((0,), np.int64)
+            if small:
+                flat = torch.cat([s.reshape(-1) for s in small])
+                with spans.host("wait"):
+                    flat = flat.cpu()
+                fetched = flat.numpy().astype(np.int64)
         off = 0
         for _ in handles:
             counts += fetched[off : off + p_pad]
@@ -957,21 +975,27 @@ class Scanner:
                 # every chunk of a k >= 1 filtration scan is in raw_chunks,
                 # its rows still on the device: nothing is staged again
                 parts = []
+                n_pat = sum(1 for m in plan.plens_filter if m)
                 for c0, _, _, drows in raw_chunks:
                     with spans.device("rescan dp"):
                         parts.append(self._scan_dp(
                             drows, dev_bound, c0, plan.plens_filter, wf=wf, halo=halo,
                         ))
-                return torch.stack(parts).cpu().numpy().astype(np.int64).sum(axis=0)
+                    owned = min(chunk_win, dev_bound - c0)
+                    spans.count("rescan windows", owned * n_pat)
+                    spans.count("rescan cells", owned * sum(plan.plens_filter))
+                stacked = torch.stack(parts)
+                with spans.host("wait"):
+                    stacked = stacked.cpu()
+                return stacked.numpy().astype(np.int64).sum(axis=0)
 
             with spans.host("finalize"):
                 counts += finalize_filtration(
-                    self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=st["max_hot"]
+                    self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=st["max_hot"],
+                    spans=spans,
                 )
         with spans.host("EOF tail"):
             counts[:n_scan] += self.tail_counts(buf, dev_bound)
-        if spans.enabled:
-            self.meter.last_spans = spans.totals()
         return counts
 
     # -- distribution (apm's count dispatch and its sub-scanners) ------------
@@ -1064,6 +1088,25 @@ class Scanner:
             flat_p_engine=flat_p,
         )
 
+    # -- tracing --------------------------------------------------------------
+
+    def _call_spans(self) -> Spans:
+        """A call's :class:`Spans`: on under ``meter.trace`` or inside
+        :func:`apm_torch.utils.profiling.trace`, with the next call id; the
+        previous call's export is cleared first."""
+        meter = self.meter
+        if meter.last_spans:
+            meter.last_spans, meter.last_records = {}, []
+        if not (meter.trace or profiling.tracing()):
+            return OFF
+        return Spans(self.device, True, next(self._call_ids))
+
+    def _export(self, spans: Spans) -> None:
+        """A traced call's totals and spans, into ``meter``."""
+        if spans.enabled:
+            self.meter.last_spans = spans.totals()
+            self.meter.last_records = spans.records
+
     # -- public API -----------------------------------------------------------
 
     def count(self, corpus: Bytes) -> np.ndarray:
@@ -1073,8 +1116,17 @@ class Scanner:
         resolved strategy (:meth:`_resolve_strategy`) is
         ``database_over_devices`` or ``patterns_over_devices`` and there is
         more than one device (:func:`apm_torch.parallel.count_distributed`).
-        ``last_strategy`` names the strategy resolved."""
-        buf = as_u8(corpus)
+        ``last_strategy`` names the strategy resolved. Traced (``meter``),
+        the call is the root span ``call``, and resolving the strategy is
+        ``plan``; the single-device scan records the rest
+        (:meth:`_count_device`)."""
+        spans = self._call_spans()
+        with spans.host("call"):
+            out = self._count(as_u8(corpus), spans)
+        self._export(spans)
+        return out
+
+    def _count(self, buf: np.ndarray, spans: Spans) -> np.ndarray:
         n = len(buf)
         p = self.patterns.num_patterns
         t0 = time.perf_counter()
@@ -1082,10 +1134,11 @@ class Scanner:
             self.last_duration = time.perf_counter() - t0
             return np.zeros((p,), dtype=np.int64)
 
-        devices = self.devices()
-        strategy = self._resolve_strategy(n, len(devices))
+        with spans.host("plan"):
+            devices = self.devices()
+            strategy = self._resolve_strategy(n, len(devices))
         if strategy == "single" or len(devices) == 1:
-            counts = self._count_device(buf, n)
+            counts = self._count_device(buf, n, spans=spans)
         else:
             from ..parallel.strategies import count_distributed
 
@@ -1094,22 +1147,17 @@ class Scanner:
         expanded = uniq[self._inverse]
         self.last_duration = time.perf_counter() - t0
         self.last_strategy = strategy
-
-        from ..utils.profiling import ScanStats, info
-
-        stats = ScanStats(
-            corpus_bytes=n,
-            patterns=p,
-            unique_patterns=self.scan_patterns.num_patterns,
-            k=self.k,
-            strategy=strategy,
-            backend=self.backend,
-            block_windows=self.block_windows_for(n),
-            seconds=self.last_duration,
-        )
-        self.meter.record(stats)
         if self.config.verbose:
-            info(stats.line())
+            profiling.info(profiling.ScanStats(
+                corpus_bytes=n,
+                patterns=p,
+                unique_patterns=self.scan_patterns.num_patterns,
+                k=self.k,
+                strategy=strategy,
+                backend=self.backend,
+                block_windows=self.block_windows_for(n),
+                seconds=self.last_duration,
+            ).line())
         return expanded
 
     def count_file(self, path) -> np.ndarray:
@@ -1195,12 +1243,20 @@ class Scanner:
         device works, then all per-block counts come back in one fetch.
         Filtration stays out and the corpora are staged without the device
         cache, as in ``apm``. Under ``backend="torch"`` the same layout runs
-        on the plain versions. With ``self.meter.trace`` on, the call's
-        spans land in ``self.meter.last_spans``: host ``fold``, device
-        ``copy``, the route's device span (``corr batch``, ``conv batch``
-        or ``dp batch``), host ``EOF tail`` and host ``fetch``; the device
-        spans run under the host's, which queue them asynchronously.
+        on the plain versions. Traced (``meter``), the call's spans land
+        in ``self.meter.last_spans``: the root ``call``, host ``fold``,
+        device ``copy``, the route's device span (``corr batch``, ``conv
+        batch`` or ``dp batch``), host ``EOF tail`` and host ``fetch``,
+        which holds the blocking read, ``wait``; the device spans run under
+        the host's, which queue them asynchronously.
         """
+        spans = self._call_spans()
+        with spans.host("call"):
+            out = self._count_batch(corpora, spans)
+        self._export(spans)
+        return out
+
+    def _count_batch(self, corpora: Sequence[Bytes], spans: Spans) -> np.ndarray:
         from ..ops import corr_engine, corr_fused, dp_kernel
         from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, _group_rows, corr_eligible
         from .pipeline import _FOLD, check_dp_dtype
@@ -1240,7 +1296,6 @@ class Scanner:
                 f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
             )
         uniq = np.zeros((n_batch, p_pad), dtype=np.int64)
-        spans = Spans(self.device, self.meter.trace)
         if items:
             corr = self._corr_route(wf, halo) if use_corr else None
             gmax = max(8, min(
@@ -1303,12 +1358,13 @@ class Scanner:
         if items:
             # ONE device-to-host fetch for every group's counts.
             with spans.host("fetch"):
-                allc = torch.stack([c for _, c in handles]).cpu().numpy()
+                allc = torch.stack([c for _, c in handles])
+                with spans.host("wait"):
+                    allc = allc.cpu()
+                allc = allc.numpy()
             for gi, (group, _) in enumerate(handles):
                 for slot, (b, _blk, _db) in enumerate(group):
                     uniq[b] += allc[gi, slot]
-        if spans.enabled:
-            self.meter.last_spans = spans.totals()
         out[:] = uniq[:, :n_scan][:, self._inverse]
         self.last_duration = time.perf_counter() - t0
         return out

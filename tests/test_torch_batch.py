@@ -296,10 +296,14 @@ def test_count_batch_spans_sum_within_the_call(k, route):
     got = tsc.count_batch(corpora)
     spans = tsc.meter.last_spans
     assert got.tolist() == want.tolist()
-    assert set(spans) == {"fold", "copy", route, "fetch", "EOF tail"}
+    assert set(spans) == {"call", "fold", "copy", route, "fetch", "wait", "EOF tail"}
     assert all(v >= 0 for v in spans.values())
-    # on the CPU every span is on the host clock and none overlaps another
-    assert sum(spans.values()) <= tsc.last_duration * 1e3
+    # on the CPU every span is on the host clock, and the call's own spans
+    # (``wait`` lies inside ``fetch``) run one after another within it
+    inside = [r for r in tsc.meter.last_records if r.parent == "call"]
+    assert {r.name for r in inside} == set(spans) - {"call", "wait"}
+    assert sum(r.end - r.start for r in inside) <= spans["call"]
+    assert tsc.last_duration * 1e3 <= spans["call"]
 
 
 @pytest.mark.parametrize("bad", ["fold", "limits dtype", "limits shape", "rows width", "halo", "m_max"])

@@ -218,20 +218,24 @@ def test_scanner_correlation_routes(cfg, exc):
             pkg.Scanner(pats, 0, config).count(c)
 
 
+CALL = {"call", "plan", "fingerprint", "fold", "copy", "launch", "fetch", "wait", "EOF tail",
+        "#cache hit", "#cache miss", "#windows"}
+
+
 @pytest.mark.parametrize(
     "k, engine, names",
     [
-        (0, "auto", {"fingerprint", "fold", "copy", "corr", "fetch", "EOF tail"}),
-        (2, "dp", {"fingerprint", "fold", "copy", "dp", "fetch", "EOF tail"}),
-        (3, "auto", {"fingerprint", "fold", "copy", "phase 1", "phase 2", "fetch",
-                     "finalize", "EOF tail"}),
+        (0, "auto", CALL | {"corr"}),
+        (2, "dp", CALL | {"dp"}),
+        (3, "auto", CALL | {"phase 1", "phase 2", "finalize", "#hot windows",
+                            "#candidates 0", "#candidates 1"}),
     ],
 )
 def test_scanner_spans_name_each_phase(k, engine, names):
-    """Meter.trace leaves the scan's phase spans in meter.last_spans, and
-    changes no count. A repeated corpus is a device cache hit, whose spans
-    hold no fold and no copy; with the cache emptied the call stages
-    again."""
+    """Meter.trace leaves the scan's phase spans and counters in
+    meter.last_spans, and changes no count. A repeated corpus is a device
+    cache hit, whose spans hold no fold and no copy; with the cache emptied
+    the call stages again."""
     from apm_torch.utils.corpus import plant
 
     c = _corpus(60_000, 300 + k)
@@ -243,8 +247,8 @@ def test_scanner_spans_name_each_phase(k, engine, names):
     assert sc.meter.last_spans == {}
     sc.meter.trace = True
     assert sc.count(c).tolist() == off == count_matches(c, pats, k)
-    assert set(sc.meter.last_spans) == names - {"fold", "copy"}
+    assert set(sc.meter.last_spans) == names - {"fold", "copy", "#cache miss"}
     sc._dev_cache.clear()
     assert sc.count(c).tolist() == off
-    assert set(sc.meter.last_spans) == names
+    assert set(sc.meter.last_spans) == names - {"#cache hit"}
     assert all(ms >= 0 for ms in sc.meter.last_spans.values())
