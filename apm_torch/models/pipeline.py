@@ -188,11 +188,16 @@ class FilterChunk:
     # (R, P) row map: a device tensor, a callable that fetches it, or None
     # where no process can fetch it (a multi-process scan)
     rowmap: object = None
-    # callable(n_hot) -> list of (P,) device count tensors over ALL the
-    # chunk's full hot rows (fused.count_hot_batch), or None past the
-    # compaction cap. Only a chunk whose vcnt is its own may carry one:
-    # the sharded scans, whose vcnt is summed, leave it None.
+    # callable(n_hot, plens=None) -> list of (P,) device count tensors over
+    # ALL the chunk's full hot rows (fused.count_hot_batch), or with plens
+    # of those lengths over the rows hot in their columns, at most n_hot
+    # rows; None past the compaction cap. Only a chunk whose vcnt is its
+    # own may carry one: the sharded scans, whose vcnt is summed, leave it
+    # None.
     verify_dev: object = None
+    # (2, P) full and clipped hot rows per pattern (fused.pattern_hot_rows),
+    # or None
+    pattern_hot: Optional[np.ndarray] = None
 
 
 def candidate_density_dense(hot_rows: int, wf: int, dev_bound: int) -> bool:
@@ -200,6 +205,33 @@ def candidate_density_dense(hot_rows: int, wf: int, dev_bound: int) -> bool:
     64 rows): rescanning the filtration patterns with the banded DP is the
     cheaper route (``apm``'s threshold)."""
     return hot_rows * wf > max(64 * wf, dev_bound // 20)
+
+
+def sparse_patterns(
+    pattern_hot: Sequence[np.ndarray], fmask, wf: int, dev_bound: int, cap: int
+) -> Optional[np.ndarray]:
+    """The filtration patterns a dense set can verify on their hot rows:
+    ``(P,)`` bool, or None when that is none or all of them.
+
+    ``pattern_hot`` holds each chunk's ``(P,)`` full hot rows per pattern.
+    The filtration slots (``fmask``), in ascending order of their rows
+    summed over the chunks, give the longest prefix whose summed rows
+    stay within :func:`candidate_density_dense`'s threshold and, in every
+    chunk, within ``cap`` (the device compaction's). The sum bounds the
+    rows of the prefix's union, so these rows cost no more to verify than
+    a set that is not dense."""
+    per_chunk = np.asarray(pattern_hot, dtype=np.int64).reshape(len(pattern_hot), -1)
+    slots = np.flatnonzero(fmask)
+    order = slots[np.argsort(per_chunk[:, slots].sum(axis=0), kind="stable")]
+    chunk_rows = np.cumsum(per_chunk[:, order], axis=1)
+    fits = (~candidate_density_dense(chunk_rows.sum(axis=0), wf, dev_bound)
+            & (chunk_rows <= cap).all(axis=0))
+    n_s = int(np.argmin(fits)) if not fits.all() else len(order)
+    if n_s in (0, len(order)):
+        return None
+    sparse = np.zeros((per_chunk.shape[1],), dtype=bool)
+    sparse[order[:n_s]] = True
+    return sparse
 
 
 def finalize_filtration(
@@ -212,18 +244,30 @@ def finalize_filtration(
     *,
     max_hot: int,
     spans=OFF,
+    rescan_some: Optional[Callable[[tuple], List[torch.Tensor]]] = None,
 ) -> np.ndarray:
     """Phase-2 decision tree over fetched per-chunk results (k >= 1),
-    ``apm``'s branch for branch. Returns ``(p_pad,)`` int64 counts of the
-    filtration patterns; ``rescan()`` must return banded-DP counts of
-    ``plan.plens_filter`` over the whole device-owned range.
+    ``apm``'s branch for branch, with one more branch below. Returns
+    ``(p_pad,)`` int64 counts of the filtration patterns; ``rescan()`` must
+    return banded-DP counts of ``plan.plens_filter`` over the whole
+    device-owned range.
 
     ``scanner.last_filtration["route"]`` names the branch: "zero-candidates",
-    "rescan" (density), "device-verify", or for an overflowed bucket
-    "count_hot_batch" (re-verified on the device), "verify_rows_host"
-    (rows staged from the host, found through the row maps) or
-    "overflow-rescan" (a chunk without a fetchable row map: the banded
-    rescan).
+    "rescan" (density), "split-rescan" (density, decided per pattern),
+    "device-verify", or for an overflowed bucket "count_hot_batch"
+    (re-verified on the device), "verify_rows_host" (rows staged from the
+    host, found through the row maps) or "overflow-rescan" (a chunk
+    without a fetchable row map: the banded rescan).
+
+    "split-rescan" departs from ``apm``, whose density decision covers the
+    whole set. Where the set is dense, every chunk carries ``verify_dev``
+    and ``pattern_hot``, and ``rescan_some`` is given, the patterns that
+    :func:`sparse_patterns` picks are verified on their full hot rows
+    through ``verify_dev``, and on a clipped row on the host where they
+    have a candidate in it; only the rest go to ``rescan_some(plens)``
+    (device count handles of those lengths over the whole device-owned
+    range). One read fetches both.
+    ``last_filtration["sparse"]`` lists the verified slots.
 
     ``spans`` (:class:`~apm_torch.utils.profiling.Spans`) counts ``hot
     windows``, the windows of the hot rows that the density decision
@@ -259,8 +303,39 @@ def finalize_filtration(
         return out  # zero candidates: nothing to verify
 
     if candidate_density_dense(hot_total, plan.wf, plan.dev_bound):
-        info["route"] = "rescan"
-        return rescan().astype(np.int64)
+        sparse = None
+        if rescan_some is not None and all(
+            ch.verify_dev is not None and ch.pattern_hot is not None for ch in chunks
+        ):
+            from ..ops import fused
+
+            sparse = sparse_patterns([ch.pattern_hot[0] for ch in chunks], plan.fmask,
+                                     plan.wf, plan.dev_bound, fused.OVERFLOW_CAP)
+        if sparse is None:
+            info["route"] = "rescan"
+            return rescan().astype(np.int64)
+        info["route"] = "split-rescan"
+        info["sparse"] = np.flatnonzero(sparse).tolist()
+        plens_s = tuple(m if s else 0 for m, s in zip(plan.plens_filter, sparse))
+        plens_t = tuple(0 if s else m for m, s in zip(plan.plens_filter, sparse))
+        handles = list(rescan_some(plens_t))
+        for ch in chunks:
+            rows = int(ch.pattern_hot[0][sparse].sum())
+            if rows:
+                handles += ch.verify_dev(rows, plens_s)
+        fetched = torch.stack(handles)
+        with spans.host("wait"):
+            fetched = fetched.cpu()
+        out += fetched.numpy().astype(np.int64).sum(axis=0)
+        # A clipped row, on the host, for the sparse patterns with a
+        # candidate in it: the rescan covers the rest.
+        for ch in chunks:
+            fcnt_s = np.where(sparse & (ch.pattern_hot[1] > 0), fcnt, 0)
+            if fcnt_s.any():
+                for j0 in np.asarray(ch.clip_starts).ravel():
+                    if j0 >= 0:
+                        out += _verify_clipped_row(scanner, reader, plan, n, int(j0), fcnt_s)
+        return out
 
     overflow = [(ch, h) for ch, h in zip(chunks, n_hots) if h > max_hot]
     if overflow:

@@ -854,15 +854,21 @@ class Scanner:
             )
         return handles, (c0, packed, rowmap, drows)
 
-    def _count_hot_batch(self, st: dict, drows, rowmap, c0: int, b: int):
-        """Overflow recovery's batch ``b`` of one chunk on the device
-        (:func:`apm_torch.ops.fused.count_hot_batch`)."""
+    def _count_hot_batch(self, st: dict, drows, rowmap, c0: int, b: int, plens=None):
+        """Batch ``b`` of one chunk's full hot rows verified on the device
+        (:func:`apm_torch.ops.fused.count_hot_batch`): every filtration
+        pattern over every hot row (the overflow recovery), or with
+        ``plens`` those lengths over the rows hot in their columns."""
         from ..ops import fused
 
         common = {key: v for key, v in st["common"].items() if key != "max_hot"}
+        cols = None
+        if plens is not None:
+            common["plens"] = plens
+            cols = fused.slot_mask(plens, drows.device)
         return fused.count_hot_batch(
             drows, rowmap, st["tabs"]["pat"], st["plan"].dev_bound, c0, b,
-            n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, **common,
+            n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, cols=cols, **common,
         )
 
     def _count_device(self, buf: np.ndarray, n: int, fp=_UNSET, spans=OFF) -> np.ndarray:
@@ -882,8 +888,11 @@ class Scanner:
         phase 2 on the device; :meth:`_routes`). All per-chunk vectors come
         back in one fetch; then the filtration decision tree
         (:func:`apm_torch.models.pipeline.finalize_filtration`) and the EOF
-        tail run on the host. The density rescan reads the rows the first
-        pass staged: no chunk is staged twice in one call.
+        tail run on the host. The fetch also brings each chunk's full and
+        clipped hot rows per pattern, by which a dense set rescans only its dense
+        patterns and verifies the rest on their hot rows ("split-rescan").
+        The density rescan reads the rows the first pass staged: no chunk
+        is staged twice in one call.
 
         ``spans`` (the call's :class:`Spans`, from :meth:`count`) records
         host ``plan`` (the plan and the shared set-up), ``fingerprint``,
@@ -894,8 +903,10 @@ class Scanner:
         ``EOF tail``, and host ``wait`` around each blocking read of device
         results. Its counters: ``cache hit`` and ``cache miss`` per chunk
         looked up, ``windows`` (each chunk's owned windows), ``rescan
-        windows`` and ``rescan cells`` (window x pattern pairs and their
-        pattern bytes, per ``rescan dp`` launch) and, from
+        patterns`` (the patterns handed to the rescan, once a call),
+        ``rescan windows`` and ``rescan cells`` (window x pattern pairs of
+        those patterns and their pattern bytes, per ``rescan dp`` launch)
+        and, from
         :func:`~apm_torch.models.pipeline.finalize_filtration`, ``hot
         windows`` and ``candidates <slot>``.
         """
@@ -921,18 +932,21 @@ class Scanner:
             with spans.host("fingerprint"):
                 fp = self._corpus_fp(buf)
         handles = []  # (p_pad,) int32 device counts, fetched after the loop
-        raw_chunks = []  # (c0, packed, rowmap, rows) of filtration chunks
+        # (c0, packed, rowmap, rows, hot rows per pattern) of filtration chunks
+        raw_chunks = []
         for c0 in range(0, dev_bound, chunk_win):
             drows = self._staged_rows(buf, fp, c0, st["n_rows"], wf, halo, spans)
             with spans.host("launch"):
                 got, raw = self._launch_chunk(st, drows, c0, spans)
+                if raw is not None:
+                    raw += (fused.pattern_hot_rows(raw[2], dev_bound, c0, wf),)
             spans.count("windows", min(chunk_win, dev_bound - c0))
             handles += got
             if raw is not None:
                 raw_chunks.append(raw)
 
         # ONE device-to-host fetch for all per-chunk vectors.
-        small = handles + [pk for _, pk, _, _ in raw_chunks]
+        small = handles + [t for _, pk, _, _, hot in raw_chunks for t in (pk, hot)]
         with spans.host("fetch"):
             fetched = np.zeros((0,), np.int64)
             if small:
@@ -946,45 +960,52 @@ class Scanner:
             off += p_pad
 
         def make_verify_dev(drows, rowmap, c0):
-            """Overflow recovery of one chunk on the device: count_hot_batch
-            handles over all its full hot rows, or None past the cap."""
+            """One chunk's full hot rows verified on the device: handles of
+            count_hot_batch over at most ``n_hot`` of them (of every
+            filtration pattern, or of ``plens`` over the rows hot in their
+            columns), or None past the cap."""
 
-            def verify(n_hot: int):
+            def verify(n_hot: int, plens=None):
                 if n_hot > fused.OVERFLOW_CAP:
                     return None
                 with spans.device("count_hot_batch"):
                     return [
-                        self._count_hot_batch(st, drows, rowmap, c0, b)
+                        self._count_hot_batch(st, drows, rowmap, c0, b, plens)
                         for b in range(-(-n_hot // fused.OVERFLOW_BATCH))
                     ]
 
             return verify
 
         fchunks = []
-        for c0, pk, rowmap, drows in raw_chunks:
+        for c0, pk, rowmap, drows, hot in raw_chunks:
             fcnt, vcnt, n_hot, clip = fused.unpack_chunk(fetched[off : off + pk.numel()], p_pad)
             off += pk.numel()
+            pattern_hot = fetched[off : off + hot.numel()].reshape(tuple(hot.shape))
+            off += hot.numel()
             fchunks.append(
                 FilterChunk(c0, fcnt, vcnt, n_hot, clip, rowmap,
-                            verify_dev=make_verify_dev(drows, rowmap, c0))
+                            verify_dev=make_verify_dev(drows, rowmap, c0),
+                            pattern_hot=pattern_hot)
             )
 
         if fchunks:
 
-            def rescan() -> np.ndarray:
+            def rescan_some(plens) -> List[torch.Tensor]:
                 # every chunk of a k >= 1 filtration scan is in raw_chunks,
                 # its rows still on the device: nothing is staged again
                 parts = []
-                n_pat = sum(1 for m in plan.plens_filter if m)
-                for c0, _, _, drows in raw_chunks:
+                n_pat = sum(1 for m in plens if m)
+                spans.count("rescan patterns", n_pat)
+                for c0, _, _, drows, _ in raw_chunks:
                     with spans.device("rescan dp"):
-                        parts.append(self._scan_dp(
-                            drows, dev_bound, c0, plan.plens_filter, wf=wf, halo=halo,
-                        ))
+                        parts.append(self._scan_dp(drows, dev_bound, c0, plens, wf=wf, halo=halo))
                     owned = min(chunk_win, dev_bound - c0)
                     spans.count("rescan windows", owned * n_pat)
-                    spans.count("rescan cells", owned * sum(plan.plens_filter))
-                stacked = torch.stack(parts)
+                    spans.count("rescan cells", owned * sum(plens))
+                return parts
+
+            def rescan() -> np.ndarray:
+                stacked = torch.stack(rescan_some(plan.plens_filter))
                 with spans.host("wait"):
                     stacked = stacked.cpu()
                 return stacked.numpy().astype(np.int64).sum(axis=0)
@@ -992,7 +1013,7 @@ class Scanner:
             with spans.host("finalize"):
                 counts += finalize_filtration(
                     self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=st["max_hot"],
-                    spans=spans,
+                    spans=spans, rescan_some=rescan_some,
                 )
         with spans.host("EOF tail"):
             counts[:n_scan] += self.tail_counts(buf, dev_bound)

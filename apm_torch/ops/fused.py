@@ -83,13 +83,37 @@ def _compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return out[:size]
 
 
-def _hot_rows(rowmap: torch.Tensor, bound, start: int, wf: int):
-    """``(hot, full)`` row masks: a candidate in the row, and every window
-    of the row below the bound."""
-    r_rows = rowmap.shape[0]
-    hot = rowmap.sum(dim=1) > 0
-    row_start = start + torch.arange(r_rows, dtype=torch.int64, device=rowmap.device) * wf
-    return hot, row_start + wf <= bound
+def _hot_rows(rowmap: torch.Tensor, bound, start: int, wf: int, cols=None):
+    """``(hot, full)`` row masks: a candidate in the row (in a column that
+    ``cols``, a ``(P,)`` bool device mask, selects; every column when
+    None), and every window of the row below the bound."""
+    hot = rowmap.sum(dim=1) > 0 if cols is None else ((rowmap > 0) & cols).any(dim=1)
+    return hot, _full_rows(rowmap, bound, start, wf)
+
+
+def _full_rows(rowmap: torch.Tensor, bound, start: int, wf: int) -> torch.Tensor:
+    """Row mask: every window of the row below the bound."""
+    row_start = start + torch.arange(rowmap.shape[0], dtype=torch.int64, device=rowmap.device) * wf
+    return row_start + wf <= bound
+
+
+def pattern_hot_rows(rowmap: torch.Tensor, bound, start: int, wf: int) -> torch.Tensor:
+    """``(2, P)`` int32: for each pattern, the chunk's full hot rows whose
+    row-map column holds a candidate (``(rowmap[:, p] > 0) & full``, the
+    rows phase 2 verifies, counted per pattern), and its clipped rows that
+    do. The full rows' sum over a set of patterns bounds the rows of the
+    set's union, whichever phase-1 engine made the row map."""
+    full = _full_rows(rowmap, bound, start, wf)[:, None]
+    hot = rowmap > 0
+    return torch.stack([(hot & full).sum(dim=0, dtype=torch.int32),
+                        (hot & ~full).sum(dim=0, dtype=torch.int32)])
+
+
+def slot_mask(plens, device) -> torch.Tensor:
+    """``(P,)`` bool device mask of the slots whose length in ``plens`` is
+    nonzero, from the DP kernels' per-``plens`` device copy: no host
+    transfer past a tuple's first use."""
+    return dp_kernel._device_consts(tuple(int(m) for m in plens), (), device)[0] > 0
 
 
 def _verify_rows(rows, idx, vbound, pat, **kw) -> torch.Tensor:
@@ -217,16 +241,21 @@ def filter_verify_chunk_fused(
 def count_hot_batch(
     rows, rowmap, pat, bound, start, b, *, k, m_max, wf, halo, plens,
     n_batch=OVERFLOW_BATCH, cap=OVERFLOW_CAP, alphabet=(), dp_impl="auto",
-    peq=None, plain=False,
+    peq=None, plain=False, cols=None,
 ):
-    """Overflow recovery on the device: ``(P,)`` counts over full hot rows
-    ``[b*n_batch, (b+1)*n_batch)`` of the chunk (hot rows in row order,
-    the ``hot & full`` rows of phase 2). The staged rows and the row map
-    stay on the device."""
+    """``(P,)`` counts of ``plens`` over full hot rows ``[b*n_batch,
+    (b+1)*n_batch)`` of the chunk (hot rows in row order, the ``hot &
+    full`` rows of phase 2), on the device: the overflow recovery, and the
+    sparse patterns' verify on the "split-rescan" route of
+    :func:`apm_torch.models.pipeline.finalize_filtration`. There ``cols``
+    (:func:`slot_mask` of the sparse patterns' lengths, which ``plens``
+    holds alone) makes a row hot only by a candidate of those patterns.
+    The staged rows and the row map stay on the device; a batch past the
+    device-side count of hot rows verifies nothing."""
     if n_batch % FOLD or n_batch <= 0 or cap % n_batch:
         raise ValueError(f"n_batch {n_batch} / cap {cap}: need FOLD | n_batch | cap")
     r_rows = rows.shape[0]
-    hot, full = _hot_rows(rowmap, bound, start, wf)
+    hot, full = _hot_rows(rowmap, bound, start, wf, cols)
     use = hot & full
     n_hot = use.sum()
     idx = _compact(use, cap, r_rows)[b * n_batch : (b + 1) * n_batch]

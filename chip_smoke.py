@@ -51,8 +51,8 @@ Phases, one line each; any failure exits non-zero:
    cells (k = 1, 2, 3 planted on the reference-shaped set, k4_exact_tier,
    k8_banded_tier, k12_myers_dp) and a k = 0 short set, each gated by the
    same scan under ``engine="dp", dp_impl="band"`` and by a 1 MB prefix
-   against the oracle; a dense cell that takes the density rescan and an
-   overflow cell that takes ``count_hot_batch``; MB/s under ``auto`` cold,
+   against the oracle; a dense cell that takes the density rescan of its
+   dense pattern alone ("split-rescan") and an overflow cell that takes ``count_hot_batch``; MB/s under ``auto`` cold,
    warm frozen and warm writable as in phase 4, and cold under
    ``engine="dp"``, then a phase breakdown of the k = 3 and k = 8 cells,
    cold and warm (the Scanner's own spans, and the device's busy share from
@@ -1680,13 +1680,15 @@ def phase_e2e_filter(main, dev, mb: int = 256, dense_mb: int = 32, over_step: in
         f"counts {counts.tolist()}; {cold_warm(main, f'{mb}mb_k0_short_set', sc, c, want)[0]}")
     del c
 
-    # Dense: a candidate in every row takes the density rescan
+    # Dense: a candidate of the 50-mer in every row takes the density
+    # rescan, of the 50-mer alone: the 32-mer's few hot rows are verified
+    # on the device
     dense = base[: dense_mb << 20].copy()
     plant(dense, p50, range(1000, len(dense) - 100, 4096), k=1, seed=230)
     sc = apm_torch.Scanner(ref_set, 1, cfg())
     counts = gate("dense", ref_set, 1, dense, sc, ["dp_band"])
     info = sc.last_filtration
-    need(info["route"] == "rescan", f"dense: route {info}")
+    need(info["route"] == "split-rescan" and info["sparse"] == [0], f"dense: route {info}")
     say(f"phase 5b dense {dense_mb} MB k=1 (a plant every 4 KB): auto == dp band, counts "
         f"{counts.tolist()}, route {info['route']}, n_hot {info['n_hot']}; "
         f"{cold_warm(main, f'dense {dense_mb} MB', sc, dense, counts.tolist())[0]}")

@@ -267,6 +267,38 @@ def test_scanner_filtration_on_card_matches_oracle(dev, k):
     assert filter_kernel.LAUNCHES > before[0] and dp_kernel.MYERS_LAUNCHES > before[1]
 
 
+@pytest.mark.parametrize("chunk_bytes", [None, 1 << 20])
+def test_scanner_split_rescan_on_card_matches_plain(dev, chunk_bytes):
+    """A 4 MB text at k = 3 with a 32-mer whose 8-byte pieces make most rows
+    hot and five sparse 50-mers: the sparse ones are verified on their hot
+    rows (kernel C on count_hot_batch), the 32-mer rescanned by kernel C,
+    in one chunk or four; the counts equal the plain DP over every window
+    and the plain versions on the same route."""
+    import apm_torch
+    from apm_torch import ApmConfig
+    from apm_torch.ops import dp_kernel
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(4 << 20, 90, b"ACGT\n")
+    pats = [bytes(_corpus(m, 91 + i)) for i, m in enumerate([32, 50, 50, 50, 50, 50])]
+    for i, p in enumerate(pats):
+        every = 5_000 if i == 0 else 500_000  # about 800 rows of 1024 against 8
+        plant(c, np.frombuffer(p, np.uint8), range(1000 + 300 * i, len(c) - 200, every),
+              k=3, seed=i)
+    cfg = dict(chunk_bytes=chunk_bytes) if chunk_bytes else {}
+    before = dp_kernel.MYERS_LAUNCHES
+    sc = apm_torch.Scanner(pats, 3, ApmConfig(**cfg))
+    got = sc.count(c).tolist()
+    assert sc.last_filtration["route"] == "split-rescan"
+    assert sc.last_filtration["sparse"] == [1, 2, 3, 4, 5]
+    assert dp_kernel.MYERS_LAUNCHES > before
+    plain = apm_torch.Scanner(pats, 3, ApmConfig(backend="torch", **cfg))
+    assert plain.count(c).tolist() == got and plain.last_filtration == sc.last_filtration
+    every = apm_torch.Scanner(pats, 3, ApmConfig(backend="torch", engine="dp"))
+    assert every.count(c).tolist() == got
+    assert min(got) > 0
+
+
 def _batch_rows(corpora, w, wf, halo, n_slots, bound_of):
     """count_batch's staging of a batch: rows, per-block meta, row limits."""
     from apm_torch.ops.common import fold_corpus

@@ -218,3 +218,134 @@ def test_routes_name_apms_kernels():
     assert {"corr_fused", "corr_conv", "dp_band", "dp_myers", "filter_pieces",
             "piece_conv+dp_band", "piece_conv+dp_myers",
             "filter_pieces+dp_band", "filter_pieces+dp_myers"} <= seen
+
+
+def _split_set(k, lengths, dense_every, sparse_every, seed, n=40_000):
+    """Pattern 0 planted every ``dense_every`` bytes, the others every
+    ``sparse_every``: one pattern's candidates in most rows, the others'
+    in a few."""
+    pats = _patterns(lengths, seed)
+    c = _corpus(n, seed + 1)
+    for i, p in enumerate(pats):
+        every = dense_every if i == 0 else sparse_every
+        plant(c, np.frombuffer(p, np.uint8), range(400 + 97 * i, n - 300, every),
+              k=min(k, 3), seed=seed + 2 + i)
+    return c, pats
+
+
+def _clipped_split_set():
+    """A dense 32-mer, a 50-mer whose one copy starts in the last, partial
+    staging row (as in :func:`test_count_clipped_hot_row`) and a sparse
+    50-mer."""
+    pats = _patterns([32, 50, 50], 110)
+    wf = 1024 // 8
+    n = wf * 300 + 60 + 49  # device bound n - 49 ends 60 windows into a row
+    c = _corpus(n, 111)
+    plant(c, np.frombuffer(pats[0], np.uint8), range(400, n - 300, 150), k=2, seed=112)
+    plant(c, np.frombuffer(pats[2], np.uint8), range(600, n - 300, 6000), k=2, seed=113)
+    dev_bound = n - 50 + 1
+    assert dev_bound % wf == 60
+    c[dev_bound - 20 : dev_bound + 30] = np.frombuffer(pats[1], np.uint8)
+    c[dev_bound - 10] ^= 1  # one substitution
+    return c, pats
+
+
+@pytest.mark.parametrize(
+    "case,k,lengths,dense_every,sparse_every,cfg,fp1,route,sparse",
+    [
+        ("filter", 3, [32, 50, 50, 50], 150, 6_000, dict(engine="filter"), None,
+         "split-rescan", [1, 2, 3]),
+        ("conv", 1, [32, 50, 50], 150, 6_000, {}, "conv", "split-rescan", [1, 2]),
+        ("fused", 1, [32, 50, 50], 150, 6_000, dict(corr_impl="fused"), "fused",
+         "split-rescan", [1, 2]),
+        ("chunks", 3, [32, 50, 50, 50], 150, 6_000,
+         dict(engine="filter", chunk_bytes=16 << 10), None, "split-rescan", [1, 2, 3]),
+        ("all dense", 3, [32, 50], 150, 150, {}, None, "rescan", None),
+        # each pattern alone passes the threshold (64 rows of 312)
+        ("each past the threshold", 1, [50, 50], 450, 450, {}, "conv", "rescan", None),
+        # the sparse patterns' rows pass the device compaction's cap
+        ("past the cap", 3, [32, 50, 50], 150, 3_000, {}, None, "rescan", None),
+        ("clipped", 2, [32, 50, 50], None, None, {}, "conv", "split-rescan", [1, 2]),
+    ],
+)
+def test_count_split_rescan(monkeypatch, case, k, lengths, dense_every, sparse_every,
+                            cfg, fp1, route, sparse):
+    """A dense set whose patterns are not all dense: the sparse ones are
+    verified on their hot rows on the device (and their clipped rows on the
+    host) and the rest rescanned, with each phase-1 engine and over several
+    chunks; a set with no pattern sparse enough keeps the whole-set
+    rescan. Counts three ways."""
+    from apm_torch.models import pipeline
+    from apm_torch.models.pipeline import make_plan
+    from apm_torch.ops import fused as tfused
+
+    host_rows = []  # the slots each clipped row is verified for on the host
+    verify_clipped = pipeline._verify_clipped_row
+
+    def spy(scanner, reader, plan, n, j0, fcnt):
+        host_rows.append(np.flatnonzero(np.asarray(plan.fmask) & (fcnt > 0)).tolist())
+        return verify_clipped(scanner, reader, plan, n, j0, fcnt)
+
+    monkeypatch.setattr(pipeline, "_verify_clipped_row", spy)
+    if case == "past the cap":
+        monkeypatch.setattr(tfused, "OVERFLOW_BATCH", 8)
+        monkeypatch.setattr(tfused, "OVERFLOW_CAP", 8)
+    if case == "clipped":
+        c, pats = _clipped_split_set()
+    else:
+        c, pats = _split_set(k, lengths, dense_every, sparse_every, seed=90 + 10 * k)
+    tsc, want = _three_way(c, pats, k, **cfg)
+    assert want[0] > 0 and (sparse is None or all(want[s] > 0 for s in sparse))
+    info = tsc.last_filtration
+    assert info["route"] == route and info.get("sparse") == sparse
+    plan = make_plan(tsc, len(c))
+    assert tsc._routes(plan)[1] == fp1
+    if case == "chunks":
+        assert tsc._count_setup(plan)["chunk_win"] < plan.dev_bound
+    if route == "split-rescan":
+        # only the sparse patterns with a candidate in the clipped row
+        assert all(0 < len(r) and set(r) <= set(sparse) for r in host_rows), host_rows
+    if case == "clipped":
+        assert [1] in host_rows
+
+
+def test_sparse_patterns_takes_the_longest_prefix_within_threshold_and_cap():
+    """:func:`sparse_patterns` takes the filtration slots with the fewest hot
+    rows, as many as fit the density threshold and, in every chunk, the
+    cap; none or all of them is no split."""
+    from apm_torch.models.pipeline import candidate_density_dense, sparse_patterns
+
+    wf, dev_bound, cap = 128, 100_000, 60  # threshold: 64 rows
+    fmask = (True, True, True, False, True)
+    one = [np.array([30, 2, 20, 9, 100])]
+    assert sparse_patterns(one, fmask, wf, dev_bound, cap).tolist() == [
+        True, True, True, False, False]  # 2 + 20 + 30 <= 64, + 100 is not
+    assert sparse_patterns(one, fmask, wf, dev_bound, 25).tolist() == [
+        False, True, True, False, False]  # the cap stops at 2 + 20
+    assert sparse_patterns([np.array([70, 80, 65, 0, 90])], fmask, wf, dev_bound, cap) is None
+    assert sparse_patterns([np.array([1, 2, 3, 500, 4])], fmask, wf, dev_bound, cap) is None
+    two = [np.array([10, 0, 30, 0, 60]), np.array([25, 5, 0, 0, 4])]
+    # summed: 35, 5, 30, -, 64; 5 + 30 = 35 fits, + 35 = 70 does not
+    assert np.flatnonzero(sparse_patterns(two, fmask, wf, dev_bound, cap)).tolist() == [1, 2]
+
+    rng = np.random.default_rng(0)
+    for _ in range(300):
+        n_chunks, p = rng.integers(1, 4), rng.integers(1, 7)
+        hot = [rng.integers(0, 60, p) for _ in range(n_chunks)]
+        fm = rng.random(p) < 0.8
+        got = sparse_patterns(hot, fm, wf, dev_bound, cap)
+        per = np.array(hot)
+        slots = np.flatnonzero(fm)
+        if got is None:
+            continue
+        s = np.flatnonzero(got)
+        assert 0 < len(s) < len(slots) and set(s) <= set(slots)
+        assert not candidate_density_dense(per[:, s].sum(), wf, dev_bound)
+        assert (per[:, s].sum(axis=1) <= cap).all()
+        rest = np.setdiff1d(slots, s)
+        # the fewest rows first, and no pattern of the rest would fit as well
+        assert per[:, s].sum(axis=0).max() <= per[:, rest].sum(axis=0).min()
+        nxt = rest[np.argmin(per[:, rest].sum(axis=0))]
+        more = np.append(s, nxt)
+        assert (candidate_density_dense(per[:, more].sum(), wf, dev_bound)
+                or (per[:, more].sum(axis=1) > cap).any())

@@ -137,10 +137,34 @@ def test_rescan_counters_count_the_work_handed_to_the_dp(chunk_bytes):
     plens = make_plan(sc, len(c)).plens_filter
     assert sum(plens) == 82 and got["#windows"] == bound
     assert got["#rescan cells"] == bound * sum(plens)
-    assert got["#rescan windows"] == bound * 2
+    assert got["#rescan windows"] == bound * 2 and got["#rescan patterns"] == 2
     assert got["#hot windows"] > 0.05 * got["#windows"]
     assert got["#candidates 0"] >= 1 and got["#candidates 1"] >= 1
     assert "rescan dp" in got and "wait" in got
+
+
+@pytest.mark.parametrize("chunk_bytes", [None, 16 << 10])
+def test_rescan_counters_on_the_split_count_the_dense_patterns(chunk_bytes):
+    """On the split route the rescan takes the dense 32-mer alone: its
+    counters count one pattern over every owned window, once a call, and
+    the sparse 50-mers are verified under ``count_hot_batch``."""
+    c = _corpus(40_000, 60).copy()
+    pats = [_corpus(32, 61).tobytes(), _corpus(50, 62).tobytes(), _corpus(50, 63).tobytes()]
+    for i, (p, every) in enumerate(zip(pats, (150, 6_000, 6_000))):
+        plant(c, np.frombuffer(p, np.uint8), range(400 + 97 * i, len(c) - 300, every),
+              k=3, seed=64 + i)
+    cfg = dict(chunk_bytes=chunk_bytes) if chunk_bytes else {}
+    sc = apm_torch.Scanner(pats, 3, ApmConfig(**cfg, **CPU))
+    sc.meter.trace = True
+    assert sc.count(c).tolist() == count_matches(c, pats, 3)
+    assert sc.last_filtration["route"] == "split-rescan"
+    assert sc.last_filtration["sparse"] == [1, 2]
+    got = sc.meter.last_spans
+    bound = sc.device_window_bound(len(c))
+    assert got["#rescan patterns"] == 1
+    assert got["#rescan windows"] == bound and got["#rescan cells"] == bound * 32
+    assert got["#hot windows"] > 0.05 * got["#windows"]
+    assert "rescan dp" in got and "count_hot_batch" in got
 
 
 def test_call_span_holds_plan_and_wait():
