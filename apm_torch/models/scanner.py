@@ -764,6 +764,7 @@ class Scanner:
         hot-row bucket ``max_hot``."""
         from ..ops import fused
         from ..ops.corr_engine import _group_rows
+        from ..ops.filter_kernel import tier_of
 
         corr, fp1 = self._routes(plan)
         if chunk_win is None:
@@ -782,8 +783,11 @@ class Scanner:
         )
         if plan.any_filter and self.k >= 1:
             common["peq"] = self._peq_for(plan.plens_filter)
+        # kernel D's pieces (all, banded tier), for its counters
+        tiers = [tier_of(m, self.k) for m in plan.plens_filter if m]
+        pieces = (sum(j for j, _ in tiers), sum(j for j, kp in tiers if kp))
         return dict(
-            plan=plan, corr=corr, fp1=fp1, chunk_win=chunk_win, n_rows=n_rows,
+            plan=plan, corr=corr, fp1=fp1, chunk_win=chunk_win, n_rows=n_rows, pieces=pieces,
             g_rows=_group_rows(plan.wf + plan.halo, len(self._alph), n_rows),
             max_hot=max_hot, plain=plain, common=common,
             tabs=self._device_tables(fused_needed=corr == "fused"),
@@ -797,7 +801,11 @@ class Scanner:
         raw)``: the ``(p_pad,)`` device counts, and for a k >= 1
         filtration chunk ``(c0, packed, rowmap, drows)``, else None.
         ``bound`` (default ``plan.dev_bound``) is the exclusive bound of the
-        window starts the chunk owns: a shard's chunks stop at its end."""
+        window starts the chunk owns: a shard's chunks stop at its end.
+        Where kernel D runs phase 1, ``spans`` counts ``piece windows`` and
+        ``banded piece windows``: the chunk's owned windows times the pieces
+        of the filtration patterns (:func:`~apm_torch.ops.filter_kernel.
+        tier_of`'s ``j``), of all of them and of those in the banded tier."""
         from ..ops import corr_engine, corr_fused, filter_kernel, fused
 
         plan, k, tabs, common = st["plan"], self.k, st["tabs"], st["common"]
@@ -827,6 +835,10 @@ class Scanner:
                 )
         if not plan.any_filter:
             return handles, None
+        if k == 0 or st["fp1"] is None:
+            owned = min(st["chunk_win"], dev_bound - c0)
+            spans.count("piece windows", owned * st["pieces"][0])
+            spans.count("banded piece windows", owned * st["pieces"][1])
         if k == 0:  # candidates are exact matches
             with spans.device("phase 1"):
                 fcnt, _ = filter_kernel.scan_filter(
@@ -905,8 +917,11 @@ class Scanner:
         looked up, ``windows`` (each chunk's owned windows), ``rescan
         patterns`` (the patterns handed to the rescan, once a call),
         ``rescan windows`` and ``rescan cells`` (window x pattern pairs of
-        those patterns and their pattern bytes, per ``rescan dp`` launch)
-        and, from
+        those patterns and their pattern bytes, per ``rescan dp`` launch),
+        ``verify windows`` and ``verify cells`` (the same of the overflow
+        recovery: every filtration pattern over a chunk's full hot rows,
+        per chunk handed to ``count_hot_batch``), ``piece windows`` and
+        ``banded piece windows`` (:meth:`_launch_chunk`) and, from
         :func:`~apm_torch.models.pipeline.finalize_filtration`, ``hot
         windows`` and ``candidates <slot>``.
         """
@@ -968,6 +983,10 @@ class Scanner:
             def verify(n_hot: int, plens=None):
                 if n_hot > fused.OVERFLOW_CAP:
                     return None
+                if plens is None:
+                    live = [m for m in plan.plens_filter if m]
+                    spans.count("verify windows", n_hot * wf * len(live))
+                    spans.count("verify cells", n_hot * wf * sum(live))
                 with spans.device("count_hot_batch"):
                     return [
                         self._count_hot_batch(st, drows, rowmap, c0, b, plens)

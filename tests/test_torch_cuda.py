@@ -225,6 +225,36 @@ def test_filter_kernel_matches_plain(dev, k, lengths, text):
         assert fcnt[: len(pats)].tolist() == [bound - wf] * len(pats)
 
 
+def test_filter_kernel_banded_tier_at_the_capture_panel(dev):
+    """The capture panel's layout: 64 probes of 120 bytes at k = 12, each
+    seven banded pieces of 17-18 bytes with one error, over rows of 128
+    windows and a 256-byte halo; near copies of half the probes planted."""
+    from apm_torch.ops import filter_kernel
+    from apm_torch.ops.common import fold_corpus
+    from apm_torch.utils.corpus import plant
+
+    k, wf, n_rows = 12, 128, 1024
+    assert filter_kernel.tier_of(120, k) == (7, 1)
+    corpus = _corpus(n_rows * wf + 1024, 120)
+    pats = [bytes(_corpus(120, 200 + i)) for i in range(64)]
+    for i, p in enumerate(pats[:32]):
+        plant(corpus, np.frombuffer(p, np.uint8), range(300 + 997 * i, len(corpus) - 400, 40_009),
+              k=3, seed=i)
+    _, raw, plens, m_max, halo = _tables(pats, k, n_pad=64)
+    assert (m_max, halo) == (120, 256)
+    rows = torch.from_numpy(fold_corpus(corpus, 0, n_rows, wf, halo)).to(dev)
+    draw = torch.from_numpy(raw).to(dev)
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+    bound = (n_rows - 2) * wf + 77
+    before = filter_kernel.LAUNCHES
+    fcnt, rowmap = filter_kernel.scan_filter(rows, draw, bound, 0, **kw)
+    rf, rr = filter_kernel.scan_filter_ref(rows, draw, bound, 0, **kw)
+    assert filter_kernel.LAUNCHES == before + 1
+    assert fcnt.tolist() == rf.tolist()
+    assert torch.equal(rowmap, rr)
+    assert (fcnt[:32] > 0).all()
+
+
 def test_filter_kernel_sizes_its_block_to_the_halo(dev):
     # a 64 KB halo leaves room for 64 threads' staging buffers only; at
     # 128 KB not even 32 threads' fit, and the entry refuses the launch
