@@ -27,14 +27,29 @@
 //
 // Design (the ideas of exact_scan.cuh: a tile of 32 windows per thread,
 // compares on packed words, no reduction per window):
-// - One staging of the text per item (a row segment of blockDim.x * 32
-//   windows and its halo), by cp.async into one of three shared buffers:
-//   the next item's text loads while this item's pieces run, and three
-//   buffers make one barrier per item enough. Bytes past the row's end are
-//   zero-filled by the copy itself, so no word read leaves the buffer. The
-//   buffer keeps a 4-byte gap after every 32 text bytes: thread t reads
-//   from byte 32t on, and a 36-byte stride puts the 32 lanes of a warp on
-//   32 different banks.
+// - The unit of work, an item, is a group of n consecutive staged rows or
+//   one row segment. A thread owns the 32 windows of one tile of one row.
+//   Where a row's tiles are fewer than half a block (wf a multiple of 32),
+//   an item takes n whole rows, so every thread of the block owns windows:
+//   64 rows of 4 tiles at wf = 128; otherwise it takes a segment of one row,
+//   blockDim.x tiles long. filter_kernel.item_rows chooses n, the block and
+//   the row slot from wf, the halo, the group's pieces and patterns and the
+//   device's shared memory, and the entry takes that choice as it is.
+// - One staging of the text per item, by cp.async into one of three shared
+//   buffers: the next item's text loads while this item's pieces run, and
+//   three buffers make one barrier per item enough. Each of the item's rows
+//   sits in its own slot (its tiles and its halo), so a window reads its own
+//   row's bytes whatever the rows hold; bytes past the row's end are
+//   zero-filled by the copy itself, and a pad after the last slot keeps
+//   every word read inside the buffer. The buffer keeps a 4-byte gap after
+//   every 32 text bytes: thread t reads from byte 32t of its slot on, and a
+//   36-byte stride puts the lanes of a warp on different banks; the slot's
+//   length, a multiple of 32 bytes, is chosen so that this holds across the
+//   rows that share a warp too. At the capture panel's shape (64 patterns,
+//   448 pieces, wf = 128, a 256-byte halo) a block of 64 rows takes 112.6
+//   KB, two blocks an SM; two buffers would not fit a third block, and 32
+//   rows an item (three blocks of four warps an SM) ran 8 % slower on an
+//   H100, so three buffers and the full block stay.
 // - Per piece, a thread builds the 4-byte text words at the positions its
 //   windows reach (aligned word loads, then __funnelshift_r) and tests the
 //   piece's 8-byte head word at each: one hit bit per position, 32 + span
@@ -50,11 +65,15 @@
 //   bit is the band's own and the test only drops positions that cannot
 //   hit.
 // - A thread counts a pattern's candidates over its 32 windows with one
-//   popc and adds the sum to the item's shared row counter only when
-//   nonzero; a row counter reaches rowmap with one atomic per nonzero (row,
-//   pattern), the block's totals reach fcnt with one per nonzero (block,
-//   pattern). Row counters come in two halves by item parity, so the flush
-//   of one item overlaps the count of the next under the same barrier.
+//   popc; the lanes of a warp that share a row sum theirs with one
+//   __reduce_add_sync, and the first of them adds a nonzero sum to rowmap
+//   with one global atomic and to the block's shared totals, which reach
+//   fcnt with one atomic per nonzero (block, pattern). A row of several
+//   warps (wf >= 2048) gets one atomic per warp and pattern: one reduction
+//   for every shape, with no shared row counters to flush between items.
+// - The grid is the card's residency for the block and shared memory
+//   chosen (cudaOccupancyMaxActiveBlocksPerMultiprocessor), capped at the
+//   items, which the blocks walk grid-stride.
 // Tensor cores do not apply: the work is integer equality tests with early
 // exit, not a product (the TPU's bit-plane matmul was its way to compare
 // bytes on a matrix unit).
@@ -67,10 +86,10 @@ namespace {
 constexpr int kInf = 1 << 20;      // additive-safe INF of out-of-band cells
 constexpr int kW = 32;             // windows per thread
 constexpr int kMaxThreads = 256;   // 8 warps cover an 8192-window row
-constexpr int kBlocksPerSm = 4;    // __launch_bounds__ and the grid's blocks an SM
+constexpr int kMinBlocksPerSm = 4; // __launch_bounds__: at most 64 registers a thread
 constexpr int kStages = 3;         // staging buffers: one barrier per item
 constexpr int kLayoutInts = 8;     // ints per piece from the host (filter_kernel.piece_layout)
-constexpr int kReachPad = 128;     // staged bytes past segment + halo
+constexpr int kReachPad = 128;     // buffer bytes past the last slot
 
 // One piece in shared memory: its filter_kernel.piece_layout row, then the
 // words this kernel builds from the char table.
@@ -98,10 +117,11 @@ struct FilterArgs {
   int32_t* fcnt;        // (n_pat,) candidate totals, accumulated
   int32_t* rowmap;      // (n_rows, rowmap_stride) per-row candidates
   int64_t rowmap_stride;
-  int stage_words;      // logical text words staged per item
+  int item_rows;        // rows of an item (filter_kernel.item_rows)
+  int slot_words;       // logical words of a row's slot, a multiple of 8
 };
 
-// Staged buffers: logical byte x (from the segment's first window) sits at
+// Staged buffers: logical byte x (from the first slot's first byte) sits at
 // physical byte x + 4 * (x / 32).
 __device__ __forceinline__ int phys_word(int wi) { return wi + (wi >> 3); }
 
@@ -245,41 +265,30 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
-// Issue the copies of an item's text: logical words [0, n_words) of row r
-// from byte seg0, zero past the row's end (a copy of 0 source bytes).
-__device__ __forceinline__ void stage(uint32_t* buf, const FilterArgs& a, int64_t r,
+// Issue the copies of an item's text: for each of its rows r0 + i below
+// n_rows, logical words [0, slot_words) of slot i from the row's byte seg0,
+// zero past the row's end (a copy of 0 source bytes).
+__device__ __forceinline__ void stage(uint32_t* buf, const FilterArgs& a, int64_t r0,
                                       int64_t seg0) {
-  const uint8_t* row = a.rows + r * a.row_stride;
   const int64_t avail = a.row_stride - seg0;
-  for (int wi = threadIdx.x; wi < a.stage_words; wi += blockDim.x) {
-    const int64_t b = 4 * (int64_t)wi;
+  const int64_t left = a.n_rows - r0;
+  const int live = left < a.item_rows ? (int)left : a.item_rows;
+  for (int wi = threadIdx.x; wi < live * a.slot_words; wi += blockDim.x) {
+    const int i = wi / a.slot_words;
+    const int64_t b = 4 * (int64_t)(wi - i * a.slot_words);
+    const uint8_t* row = a.rows + (r0 + i) * a.row_stride;
     const bool in = b < avail;
     cp_async4(buf + phys_word(wi), in ? row + seg0 + b : row, in ? 4 : 0);
   }
 }
 
-// The previous item's row counters into rowmap and the block's totals.
-__device__ __forceinline__ void flush_row(int* s_row, int* s_tot, const FilterArgs& a,
-                                          int64_t r) {
-  for (int p = threadIdx.x; p < a.n_pat; p += blockDim.x) {
-    const int v = s_row[p];
-    if (v != 0) {
-      atomicAdd(&a.rowmap[r * a.rowmap_stride + p], v);
-      s_tot[p] += v;
-      s_row[p] = 0;
-    }
-  }
-}
-
-// 4 blocks an SM, at most 64 registers a thread (the entry sizes the grid
-// to match): 4 read 10-20 % faster than 2 on the H100.
-__global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm) filter_pieces_kernel(FilterArgs a) {
+__global__ void __launch_bounds__(kMaxThreads, kMinBlocksPerSm) filter_pieces_kernel(FilterArgs a) {
   extern __shared__ uint4 smem4[];
   Piece* s_piece = reinterpret_cast<Piece*>(smem4);             // (n_piece,)
   int* s_pstart = reinterpret_cast<int*>(s_piece + a.n_piece);  // (n_pat + 1,)
-  int* s_rows = s_pstart + a.n_pat + 1;  // (2, n_pat) an item's counts, by parity
-  int* s_tot = s_rows + 2 * a.n_pat;     // (n_pat,) block totals
-  const int buf_words = a.stage_words + a.stage_words / 8;
+  int* s_tot = s_pstart + a.n_pat + 1;                          // (n_pat,) block totals
+  const int stage_words = a.item_rows * a.slot_words + kReachPad / 4;
+  const int buf_words = stage_words + stage_words / 8;
   uint32_t* s_txt = reinterpret_cast<uint32_t*>(s_tot + a.n_pat);  // kStages buffers
 
   int* s_tab = reinterpret_cast<int*>(s_piece);
@@ -287,7 +296,7 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm) filter_pieces_kerne
     s_tab[2 * i - i % kLayoutInts] = a.pieces[i];  // row i / 8, column i % 8
   }
   for (int i = threadIdx.x; i <= a.n_pat; i += blockDim.x) s_pstart[i] = a.pstart[i] - a.pstart[0];
-  for (int i = threadIdx.x; i < 3 * a.n_pat; i += blockDim.x) s_rows[i] = 0;
+  apm::zero_counts(s_tot, a.n_pat);
   __syncthreads();
   // the words, from the char table: the host sends the layout only
   for (int p = threadIdx.x; p < a.n_pat; p += blockDim.x) {
@@ -299,86 +308,90 @@ __global__ void __launch_bounds__(kMaxThreads, kBlocksPerSm) filter_pieces_kerne
     }
   }
 
-  const int64_t seg = (int64_t)blockDim.x * kW;
+  // This thread's row slot and tile; the lanes of its warp in the same
+  // slot, [g0, g1), sum their counts.
+  const int tiles = blockDim.x / a.item_rows;  // tiles of a row an item
+  const int slot = threadIdx.x / tiles;
+  const int tile = threadIdx.x - slot * tiles;
+  const int lane = threadIdx.x & 31, warp0 = threadIdx.x - lane;
+  const int g0 = max(slot * tiles - warp0, 0), g1 = min((slot + 1) * tiles - warp0, 32);
+  const unsigned group = (g1 - g0 == 32 ? 0xffffffffu : (1u << (g1 - g0)) - 1u) << g0;
+  const int x0 = slot * a.slot_words * 4 + tile * kW;  // logical byte of the first window
+
+  const int64_t seg = (int64_t)tiles * kW;
   const int64_t segs = (a.wf + seg - 1) / seg;
-  const int64_t n_items = a.n_rows * segs;
-  // row, first window and owned windows of item t; dead when seg0 >= lim
-  auto item = [&](int64_t t, int64_t& r, int64_t& seg0) -> int64_t {
-    r = segs == 1 ? t : t / segs;
-    seg0 = (t - r * segs) * seg;
-    return apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+  const int64_t n_items = (a.n_rows + a.item_rows - 1) / a.item_rows * segs;
+  // first row and first window of item t
+  auto item = [&](int64_t t, int64_t& r0, int64_t& seg0) {
+    const int64_t g = segs == 1 ? t : t / segs;
+    r0 = g * a.item_rows;
+    seg0 = (t - g * segs) * seg;
   };
 
   // issue the copies of item t into buffer b, if it is live
   auto prefetch = [&](int64_t t, int b) {
     if (t < n_items) {
-      int64_t r, seg0;
-      const int64_t lim = item(t, r, seg0);
-      if (seg0 < lim) stage(s_txt + b * buf_words, a, r, seg0);
+      int64_t r0, seg0;
+      item(t, r0, seg0);
+      if (seg0 < apm::owned_limit(r0, a.n_rows, a.wf, a.bound, a.start)) {
+        stage(s_txt + b * buf_words, a, r0, seg0);
+      }
     }
     cp_async_commit();
   };
 
   int64_t t = blockIdx.x;
   prefetch(t, 0);
-  int it = 0;           // items walked by this block
-  int64_t prev_r = 0;   // row of the previous item
-  while (t < n_items) {  // uniform over the block
+  for (int it = 0; t < n_items; ++it) {  // uniform over the block
     const int64_t tn = t + gridDim.x;
     prefetch(tn, (it + 1) % kStages);
     cp_async_wait_prev();  // this item's copies (this thread's) have landed
-    __syncthreads();       // everyone's have; the previous item is counted
-    if (it > 0) flush_row(s_rows + ((it - 1) & 1) * a.n_pat, s_tot, a, prev_r);
+    __syncthreads();       // everyone's have; buffer (it + 1) % kStages is free
 
-    int64_t r, seg0;
-    const int64_t lim = item(t, r, seg0);
-    const int64_t j0 = seg0 + (int64_t)threadIdx.x * kW;
-    if (j0 < lim) {
-      const int nown = lim - j0 < kW ? (int)(lim - j0) : kW;
-      const uint32_t own = nown >= 32 ? 0xffffffffu : (1u << nown) - 1u;
-      const uint32_t* buf = s_txt + (it % kStages) * buf_words;
-      int* s_row = s_rows + (it & 1) * a.n_pat;
-      const int x0 = threadIdx.x * kW;  // logical byte of window j0
-      for (int p = 0; p < a.n_pat; ++p) {
-        const int q1 = s_pstart[p + 1];
-        const int32_t* pch = a.pchar + (int64_t)p * a.pchar_stride + a.pad;
-        uint32_t cand = 0;
-        for (int q = s_pstart[p]; q < q1 && (cand & own) != own; ++q) {
-          const Piece pc = s_piece[q];
-          const int x = x0 + pc.off;
-          uint64_t hits = block_hits<32>(buf, x, pc, pch);
-          if (pc.span > 0) {  // positions 32 .. 31 + span
-            const uint64_t h1 = pc.span <= 8    ? block_hits<8>(buf, x + 32, pc, pch)
-                                : pc.span <= 16 ? block_hits<16>(buf, x + 32, pc, pch)
-                                                : block_hits<32>(buf, x + 32, pc, pch);
-            hits |= h1 << 32;
-          }
-          if (hits != 0) cand |= spread(hits, pc.span);
+    int64_t r0, seg0;
+    item(t, r0, seg0);
+    const int64_t r = r0 + slot;
+    const int64_t j0 = seg0 + (int64_t)tile * kW;
+    const int64_t lim = apm::owned_limit(r, a.n_rows, a.wf, a.bound, a.start);
+    const int nown = j0 >= lim ? 0 : lim - j0 < kW ? (int)(lim - j0) : kW;
+    const uint32_t own = nown >= 32 ? 0xffffffffu : (1u << nown) - 1u;
+    const uint32_t* buf = s_txt + (it % kStages) * buf_words;
+    for (int p = 0; p < a.n_pat; ++p) {
+      const int q1 = s_pstart[p + 1];
+      const int32_t* pch = a.pchar + (int64_t)p * a.pchar_stride + a.pad;
+      uint32_t cand = 0;
+      for (int q = s_pstart[p]; q < q1 && (cand & own) != own; ++q) {
+        const Piece pc = s_piece[q];
+        const int x = x0 + pc.off;
+        uint64_t hits = block_hits<32>(buf, x, pc, pch);
+        if (pc.span > 0) {  // positions 32 .. 31 + span
+          const uint64_t h1 = pc.span <= 8    ? block_hits<8>(buf, x + 32, pc, pch)
+                              : pc.span <= 16 ? block_hits<16>(buf, x + 32, pc, pch)
+                                              : block_hits<32>(buf, x + 32, pc, pch);
+          hits |= h1 << 32;
         }
-        const int c = __popc(cand & own);
-        if (c != 0) atomicAdd(&s_row[p], c);
+        if (hits != 0) cand |= spread(hits, pc.span);
+      }
+      const unsigned c = __reduce_add_sync(group, (unsigned)__popc(cand & own));
+      if (lane == g0 && c != 0) {
+        atomicAdd(&a.rowmap[r * a.rowmap_stride + p], (int)c);
+        atomicAdd(&s_tot[p], (int)c);
       }
     }
-    prev_r = r;
     t = tn;
-    ++it;
   }
   cp_async_wait_all();
-  __syncthreads();
-  if (it > 0) flush_row(s_rows + ((it - 1) & 1) * a.n_pat, s_tot, a, prev_r);
   __syncthreads();
   apm::flush_counts(s_tot, a.fcnt, a.n_pat);
 }
 
-// Dynamic shared memory of a block of `threads`: the piece table, pattern
-// ranges, counters and kStages staging buffers of `stage_words` logical
-// words each (the segment, its halo rounded to 32 and the word overhang of
-// the last thread's reads) with a 4-byte gap after every 32 bytes.
-size_t block_smem(int threads, int64_t halo, int n_piece, int n_pat, int* stage_words) {
-  const int64_t halo32 = (halo + 31) / 32 * 32;
-  *stage_words = (int)(((int64_t)threads * kW + halo32 + kReachPad) / 4);
-  return sizeof(Piece) * (size_t)n_piece + sizeof(int) * (4 * (size_t)n_pat + 1) +
-         sizeof(uint32_t) * kStages * (size_t)(*stage_words + *stage_words / 8);
+// Dynamic shared memory of a block (filter_kernel.block_smem): the piece
+// table, pattern ranges, totals and kStages staging buffers of item_rows
+// slots and the pad, with a 4-byte gap after every 32 bytes.
+size_t block_smem(int item_rows, int64_t slot_words, int n_piece, int n_pat) {
+  const size_t words = (size_t)item_rows * slot_words + kReachPad / 4;
+  return sizeof(Piece) * (size_t)n_piece + sizeof(int) * (2 * (size_t)n_pat + 1) +
+         sizeof(uint32_t) * kStages * (words + words / 8);
 }
 
 }  // namespace
@@ -387,47 +400,50 @@ size_t block_smem(int threads, int64_t halo, int n_piece, int n_pat, int* stage_
 // caller zeroes both) for the n_pat patterns of one launch group, whose
 // pieces (filter_kernel.piece_layout rows; the words are built here from
 // pchar) and piece ranges pstart (absolute, n_pat + 1) are passed from
-// their first. rows and row_stride must be multiples of 4 bytes. A block
-// takes whole warps enough to give each of wf windows a 32-window tile, at
-// most kMaxThreads, halved while its shared memory passes the device's
-// limit (cudaErrorInvalidValue when 32 threads pass it: a halo too large);
-// kBlocksPerSm blocks an SM walk the items grid-stride. Returns the
-// launch's cudaError_t (0 on success).
+// their first. rows and row_stride must be multiples of 4 bytes. The block
+// is filter_kernel.item_rows' choice: `threads` threads walk items of
+// `item_rows` rows (then threads / item_rows * 32 == wf) or of one row's
+// segment, each row in a slot of `slot` staged bytes (a multiple of 32 that
+// holds the row's tiles and its halo). cudaErrorInvalidValue when the
+// block's shared memory passes the device's limit (a halo too large). The
+// grid is the device's residency for that block, capped at the items.
+// Returns the launch's cudaError_t (0 on success).
 extern "C" int apm_filter_pieces_count(
     const uint8_t* rows, int64_t n_rows, int64_t row_stride,
     const int32_t* pchar, int n_pat, int64_t pchar_stride, int pad,
     const int32_t* pieces, int n_piece, const int32_t* pstart, int64_t wf,
     int64_t bound, int64_t start, int32_t* fcnt, int32_t* rowmap,
-    int64_t rowmap_stride, void* stream) {
+    int64_t rowmap_stride, int item_rows, int threads, int64_t slot, void* stream) {
+  const int64_t halo = row_stride - wf;
   if (n_rows <= 0 || n_pat <= 0 || n_piece <= 0 || pad < 0 || pad > 1 || wf <= 0 ||
-      row_stride <= wf || (uintptr_t)rows % 4 != 0 || row_stride % 4 != 0) {
+      halo <= 0 || (uintptr_t)rows % 4 != 0 || row_stride % 4 != 0 || threads <= 0 ||
+      threads > kMaxThreads || item_rows <= 0 || threads % item_rows != 0 ||
+      (item_rows > 1 && (int64_t)threads / item_rows * kW != wf) || slot % 32 != 0 ||
+      slot < (int64_t)threads / item_rows * kW + halo) {
     return (int)cudaErrorInvalidValue;
   }
-  int dev = 0, sms = 0, smem_max = 0;
+  int dev = 0, sms = 0, smem_max = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess) {
     e = cudaDeviceGetAttribute(&smem_max, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (e != cudaSuccess) return (int)e;
-  int threads = (int)std::min<int64_t>(kMaxThreads, (wf + 32 * kW - 1) / (32 * kW) * 32);
-  int stage_words = 0;
-  size_t smem = block_smem(threads, row_stride - wf, n_piece, n_pat, &stage_words);
-  while (smem > (size_t)smem_max && threads > 32) {
-    threads /= 2;
-    smem = block_smem(threads, row_stride - wf, n_piece, n_pat, &stage_words);
-  }
+  const size_t smem = block_smem(item_rows, slot / 4, n_piece, n_pat);
   if (smem > (size_t)smem_max) return (int)cudaErrorInvalidValue;
-  const int64_t n_items = n_rows * ((wf + (int64_t)threads * kW - 1) / ((int64_t)threads * kW));
-  const int grid = (int)std::min<int64_t>(n_items, (int64_t)sms * kBlocksPerSm);
-  FilterArgs a{rows,   n_rows, row_stride, pchar, n_pat, pchar_stride, pad,
-               pieces, n_piece, pstart,    wf,    bound, start,        fcnt,
-               rowmap, rowmap_stride, stage_words};
   if (smem > 48 * 1024) {
     e = cudaFuncSetAttribute(filter_pieces_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, filter_pieces_kernel, threads, smem);
+  if (e != cudaSuccess) return (int)e;
+  const int64_t seg = (int64_t)threads / item_rows * kW;
+  const int64_t n_items = (n_rows + item_rows - 1) / item_rows * ((wf + seg - 1) / seg);
+  const int grid = (int)std::min<int64_t>(n_items, (int64_t)sms * std::max(per_sm, 1));
+  FilterArgs a{rows,   n_rows, row_stride, pchar, n_pat, pchar_stride, pad,
+               pieces, n_piece, pstart,    wf,    bound, start,        fcnt,
+               rowmap, rowmap_stride, item_rows, (int)(slot / 4)};
   filter_pieces_kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

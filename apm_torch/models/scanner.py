@@ -805,7 +805,10 @@ class Scanner:
         Where kernel D runs phase 1, ``spans`` counts ``piece windows`` and
         ``banded piece windows``: the chunk's owned windows times the pieces
         of the filtration patterns (:func:`~apm_torch.ops.filter_kernel.
-        tier_of`'s ``j``), of all of them and of those in the banded tier."""
+        tier_of`'s ``j``), of all of them and of those in the banded tier;
+        and ``filter item rows``, the rows of an item of each of D's
+        launches (:func:`~apm_torch.ops.filter_kernel.item_rows`, for this
+        device's shared memory)."""
         from ..ops import corr_engine, corr_fused, filter_kernel, fused
 
         plan, k, tabs, common = st["plan"], self.k, st["tabs"], st["common"]
@@ -839,6 +842,10 @@ class Scanner:
             owned = min(st["chunk_win"], dev_bound - c0)
             spans.count("piece windows", owned * st["pieces"][0])
             spans.count("banded piece windows", owned * st["pieces"][1])
+            if spans.enabled:
+                smem = filter_kernel.smem_optin(drows.device)
+                for _, items in filter_kernel.launch_items(plan.plens_filter, k, wf, halo, smem):
+                    spans.count("filter item rows", items.rows)
         if k == 0:  # candidates are exact matches
             with spans.device("phase 1"):
                 fcnt, _ = filter_kernel.scan_filter(

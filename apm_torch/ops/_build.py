@@ -221,6 +221,7 @@ def library() -> ctypes.CDLL:
         p, i32, p,  # pieces, n_piece, pstart
         i64, i64, i64,  # wf, bound, start
         p, p, i64,  # fcnt, rowmap, rowmap_stride
+        i32, i32, i64,  # item_rows, threads, slot (filter_kernel.item_rows)
         p,  # stream
     ]
     lib.apm_filter_pieces_count.restype = i32

@@ -30,13 +30,25 @@ the hits over the shift span. The host sends each piece's layout
 (:func:`piece_layout`); the kernel builds the head and tail words from the
 char table. On the card the rows' pointer and row stride must be multiples
 of 4 bytes (``corr_fused.check_aligned_rows``), as the Scanner's staging
-gives them. The kernel's entry sizes its block and grid.
+gives them.
+
+A thread of kernel D owns the 32 windows of one tile of one row. Its unit
+of work, the item, is a group of whole rows where a row's tiles fill less
+than half a block (64 rows of 4 tiles at ``wf`` = 128, so every thread
+owns windows), else a segment of one row; each row of an item is staged
+in its own slot of the shared buffer, its tiles and its halo, at a length
+that keeps a warp's lanes on different banks. The lanes of a warp that
+share a row sum their counts before one atomic adds them to ``rowmap``.
+:func:`item_rows` makes that choice from ``wf``, the halo, the launch
+group's pieces and patterns and the device's shared memory, and the entry
+takes it as it is; the entry sizes the grid from the device's residency
+for that block.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -62,6 +74,15 @@ PIECE_COLS = 8
 # a 128-byte halo), within the 227 KB a block may take.
 _PAT_GROUP = 2048
 _PIECE_GROUP = 1024
+# Kernel D's block (csrc/filter_pieces.cu): threads of 32-window tiles, at
+# most _MAX_THREADS; three staging buffers and a pad after the last slot.
+_TILE = 32
+_MAX_THREADS = 256
+_STAGES = 3
+_REACH_PAD = 128
+# Dynamic shared memory a block of an H100 may opt in to (227 KB): the
+# device's own value where kernel D launches (smem_optin).
+SMEM_OPTIN = 232_448
 
 
 def pieces_of_j(m: int, j: int):
@@ -218,6 +239,90 @@ def launch_groups(pstart: np.ndarray) -> tuple:
     return tuple(groups)
 
 
+class Items(NamedTuple):
+    """Kernel D's unit of work and block: ``rows`` whole staged rows an item
+    (1: a segment of one row, ``threads`` tiles long), ``threads`` a block,
+    ``slot`` staged bytes a row."""
+
+    rows: int
+    threads: int
+    slot: int
+
+
+def block_smem(items: Items, n_piece: int, n_pat: int) -> int:
+    """Dynamic shared memory of kernel D's block (``block_smem`` in
+    ``csrc/filter_pieces.cu``): 64 bytes a piece, the pattern ranges and
+    totals, and three staging buffers of ``items.rows`` slots and the pad,
+    with a 4-byte gap after every 32 bytes."""
+    words = (items.rows * items.slot + _REACH_PAD) // 4
+    return 64 * n_piece + 4 * (2 * n_pat + 1) + 4 * _STAGES * (words + words // 8)
+
+
+def _slot(tiles: int, rows: int, halo: int) -> int:
+    """Bytes of a row's slot: its tiles and its halo rounded up to 32 bytes,
+    then up to the first length at which the lanes of each warp read
+    different banks. Tile ``t`` of slot ``i`` starts at 32-byte unit ``i*s +
+    t`` of the buffer, whose words lie on bank ``9 (i*s + t) mod 32``."""
+    s, threads = tiles + -(-halo // 32), tiles * rows
+
+    def clash(w0):
+        lanes = range(w0, min(w0 + 32, threads))
+        return len({(t // tiles * s + t % tiles) % 32 for t in lanes}) < len(lanes)
+
+    while any(clash(w0) for w0 in range(0, threads, 32)):
+        s += 1
+    return 32 * s
+
+
+@functools.lru_cache(maxsize=256)
+def item_rows(wf: int, halo: int, n_piece: int, n_pat: int,
+              smem_max: int = SMEM_OPTIN) -> Items:
+    """Kernel D's :class:`Items` for rows of ``wf`` windows and ``halo``
+    bytes, and a launch group of ``n_piece`` pieces of ``n_pat`` patterns.
+
+    Where ``wf`` is a multiple of 32 and a row's ``wf // 32`` tiles are
+    fewer than half of ``_MAX_THREADS``, an item takes as many whole rows as
+    fill ``_MAX_THREADS`` threads, halved while the block's
+    :func:`block_smem` passes ``smem_max``; otherwise a segment of one row,
+    whole warps enough to tile ``wf`` up to ``_MAX_THREADS``, halved likewise
+    down to one warp. Where nothing fits, the smallest block, which the
+    entry refuses. (At ``wf`` = 4096, two rows an item ran as fast as one
+    on an H100.)
+    """
+    tiles = wf // _TILE
+    if wf % _TILE == 0 and 2 * tiles < _MAX_THREADS:
+        rows = _MAX_THREADS // tiles
+        while True:
+            items = Items(rows, rows * tiles, _slot(tiles, rows, halo))
+            if rows == 1 or block_smem(items, n_piece, n_pat) <= smem_max:
+                return items
+            rows //= 2
+    threads = min(_MAX_THREADS, -(-wf // (32 * _TILE)) * 32)
+    while True:
+        items = Items(1, threads, _slot(threads, 1, halo))
+        if threads <= 32 or block_smem(items, n_piece, n_pat) <= smem_max:
+            return items
+        threads //= 2
+
+
+def launch_items(plens: tuple, k: int, wf: int, halo: int, smem_max: int = SMEM_OPTIN):
+    """Kernel D's launches over these lengths: ``((p0, p1), Items)`` for
+    each :func:`launch_groups` group, its :func:`item_rows`."""
+    _, pstart = piece_layout(plens, k)
+    return tuple(
+        ((p0, p1), item_rows(wf, halo, int(pstart[p1] - pstart[p0]), p1 - p0, smem_max))
+        for p0, p1 in launch_groups(pstart)
+    )
+
+
+def smem_optin(device: torch.device) -> int:
+    """Shared memory a block may opt in to on ``device``: a card's own, else
+    the H100's (``SMEM_OPTIN``), what kernel D is sized for off the card."""
+    if device.type != "cuda":
+        return SMEM_OPTIN
+    return torch.cuda.get_device_properties(device).shared_memory_per_block_optin
+
+
 def _check_args(rows, pat_raw, k, m_max, wf, halo, plens) -> None:
     if rows.dtype != torch.uint8 or rows.dim() != 2:
         raise ValueError(f"rows must be 2-D uint8, got {rows.dtype} {tuple(rows.shape)}")
@@ -265,10 +370,10 @@ def scan_filter(
         )
     if rows.device.type != "cuda":
         raise ValueError(f"no filtration kernel for device {rows.device}")
-    return _launch(rows, pat_raw, int(bound), int(start), k, wf, plens)
+    return _launch(rows, pat_raw, int(bound), int(start), k, wf, halo, plens)
 
 
-def _launch(rows, pat_raw, bound, start, k, wf, plens):
+def _launch(rows, pat_raw, bound, start, k, wf, halo, plens):
     global LAUNCHES
     from ._build import check, library
     from .corr_fused import check_aligned_rows
@@ -289,14 +394,15 @@ def _launch(rows, pat_raw, bound, start, k, wf, plens):
     table = torch.tensor(layout, device=dev)
     pstart = torch.tensor(pstart_np, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for p0, p1 in launch_groups(pstart_np):
+    for (p0, p1), items in launch_items(plens, k, wf, halo, smem_optin(dev)):
         q0, q1 = int(pstart_np[p0]), int(pstart_np[p1])
         err = lib.apm_filter_pieces_count(
             rows.data_ptr(), n_rows, rows.shape[1],
             pchar[p0].data_ptr(), p1 - p0, pchar.shape[1], pad,
             table[q0].data_ptr(), q1 - q0, pstart[p0].data_ptr(),
             wf, bound, start,
-            fcnt[p0].data_ptr(), rowmap.data_ptr() + 4 * p0, n_pat, stream,
+            fcnt[p0].data_ptr(), rowmap.data_ptr() + 4 * p0, n_pat,
+            items.rows, items.threads, items.slot, stream,
         )
         check(err, "apm_filter_pieces_count")
         LAUNCHES += 1

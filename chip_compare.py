@@ -97,6 +97,40 @@ def filter_cases(cs, dev):
                    lambda a=args, kw=kw: filter_kernel.scan_filter(*a, **kw), plain, 7)
 
 
+def filter_cell_cases(cs, dev):
+    """Kernel D at the benchmark cells' shapes, 256 MiB of random text each:
+    ``capture120`` (64 probes of 120 bytes at k = 12, seven banded pieces
+    each, rows of 128 windows and a 256-byte halo) and ``repeat_k3`` (a
+    32-byte and five 50-byte patterns at k = 3, rows of 4096 windows); each
+    held to the plain version on its first 2048 rows, then timed whole."""
+    import torch
+    from apm_torch.ops import filter_kernel
+    from apm_torch.ops.common import round_up
+    from apm_torch.utils.corpus import plant, random_corpus, random_pattern
+
+    cells = {
+        "capture120": ([random_pattern(120, seed=300 + i) for i in range(64)], 12, 128),
+        "repeat_k3": ([random_pattern(32, seed=370)] + [random_pattern(50, seed=371 + i)
+                                                         for i in range(5)], 3, 4096),
+    }
+    for name, (pats, k, wf) in cells.items():
+        n_rows = (256 << 20) // wf
+        corpus = random_corpus(n_rows * wf + 4096, seed=380 + k)
+        for i, p in enumerate(pats):
+            plant(corpus, p, range(300 + 997 * i, len(corpus) - 400, 1_000_003), k=3, seed=390 + i)
+        _, raw, plens, m_max = cs._pattern_table([p.tobytes() for p in pats], k)
+        halo = round_up(m_max + 2 * k, 128)
+        rows = cs.staged(corpus, 0, n_rows, wf, halo, dev)
+        del corpus
+        draw = torch.from_numpy(raw).to(dev)
+        kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+        for n in (2048, n_rows):
+            args = (rows[:n], draw, n * wf - 107, 0)
+            plain = (lambda a=args, kw=kw: filter_kernel.scan_filter_ref(*a, **kw)) if n == 2048 else None
+            yield (f"D {name} k={k} wf={wf} R={n}", "filter_pieces_kernel",
+                   lambda a=args, kw=kw: filter_kernel.scan_filter(*a, **kw), plain, 3 if k == 12 else 7)
+
+
 def corr_batch_cases(cs, dev):
     """Kernel #8: the first 1024-row group of ``count_batch``'s staging of
     40 corpora at P = 2 and P = 64, held to the plain version, 15 calls
@@ -242,7 +276,7 @@ def mask_cases(cs, dev):
 
 
 # A later kernel's comparison is one more entry.
-CASES = (filter_cases, corr_batch_cases, dp_cases, mask_cases)
+CASES = (filter_cases, corr_batch_cases, dp_cases, mask_cases, filter_cell_cases)
 
 
 E2E_BYTES = 256 << 20  # phase 5b's cell size

@@ -596,12 +596,15 @@ def phase_myers(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
          record=True)
 
 
-def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768, edge_rows: int = 512) -> None:
+def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768, edge_rows: int = 512,
+                 capture_rows: int = 1 << 21) -> None:
     """Kernel D against scan_filter_ref, fcnt and rowmap cell for cell: the
     main-path shapes at 4096 rows and on the 32768 rows of a 256 MB chunk,
     then edge cases at ``edge_rows`` rows: k = 0 heads of 3 and 7 bytes,
     8-byte and 14-byte pieces (exact, and banded with 7-byte heads), and
-    all-A text (every window a candidate, the band at every position)."""
+    all-A text (every window a candidate, the band at every position); last
+    the capture panel's shape, several rows an item, on ``capture_rows``
+    rows of 128 windows (256 MiB)."""
     import torch
 
     from apm_torch.ops import filter_kernel
@@ -683,6 +686,37 @@ def phase_filter(rec, dev, n_rows: int = 4096, main_rows: int = 32768, edge_rows
     for lens, k in (((32, 16), 1), ((120,), 8)):
         case(lens, k, 64, 0, 63 * wf + 17, f"all-A text, A^{'/A^'.join(map(str, lens))} k={k} R=64 "
              "(every window a candidate)", reps=2, text="all-A")
+    # the benchmark cell capture120.panel64_k12's shape: 64 probes of 120
+    # bytes at k = 12 (seven banded pieces each), rows of 128 windows and a
+    # 256-byte halo; its bound is filter_roofline's, COMPARE_OPS a piece
+    # window
+    k, cwf = 12, 128
+    pats = [random_pattern(120, seed=300 + i) for i in range(64)]
+    text = random_corpus(capture_rows * cwf + 512, seed=299)
+    for i, p in enumerate(pats[:32]):
+        plant(text, p, range(300 + 997 * i, len(text) - 400, 1_000_003), k=3, seed=400 + i)
+    _, raw, plens, m_max = _pattern_table([p.tobytes() for p in pats], k)
+    halo = round_up(m_max + 2 * k, 128)
+    rows = staged(text, 0, capture_rows, cwf, halo, dev)
+    del text
+    draw = torch.from_numpy(raw).to(dev)
+    kw = dict(k=k, m_max=m_max, wf=cwf, halo=halo, plens=plens)
+    n = min(n_rows, capture_rows)
+    fcnt, rowmap = filter_kernel.scan_filter(rows[:n], draw, n * cwf - 77, 0, **kw)
+    rfcnt, rrowmap = filter_kernel.scan_filter_ref(rows[:n], draw, n * cwf - 77, 0, **kw)
+    torch.cuda.synchronize()
+    what = f"capture panel 64x120 k=12 wf={cwf}"
+    rec.compare(fcnt, rfcnt, f"{what} R={n} fcnt")
+    rec.compare(rowmap, rrowmap, f"{what} R={n} rowmap")
+    need(int(fcnt.sum()) > 0, f"kernel D {what}: no candidates at all")
+    (_, items), = filter_kernel.launch_items(plens, k, cwf, halo, filter_kernel.smem_optin(dev))
+    bound = capture_rows * cwf - 107
+    ms = cuda_ms(lambda: filter_kernel.scan_filter(rows, draw, bound, 0, **kw), 3)
+    piece_windows = bound * len(filter_kernel.piece_layout(plens, k)[0])
+    bound_ms = COMPARE_OPS * piece_windows / PEAK_INT_ISSUE * 1e3
+    say(f"phase 3b kernel D {what} R={capture_rows} ({items}): fcnt and rowmap equal on "
+        f"{n} rows; {piece_windows} piece windows, kernel {ms:.3f} ms, bound {bound_ms:.4f} ms "
+        f"(filter_roofline {100 * bound_ms / ms:.2f} %)")
 
 
 def batch_groups(corpora, w, wf, halo, bound, gmax=128):

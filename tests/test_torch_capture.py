@@ -121,8 +121,9 @@ def test_scanner_equals_the_long_reference(route, monkeypatch):
 
 @pytest.mark.parametrize("route", ["device-verify", "count_hot_batch"])
 def test_the_work_counters(route, monkeypatch):
-    """Traced, a call counts kernel D's piece windows (all banded here) and,
-    on the overflow route, the verify's windows and cells; untraced, none."""
+    """Traced, a call counts kernel D's piece windows (all banded here) and
+    the rows of its item and, on the overflow route, the verify's windows
+    and cells; untraced, none."""
     text, probes = _panel(30_000, 6, 8)
     if route == "count_hot_batch":
         monkeypatch.setattr(fused, "pick_max_hot", lambda *a: 8)
@@ -137,6 +138,7 @@ def test_the_work_counters(route, monkeypatch):
     assert owned == len(text) - 120 + 1  # one chunk, every full window
     assert s["#piece windows"] == owned * 7 * len(probes)
     assert s["#banded piece windows"] == s["#piece windows"]
+    assert s["#filter item rows"] == 64  # one launch, 64 rows of 128 windows an item
     n_hot, wf = sc.last_filtration["n_hot"], 128
     if route == "count_hot_batch":
         assert s["#verify windows"] == n_hot * wf * len(probes)

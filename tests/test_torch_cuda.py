@@ -255,6 +255,64 @@ def test_filter_kernel_banded_tier_at_the_capture_panel(dev):
     assert (fcnt[:32] > 0).all()
 
 
+@pytest.mark.parametrize(
+    "wf,k,lengths,text",
+    [
+        (128, 3, [32, 50], "consecutive"),
+        (128, 12, [120, 120, 120, 120], "independent"),  # the capture panel's tier
+        (256, 8, [120, 70], "independent"),  # 14-byte banded pieces, 7-byte heads
+        (256, 3, [32, 50], "consecutive"),
+        (128, 8, [120], "all-A"),  # every owned window a candidate
+        (128, 1, [32, 16], "all-A"),
+    ],
+)
+def test_filter_kernel_takes_several_rows_an_item(dev, wf, k, lengths, text):
+    """Rows narrower than half a block: an item of several whole rows, each
+    read from its own slot. The rows number 3 items and 5 rows, they start
+    past window 0, and one bound falls mid-row inside an item that is not
+    the last, another inside the last. "independent" rows hold unrelated
+    text, planted copies straddling each row's end into its own halo."""
+    from apm_torch.ops import filter_kernel
+    from apm_torch.ops.common import fold_corpus
+    from apm_torch.utils.corpus import plant
+
+    pats = [b"A" * m for m in lengths] if text == "all-A" else [
+        bytes(_corpus(m, 500 + i)) for i, m in enumerate(lengths)]
+    _, raw, plens, m_max, halo = _tables(pats, k)
+    (_, items), = filter_kernel.launch_items(plens, k, wf, halo, filter_kernel.smem_optin(dev))
+    assert items.rows > 1 and items.threads == items.rows * wf // 32
+    n_rows = 3 * items.rows + 5
+    if text == "all-A":
+        host = np.full((n_rows, wf + halo), ord("A"), np.uint8)
+    elif text == "consecutive":
+        corpus = _corpus((n_rows + 2) * wf + halo, 510 + k)
+        for i, p in enumerate(pats):
+            plant(corpus, np.frombuffer(p, np.uint8), range(50 + 31 * i, len(corpus) - 300, 997),
+                  k=min(k, 3), seed=i)
+        host = fold_corpus(corpus, 2 * wf, n_rows, wf, halo)
+    else:
+        host = np.stack([_corpus(wf + halo, 600 + r) for r in range(n_rows)])
+        for r in range(n_rows):
+            p = np.frombuffer(pats[r % len(pats)], np.uint8)
+            # a window near the row's end, its copy in the halo, and another
+            plant(host[r], p, [wf - 1 - r % 7, r * 37 % wf], k=min(k, 3), seed=r)
+    rows = torch.from_numpy(host).to(dev)
+    draw = torch.from_numpy(raw).to(dev)
+    kw = dict(k=k, m_max=m_max, wf=wf, halo=halo, plens=plens)
+    start = 2 * wf
+    for bound in (start + (items.rows + 7) * wf + 61, start + (n_rows - 1) * wf + 3):
+        before = filter_kernel.LAUNCHES
+        fcnt, rowmap = filter_kernel.scan_filter(rows, draw, bound, start, **kw)
+        rf, rr = filter_kernel.scan_filter_ref(rows, draw, bound, start, **kw)
+        assert filter_kernel.LAUNCHES == before + 1
+        assert fcnt.tolist() == rf.tolist()
+        assert torch.equal(rowmap, rr)
+        if text == "all-A":
+            assert fcnt[: len(pats)].tolist() == [bound - start] * len(pats)
+        else:
+            assert (rr[:, : len(pats)] > 0).sum() >= 3
+
+
 def test_filter_kernel_sizes_its_block_to_the_halo(dev):
     # a 64 KB halo leaves room for 64 threads' staging buffers only; at
     # 128 KB not even 32 threads' fit, and the entry refuses the launch

@@ -379,3 +379,123 @@ def test_launch_groups_and_stage_threads(monkeypatch):
     assert groups == ((0, 2), (2, 3), (3, 5), (5, 6))  # every piece once; empty groups dropped
     for p0, p1 in groups:
         assert p1 - p0 <= 2 and pstart[p1] - pstart[p0] <= 20
+
+
+def test_item_rows_give_every_thread_windows_at_the_capture_shape():
+    # 64 probes of 120 bytes at k = 12: 448 banded pieces, rows of 128
+    # windows and a 256-byte halo. An item of 64 rows gives each of 256
+    # threads a tile of 32 windows, and two such blocks fit an SM of an H100
+    # (228 KB, 1 KB of it reserved a block)
+    table, _ = filter_kernel.piece_layout((120,) * 64, 12)
+    assert len(table) == 448
+    items = filter_kernel.item_rows(128, 256, 448, 64)
+    assert items == filter_kernel.Items(rows=64, threads=256, slot=384)
+    assert items.threads * 32 == items.rows * 128
+    smem = filter_kernel.block_smem(items, 448, 64)
+    assert smem <= filter_kernel.SMEM_OPTIN and 2 * (smem + 1024) <= 228 * 1024
+    (groups, launch), = filter_kernel.launch_items((120,) * 64, 12, 128, 256)
+    assert groups == (0, 64) and launch == items
+
+
+@pytest.mark.parametrize("wf", [4096, 8192, 16384])
+def test_item_rows_keep_one_row_where_it_fills_half_a_block(wf):
+    items = filter_kernel.item_rows(wf, 128, 24, 6)
+    assert items.rows == 1
+    assert items.threads == min(256, wf // 32)  # a segment of whole warps
+    assert items.slot == items.threads * 32 + 128
+
+
+@pytest.mark.parametrize("wf", [100, 1000, 4100])
+def test_item_rows_keep_one_row_off_the_tile(wf):
+    # a row that is not whole tiles: one warp (or more) a segment of one row
+    items = filter_kernel.item_rows(wf, 256, 7, 1)
+    assert items.rows == 1 and items.threads == min(256, -(-wf // 1024) * 32)
+
+
+def test_item_rows_halve_to_fit_the_shared_memory():
+    # a 2 KB halo at wf = 128: 64 rows take 470 KB, 16 rows fit
+    items = filter_kernel.item_rows(128, 2048, 448, 64)
+    assert items.rows == 16 and items.threads == 64
+    assert filter_kernel.block_smem(items, 448, 64) <= filter_kernel.SMEM_OPTIN
+    assert filter_kernel.block_smem(items._replace(rows=32, threads=128), 448, 64) > (
+        filter_kernel.SMEM_OPTIN)
+    # and a smaller device takes fewer rows
+    assert filter_kernel.item_rows(128, 256, 448, 64, smem_max=64 << 10).rows == 16
+
+
+@pytest.mark.parametrize("wf", [128, 256, 384, 512, 640, 1024, 2048])
+@pytest.mark.parametrize("halo", [128, 256, 384])
+def test_item_slots_hold_the_row_and_keep_warps_off_shared_banks(wf, halo):
+    # tile t of slot i starts at logical byte i * slot + 32 t, physical
+    # word 9 (i * slot / 32 + t) (a 4-byte gap every 32 bytes); the lanes
+    # of a warp read the same word offset at once, so they need 32
+    # different banks
+    items = filter_kernel.item_rows(wf, halo, 16, 8)
+    tiles = items.threads // items.rows
+    assert items.rows > 1 and tiles * 32 == wf
+    assert items.slot % 32 == 0 and items.slot >= wf + halo
+    assert items.slot < wf + halo + 32 * 32
+    for w0 in range(0, items.threads, 32):
+        lanes = range(w0, min(w0 + 32, items.threads))
+        banks = {9 * (t // tiles * items.slot // 32 + t % tiles) % 32 for t in lanes}
+        assert len(banks) == len(lanes)
+
+
+def _item_walk(rows, items, wf, bound, start, reach):
+    """NumPy model of kernel D's item walk: items of ``items.rows`` rows
+    (or row segments) staged slot by slot, each thread's tile of 32
+    windows and the warp groups that sum a row's counts. Returns the
+    windows each (row, window) is owned by and, for each owning thread,
+    whether the ``32 + reach`` staged bytes from its first window are its
+    row's own."""
+    n_rows, width = rows.shape
+    tiles = items.threads // items.rows
+    seg = tiles * 32
+    segs = -(-wf // seg)
+    n_items = -(-n_rows // items.rows) * segs
+    owners = np.zeros((n_rows, wf), np.int32)
+    reads_own = []
+    for t in range(n_items):
+        g = t // segs
+        r0, seg0 = g * items.rows, (t - g * segs) * seg
+        buf = np.zeros(items.rows * items.slot + 128, np.uint8)
+        for i in range(min(items.rows, n_rows - r0)):
+            part = rows[r0 + i, seg0 : seg0 + items.slot]
+            buf[i * items.slot : i * items.slot + len(part)] = part
+        counted = {}
+        for th in range(items.threads):
+            slot, tile = divmod(th, tiles)
+            lane, warp0 = th % 32, th - th % 32
+            g0, g1 = max(slot * tiles - warp0, 0), min((slot + 1) * tiles - warp0, 32)
+            assert g0 <= lane < g1
+            r, j0 = r0 + slot, seg0 + tile * 32
+            lim = 0 if r >= n_rows else int(np.clip(bound - start - r * wf, 0, wf))
+            nown = int(np.clip(lim - j0, 0, 32))
+            if nown:
+                owners[r, j0 : j0 + nown] += 1
+                x0 = slot * items.slot + tile * 32
+                want = rows[r, j0 : j0 + 32 + reach]
+                reads_own.append(np.array_equal(buf[x0 : x0 + len(want)], want))
+            counted.setdefault((warp0, r, g0), []).append(lane)
+        for (warp0, r, g0), lanes in counted.items():  # one leader a group: its first lane
+            assert min(lanes) == g0 and len(lanes) == len(set(lanes))
+    return owners, reads_own
+
+
+@pytest.mark.parametrize("wf,n_rows", [(128, 197), (256, 70), (384, 50), (4096, 5), (8320, 3)])
+def test_item_walk_model_owns_each_window_once_from_its_own_row(wf, n_rows):
+    # rows of unrelated bytes: a thread that read a neighbour's slot, or
+    # staged the wrong row, would see other bytes
+    k, lengths = 8, (120, 70)
+    table, _ = filter_kernel.piece_layout(lengths, k)
+    reach = int((table[:, 0] + table[:, 1] + table[:, 2] + table[:, 3]).max())
+    halo = round_up(120 + 2 * k, 128)
+    assert reach <= halo
+    rows = np.random.default_rng(wf).integers(0, 256, (n_rows, wf + halo), dtype=np.uint8)
+    items = filter_kernel.item_rows(wf, halo, len(table), len(lengths))
+    start = 3 * wf
+    for bound in (start + (n_rows // 2) * wf + 45, start + n_rows * wf - 1):
+        owners, reads_own = _item_walk(rows, items, wf, bound, start, reach)
+        owned = np.arange(wf)[None, :] < np.clip(bound - start - np.arange(n_rows) * wf, 0, wf)[:, None]
+        assert np.array_equal(owners, owned.astype(np.int32))
+        assert reads_own and all(reads_own)

@@ -167,6 +167,32 @@ def test_rescan_counters_on_the_split_count_the_dense_patterns(chunk_bytes):
     assert "rescan dp" in got and "count_hot_batch" in got
 
 
+@pytest.mark.parametrize("chunk_bytes", [None, 16 << 10])
+def test_filter_item_rows_count_each_launch_of_kernel_d(monkeypatch, chunk_bytes):
+    """Traced, each chunk's phase 1 on kernel D adds the rows of an item of
+    its launch (``filter_kernel.item_rows``, sized for an H100 off the
+    card): once a call in one chunk, once a chunk in several."""
+    from apm_torch.models.pipeline import make_plan
+    from apm_torch.ops import filter_kernel
+
+    calls = []
+    scan = filter_kernel.scan_filter
+    monkeypatch.setattr(filter_kernel, "scan_filter", lambda *a, **kw: calls.append(1) or scan(*a, **kw))
+    c, pats = _sparse()  # at k = 3 exact pieces of 8 and 12 bytes: kernel D's phase 1
+    cfg = dict(chunk_bytes=chunk_bytes) if chunk_bytes else {}
+    sc = apm_torch.Scanner(pats, 3, ApmConfig(**cfg, **CPU))
+    sc.meter.trace = True
+    assert sc.count(c).tolist() == count_matches(c, pats, 3)
+    plan = make_plan(sc, len(c))
+    (_, items), = filter_kernel.launch_items(plan.plens_filter, 3, plan.wf, plan.halo)
+    assert plan.wf == 128 and items.rows == 64
+    assert len(calls) == (1 if chunk_bytes is None else -(-len(c) // chunk_bytes))
+    assert sc.meter.last_spans["#filter item rows"] == len(calls) * items.rows
+    sc.meter.trace = False
+    sc.count(c)
+    assert "#filter item rows" not in sc.meter.last_spans
+
+
 def test_call_span_holds_plan_and_wait():
     """``call`` is the root of every span of the call, and holds at least
     its ``plan`` and ``wait`` time; each call has its own id; the counts are

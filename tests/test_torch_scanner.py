@@ -229,7 +229,7 @@ CALL = {"call", "plan", "fingerprint", "fold", "copy", "launch", "fetch", "wait"
         (2, "dp", CALL | {"dp"}),
         (3, "auto", CALL | {"phase 1", "phase 2", "finalize", "#hot windows",
                             "#candidates 0", "#candidates 1", "#piece windows",
-                            "#banded piece windows"}),
+                            "#banded piece windows", "#filter item rows"}),
     ],
 )
 def test_scanner_spans_name_each_phase(k, engine, names):
