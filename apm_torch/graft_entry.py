@@ -150,6 +150,6 @@ def dryrun_multichip(devices: Optional[Sequence] = None) -> None:
     assert make_plan(sc, len(corpus)).fp1_conv, "fp1_conv_sharded: no conv phase 1"
     for corr_impl in ("fused", "conv"):
         sc = check(f"corr_sharded[{corr_impl}]", pats, 0, engine="corr", corr_impl=corr_impl)
-        assert sc._routes(make_plan(sc, len(corpus)))[0] == corr_impl, corr_impl
+        assert make_plan(sc, len(corpus)).routes.corr == corr_impl, corr_impl
     pats_s32 = [bytes(corpus[100:180]), bytes(corpus[2000:2097])]
     check("corr_sharded_s32", pats_s32, 0, engine="corr", corr_impl="fused")

@@ -2,11 +2,13 @@
 ``apm/models/pipeline.py``).
 
 * :class:`ScanPlan` / :func:`make_plan`: every derived layout quantity of a
-  scan — block width, staging-row width and halo, the device-owned window
-  bound, and the engine gating — exactly as ``apm``'s ``make_plan(scanner,
-  n, "pallas")`` computes them, so both packages stage byte-identical rows
-  and route the same patterns. Which kernel serves each group of patterns
-  is decided in :class:`apm_torch.models.scanner.Scanner`.
+  scan — block width, staging-row width and halo (:func:`staging`,
+  :func:`chunking`), the device-owned window bound, and the engine gating
+  — exactly as ``apm``'s ``make_plan(scanner, n, "pallas")`` computes
+  them, so both packages stage byte-identical rows and route the same
+  patterns; and which kernel serves each group of patterns
+  (:class:`Routes`, :func:`routes_for`). Every path of the Scanner
+  reads its layout and routes from here.
 * :func:`finalize_filtration`: the phase-2 decision tree over the fetched
   per-chunk results of :mod:`apm_torch.ops.fused` (zero candidates,
   density rescan, on-device verified counts, overflow recovery, clipped
@@ -23,7 +25,7 @@ over a file.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import TYPE_CHECKING, Callable, List, Optional, Sequence
+from typing import TYPE_CHECKING, Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -39,6 +41,9 @@ if TYPE_CHECKING:  # pragma: no cover
 _FOLD = 8
 
 Reader = Callable[[int, int], np.ndarray]
+# scan_dp(rows, bound, start, plens) -> (p_pad,) device banded-DP counts over
+# staged rows of the plan's layout (Scanner._scan_dp)
+ScanDp = Callable[[torch.Tensor, int, int, tuple], torch.Tensor]
 
 
 def buf_reader(buf: np.ndarray) -> Reader:
@@ -66,6 +71,35 @@ def file_reader(path) -> Reader:
 
 
 @dataclass(frozen=True)
+class Routes:
+    """Which kernel runs each part of a scan (:func:`routes_for`)."""
+
+    corr: Optional[str]  # the k = 0 correlation set: None, "fused" (kernel B) or "conv"
+    # filtration phase 1 at k >= 1: None (kernel D), "fused" (kernel #7) or
+    # "conv" (the piece conv)
+    fp1: Optional[str]
+    dp_mode: str  # the banded DP: "myers" (kernel C) or "band" (kernel A)
+
+    def check(self, config) -> None:
+        """Refuse a scan whose config demands a route it cannot have:
+        ``engine="corr"`` without the correlation engine,
+        ``corr_impl="fused"`` where the k = 0 set needs the conv (as
+        ``apm`` refuses them)."""
+        from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR
+
+        if config.engine == "corr" and self.corr is None:
+            raise ValueError(
+                "engine='corr' requires k == 0, a pattern alphabet of <= "
+                f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
+            )
+        if config.corr_impl == "fused" and self.corr == "conv":
+            raise ValueError(
+                "corr_impl='fused' requires m_max <= 97 and 128-aligned "
+                "staging (apm_torch.ops.corr_fused.fused_eligible)"
+            )
+
+
+@dataclass(frozen=True)
 class ScanPlan:
     """Derived layout for one scan: the quantities every path must agree on."""
 
@@ -79,9 +113,8 @@ class ScanPlan:
     fmask: tuple  # per-pattern: True when filtration-eligible
     plens_filter: tuple  # static lengths apm routes to the filtration kernel
     plens_dp: tuple  # static lengths routed to the banded DP kernel
-    use_corr: bool = False  # k = 0 correlation engine takes the scan
+    routes: Routes
     plens_corr: tuple = ()  # static lengths routed to the corr engine
-    fp1_conv: bool = False  # k >= 1: apm runs filtration phase 1 as a conv
 
     @property
     def any_filter(self) -> bool:
@@ -90,6 +123,16 @@ class ScanPlan:
     @property
     def any_dp(self) -> bool:
         return any(self.plens_dp)
+
+    @property
+    def use_corr(self) -> bool:
+        """The k = 0 correlation engine takes the scan."""
+        return self.routes.corr is not None
+
+    @property
+    def fp1_conv(self) -> bool:
+        """k >= 1: apm runs filtration phase 1 as a conv."""
+        return self.routes.fp1 is not None
 
 
 def check_dp_dtype(dp_dtype: str) -> None:
@@ -102,74 +145,90 @@ def check_dp_dtype(dp_dtype: str) -> None:
         )
 
 
-def make_plan(scanner: "Scanner", n: int) -> ScanPlan:
-    """Compute the scan layout (``apm``'s device-path plan).
+def staging(scanner: "Scanner", n: int) -> Tuple[int, int, int]:
+    """``(w, wf, halo)`` of an ``n``-byte scan: the block width rounded to
+    the fold x 128 windows, the windows of a staging row (``w / fold``),
+    and a halo that holds every kernel's lookahead (the banded kernel
+    needs ``m_max - 1 + k`` bytes, apm's filtration kernel ``m_max + 2k``),
+    rounded to 128. So ``wf`` and ``halo`` are multiples of 128 and ``halo
+    >= 128``: apm's staging checks of the fused kernels always hold, and
+    :func:`routes_for` need not read them."""
+    w = round_up(scanner.block_windows_for(n), _FOLD * 128)
+    return w, w // _FOLD, round_up(scanner.m_max + 2 * scanner.k, 128)
 
-    The halo satisfies every kernel's lookahead: the banded kernel needs
-    ``halo >= m_max - 1 + k`` bytes, apm's filtration kernel
-    ``halo >= m_max + 2k`` — so ``round_up(m_max + 2k, 128)`` everywhere.
-    """
-    from ..ops.corr_engine import (
-        ALPHABET_MAX,
-        M_MAX_CORR,
-        corr_eligible,
-        fp1_conv_eligible,
-    )
-    from ..ops.filter_kernel import FOLD as FILTER_FOLD, partition_plens
+
+def chunking(w: int, wf: int, span: int, chunk_bytes: int) -> Tuple[int, int]:
+    """``(chunk_win, n_rows)``: ``span`` window starts are staged in chunks
+    of ``chunk_win`` windows, a multiple of ``w`` near ``chunk_bytes`` (at
+    least ``w``, at most ``span`` rounded up), of ``n_rows`` rows each."""
+    chunk_win = max(w, round_up(min(chunk_bytes, span), w))
+    return chunk_win, chunk_win // wf
+
+
+def routes_for(plens: tuple, alphabet: tuple, m_max: int, k: int, config) -> Routes:
+    """Which kernel runs each part of a scan, as ``apm``'s
+    ``_count_pallas`` decides, from the pattern table (static lengths
+    ``plens`` of every slot, its distinct bytes ``alphabet``, ``m_max``), k
+    and the config. Routes, not fallbacks on failure: a kernel that fails
+    to build or launch raises.
+
+    ``corr``: kernel B where apm's fused gate holds (m_max <= 97), unless
+    ``corr_impl="conv"``; else the conv (``apm``'s ``scan_corr_mxu``,
+    here ``conv1d``). ``fp1``: where the plan runs filtration phase 1 as a
+    correlation, kernel #7 under ``corr_impl="fused"`` where apm's gate
+    ``fused_pieces_ok`` holds, else the piece conv (``apm``'s
+    ``_fp1_call``). ``dp_mode``: ``apm``'s mode of the banded DP over the
+    ``len(plens)`` slots (:func:`~apm_torch.ops.dp_kernel.resolve_dp_mode`).
+    A route the config demands and cannot have is refused by
+    :meth:`Routes.check`, not here: ``find`` and ``Scanner.tables`` read
+    the routes of any config."""
+    from ..ops.corr_engine import corr_eligible, fp1_conv_eligible
+    from ..ops.corr_fused import fused_eligible, fused_pieces_ok
+    from ..ops.dp_kernel import resolve_dp_mode
+    from ..ops.filter_kernel import partition_plens
+
+    engine, impl = config.engine, config.corr_impl
+    corr = fp1 = None
+    if k == 0 and engine in ("auto", "corr") and corr_eligible(
+        plens, len(alphabet), m_max, k, auto=engine == "auto"
+    ):
+        corr = "fused" if impl != "conv" and fused_eligible(m_max) else "conv"
+    elif engine == "auto":
+        plens_filter = partition_plens(plens, k, engine)[1]
+        if any(plens_filter) and fp1_conv_eligible(plens_filter, k, len(alphabet)):
+            fp1 = "fused" if impl == "fused" and fused_pieces_ok(m_max) else "conv"
+    dp_mode = resolve_dp_mode(k, alphabet, config.dp_dtype, config.dp_impl, len(plens), m_max)[1]
+    return Routes(corr, fp1, dp_mode)
+
+
+def make_plan(scanner: "Scanner", n: int) -> ScanPlan:
+    """Compute the scan layout (``apm``'s device-path plan) and its routes
+    (the Scanner's :func:`routes_for`, made once a Scanner)."""
+    from ..ops.filter_kernel import partition_plens
 
     check_dp_dtype(scanner.config.dp_dtype)
-    k = scanner.k
-    fold = _FOLD
-    w = round_up(scanner.block_windows_for(n), max(fold, FILTER_FOLD) * 128)
-    halo = round_up(scanner.m_max + 2 * k, 128)
-    engine = scanner.config.engine
-    plens = scanner._plens_static
-    alphabet_size = len(scanner._corr_alphabet())
-
-    use_corr = False
-    if k == 0 and engine in ("auto", "corr"):
-        use_corr = corr_eligible(
-            plens, alphabet_size, scanner.m_max, k, auto=engine == "auto"
-        )
-    if engine == "corr" and not use_corr:
-        raise ValueError(
-            "engine='corr' requires k == 0, a pattern alphabet of <= "
-            f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
-        )
-    if use_corr:
+    routes = scanner._routing
+    routes.check(scanner.config)
+    w, wf, halo = staging(scanner, n)
+    plens, corr = scanner._plens_static, routes.corr is not None
+    if corr:
         zeros = tuple(0 for _ in plens)
-        return ScanPlan(
-            backend=scanner.backend,
-            fold=fold,
-            w=w,
-            wf=w // fold,
-            halo=halo,
-            dev_bound=scanner.device_window_bound(n),
-            engine="corr",
-            fmask=tuple(False for _ in plens),
-            plens_filter=zeros,
-            plens_dp=zeros,
-            use_corr=True,
-            plens_corr=plens,
-        )
-
-    fmask, plens_filter, plens_dp = partition_plens(plens, k, engine)
-    fp1_conv = False
-    if engine == "auto" and any(plens_filter):
-        fp1_conv = fp1_conv_eligible(plens_filter, k, alphabet_size)
-
+        fmask, plens_filter, plens_dp = tuple(False for _ in plens), zeros, zeros
+    else:
+        fmask, plens_filter, plens_dp = partition_plens(plens, scanner.k, scanner.config.engine)
     return ScanPlan(
         backend=scanner.backend,
-        fold=fold,
+        fold=_FOLD,
         w=w,
-        wf=w // fold,
+        wf=wf,
         halo=halo,
         dev_bound=scanner.device_window_bound(n),
-        engine=engine,
+        engine="corr" if corr else scanner.config.engine,
         fmask=fmask,
         plens_filter=plens_filter,
         plens_dp=plens_dp,
-        fp1_conv=fp1_conv,
+        routes=routes,
+        plens_corr=plens if corr else (),
     )
 
 
@@ -235,24 +294,29 @@ def sparse_patterns(
 
 
 def finalize_filtration(
-    scanner: "Scanner",
     reader: Reader,
     plan: ScanPlan,
     n: int,
     chunks: Sequence[FilterChunk],
     rescan: Callable[[], np.ndarray],
     *,
+    k: int,
+    patterns: Sequence[bytes],
+    device: torch.device,
+    scan_dp: ScanDp,
     max_hot: int,
     spans=OFF,
     rescan_some: Optional[Callable[[tuple], List[torch.Tensor]]] = None,
-) -> np.ndarray:
+) -> Tuple[np.ndarray, dict]:
     """Phase-2 decision tree over fetched per-chunk results (k >= 1),
     ``apm``'s branch for branch, with one more branch below. Returns
-    ``(p_pad,)`` int64 counts of the filtration patterns; ``rescan()`` must
-    return banded-DP counts of ``plan.plens_filter`` over the whole
-    device-owned range.
+    ``(counts, info)``: ``(p_pad,)`` int64 counts of the filtration
+    patterns, and the outcome for ``Scanner.last_filtration``. ``rescan()``
+    must return banded-DP counts of ``plan.plens_filter`` over the whole
+    device-owned range. The host's branches read the raw scan ``patterns``
+    and stage rows on ``device`` for ``scan_dp``.
 
-    ``scanner.last_filtration["route"]`` names the branch: "zero-candidates",
+    ``info["route"]`` names the branch: "zero-candidates",
     "rescan" (density), "split-rescan" (density, decided per pattern),
     "device-verify", or for an overflowed bucket "count_hot_batch"
     (re-verified on the device), "verify_rows_host" (rows staged from the
@@ -267,15 +331,15 @@ def finalize_filtration(
     have a candidate in it; only the rest go to ``rescan_some(plens)``
     (device count handles of those lengths over the whole device-owned
     range). One read fetches both.
-    ``last_filtration["sparse"]`` lists the verified slots.
+    ``info["sparse"]`` lists the verified slots.
 
     ``spans`` (:class:`~apm_torch.utils.profiling.Spans`) counts ``hot
     windows``, the windows of the hot rows that the density decision
     weighs, and ``candidates <slot>``, each filtration slot's candidate
     total, and brackets each blocking read of device counts as ``wait``."""
-    p_pad = scanner._pat.shape[0]
+    p_pad = len(plan.fmask)
     out = np.zeros((p_pad,), dtype=np.int64)
-    if scanner.k < 1:
+    if k < 1:
         raise ValueError("finalize_filtration is for k >= 1")
 
     fcnt = np.zeros((p_pad,), dtype=np.int64)
@@ -292,7 +356,6 @@ def finalize_filtration(
     clips = sorted(set(clips))
     # The outcome, for callers that report the route taken.
     info = {"route": "zero-candidates", "n_hot": sum(n_hots), "max_hot": max_hot}
-    scanner.last_filtration = info
     hot_total = sum(n_hots) + len(clips)
     spans.count("hot windows", hot_total * plan.wf)
     if spans.enabled:
@@ -300,7 +363,7 @@ def finalize_filtration(
             spans.count(f"candidates {slot}", fcnt[slot])
 
     if int(fcnt.sum()) == 0:
-        return out  # zero candidates: nothing to verify
+        return out, info  # zero candidates: nothing to verify
 
     if candidate_density_dense(hot_total, plan.wf, plan.dev_bound):
         sparse = None
@@ -313,7 +376,7 @@ def finalize_filtration(
                                      plan.wf, plan.dev_bound, fused.OVERFLOW_CAP)
         if sparse is None:
             info["route"] = "rescan"
-            return rescan().astype(np.int64)
+            return rescan().astype(np.int64), info
         info["route"] = "split-rescan"
         info["sparse"] = np.flatnonzero(sparse).tolist()
         plens_s = tuple(m if s else 0 for m, s in zip(plan.plens_filter, sparse))
@@ -334,8 +397,9 @@ def finalize_filtration(
             if fcnt_s.any():
                 for j0 in np.asarray(ch.clip_starts).ravel():
                     if j0 >= 0:
-                        out += _verify_clipped_row(scanner, reader, plan, n, int(j0), fcnt_s)
-        return out
+                        out += _verify_clipped_row(reader, plan, n, int(j0), fcnt_s,
+                                                   k=k, patterns=patterns)
+        return out, info
 
     overflow = [(ch, h) for ch, h in zip(chunks, n_hots) if h > max_hot]
     if overflow:
@@ -364,7 +428,7 @@ def finalize_filtration(
         elif any(ch.rowmap is None for ch, _ in overflow):
             # No process can read the row maps: rescan the filtration set
             info["route"] = "overflow-rescan"
-            return rescan().astype(np.int64)
+            return rescan().astype(np.int64), info
         else:
             # Verify ALL full hot rows from host-staged copies (a summed
             # on-device vcnt cannot be split per chunk, so none is kept).
@@ -378,32 +442,33 @@ def finalize_filtration(
                     j0 = ch.c0 + int(r) * plan.wf
                     if j0 + plan.wf <= plan.dev_bound:
                         rows.append(j0)
-            out += verify_rows_host(scanner, reader, n, sorted(set(rows)), plan, spans)
+            out += verify_rows_host(reader, sorted(set(rows)), plan, device=device,
+                                    scan_dp=scan_dp, spans=spans)
     else:
         info["route"] = "device-verify"
         out += vcnt
 
     # Clipped rows (at most one per chunk): verified on the host.
     for j0 in clips:
-        out += _verify_clipped_row(scanner, reader, plan, n, j0, fcnt)
-    return out
+        out += _verify_clipped_row(reader, plan, n, j0, fcnt, k=k, patterns=patterns)
+    return out, info
 
 
 def verify_rows_host(
-    scanner: "Scanner",
     reader: Reader,
-    n: int,
     rows: Sequence[int],
     plan: ScanPlan,
+    *,
+    device: torch.device,
+    scan_dp: ScanDp,
     spans=OFF,
 ) -> np.ndarray:
     """Verify full hot rows staged from the host: one ``(bucket, wf +
-    halo)`` array, one banded-DP call over the filtration patterns; the
-    read of its counts is ``spans``'s ``wait``."""
+    halo)`` array on ``device``, one ``scan_dp`` call over the filtration
+    patterns; the read of its counts is ``spans``'s ``wait``."""
     from ..ops.filter_kernel import FOLD
 
-    p_pad = scanner._pat.shape[0]
-    out = np.zeros((p_pad,), dtype=np.int64)
+    out = np.zeros((len(plan.fmask),), dtype=np.int64)
     if not rows:
         return out
     wf, halo = plan.wf, plan.halo
@@ -412,8 +477,7 @@ def verify_rows_host(
     stage = np.zeros((bucket, wf + halo), dtype=np.uint8)
     for i, j0 in enumerate(rows):
         stage[i] = reader(j0, wf + halo)
-    drows = torch.from_numpy(stage).to(scanner.device)
-    counts = scanner._scan_dp(drows, n_hot * wf, 0, plan.plens_filter, wf=wf, halo=halo)
+    counts = scan_dp(torch.from_numpy(stage).to(device), n_hot * wf, 0, plan.plens_filter)
     with spans.host("wait"):
         counts = counts.cpu()
     out += counts.numpy().astype(np.int64)
@@ -421,27 +485,28 @@ def verify_rows_host(
 
 
 def _verify_clipped_row(
-    scanner: "Scanner",
     reader: Reader,
     plan: ScanPlan,
     n: int,
     j0: int,
     fcnt: np.ndarray,
+    *,
+    k: int,
+    patterns: Sequence[bytes],
 ) -> np.ndarray:
     """Verify the window-bound-clipped hot row ``[j0, dev_bound)`` on the
     host with the native verifier (``apm``'s ``_verify_clipped_row``): the
     windows are untruncated, so no EOF truncation applies."""
     from ..utils import native
 
-    k = scanner.k
-    out = np.zeros((scanner._pat.shape[0],), dtype=np.int64)
+    out = np.zeros((len(plan.fmask),), dtype=np.int64)
     j1 = min(j0 + plan.wf, plan.dev_bound)
     if j0 >= j1:
         return out
     for pi, is_f in enumerate(plan.fmask):
         if not is_f or fcnt[pi] == 0:
             continue
-        pat = scanner.scan_patterns.raw[pi]
+        pat = patterns[pi]
         seg = reader(j0, min(n - j0, j1 - j0 + len(pat) - 1 + k))
         out[pi] += native.banded_count(seg, np.frombuffer(pat, np.uint8), k, j1 - j0)
     return out

@@ -30,7 +30,9 @@ import itertools
 import threading
 import time
 import weakref
-from typing import Dict, List, Optional, Sequence
+from dataclasses import dataclass
+from functools import partial
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
@@ -41,9 +43,42 @@ from ..utils.config import ApmConfig
 from ..utils.io import PatternSet
 from ..utils.oracle import Bytes, as_u8
 from ..utils.profiling import OFF, Spans
+from .pipeline import ScanPlan
 
 # An argument left out (``_count_device``'s ``fp``): None is a valid key.
 _UNSET = object()
+
+
+@dataclass(frozen=True)
+class CountSetup:
+    """What every chunk of a ``count`` scan shares (``Scanner._count_setup``):
+    the plan, the chunk's windows and rows, the hot-row bucket, kernel D's
+    pieces (all, banded tier) for its counters, the banded-DP keyword
+    arguments (``Scanner._dp_kw``), the device pattern table, and the
+    kernels ``plan.routes`` chose, their tables bound: ``corr(rows, bound=,
+    start=)`` for the k = 0 correlation set and ``phase1(rows, bound=,
+    start=)`` for filtration phase 1 (None without them)."""
+
+    plan: ScanPlan
+    chunk_win: int
+    n_rows: int
+    max_hot: int
+    pieces: tuple
+    dp: dict
+    pat: torch.Tensor
+    corr: Optional[Callable]
+    phase1: Optional[Callable]
+
+
+class FilterLaunch(NamedTuple):
+    """One k >= 1 filtration chunk as launched (``Scanner._launch_chunk``),
+    every tensor on the device."""
+
+    c0: int  # the chunk's first window
+    packed: torch.Tensor  # phase 2's packed vector (apm_torch.ops.fused)
+    rowmap: torch.Tensor  # (R, P) row map of phase 1
+    rows: torch.Tensor  # the chunk's staged rows
+    hot: torch.Tensor  # (2, P) full and clipped hot rows per pattern
 
 
 class Scanner:
@@ -115,6 +150,7 @@ class Scanner:
         self._fp1_np = None  # (plens_filter, (kern, thr, owner, stride))
         self._fp1_fused_np = None  # (plens_filter, (km, thr, owner64))
         self._peq_np = None  # Myers-mode PEQ table, built on demand
+        self._routes = None  # pipeline.routes_for, made on demand (_routing)
         self._dev_tables: Dict[str, object] = {}  # device copies
 
         self.last_duration: Optional[float] = None
@@ -261,17 +297,6 @@ class Scanner:
         self._fp1_fused_np = (plens_filter, tables)
         return tables
 
-    def _fp1_fused_plens(self) -> Optional[tuple]:
-        """The filtration lengths of a scan whose conv phase 1 runs the
-        fused piece scan (``engine="auto"``, ``corr_impl="fused"``, m_max
-        <= 65 under the plan's 128-aligned staging), else None."""
-        from ..ops.corr_fused import M_MAX_PIECES
-
-        cfg = self.config
-        if cfg.engine != "auto" or cfg.corr_impl != "fused" or self.m_max > M_MAX_PIECES:
-            return None
-        return self._fp1_plens()
-
     def _fp1_kernel(self, plens_filter: tuple):
         """Piece-correlation tables for conv phase 1, ``(kern, thr, owner,
         stride)`` (``apm``'s ``Scanner._fp1_kernel``), cached per split."""
@@ -289,16 +314,25 @@ class Scanner:
         self._fp1_np = (plens_filter, tables)
         return tables
 
-    def _fp1_plens(self) -> Optional[tuple]:
-        """The filtration lengths of an ``engine="auto"`` scan when it runs
-        conv phase 1, else None."""
-        from ..ops.corr_engine import fp1_conv_eligible
+    @property
+    def _routing(self):
+        """The routes of this scanner's scans
+        (:func:`apm_torch.models.pipeline.routes_for` of its pattern table,
+        k and config), made once: :meth:`load_tables` clears them."""
+        if self._routes is None:
+            from .pipeline import routes_for
+
+            self._routes = routes_for(
+                self._plens_static, self._dp_alphabet(), self.m_max, self.k, self.config
+            )
+        return self._routes
+
+    def _plens_filter(self) -> tuple:
+        """The static lengths of the filtration patterns (the plan's
+        ``plens_filter`` where no k = 0 correlation takes the scan)."""
         from ..ops.filter_kernel import partition_plens
 
-        plens = partition_plens(self._plens_static, self.k, "auto")[1]
-        if any(plens) and fp1_conv_eligible(plens, self.k, len(self._alph)):
-            return plens
-        return None
+        return partition_plens(self._plens_static, self.k, self.config.engine)[1]
 
     def _myers_table_ok(self) -> bool:
         """Can the bit-parallel band represent this pattern table?"""
@@ -323,11 +357,12 @@ class Scanner:
         """The scanner's tables as NumPy arrays — the keys
         :meth:`load_tables` takes. ``km``/``thr`` only when the pattern set
         fits the fused correlation tables (m_max <= 97); ``pkern``,
-        ``pthr``, ``owner`` and ``stride`` only when an ``engine="auto"``
-        scan runs conv phase 1; ``pieces_km``, ``pieces_thr`` and
-        ``pieces_owner64`` (``apm``'s ``_fp1_fused_tables``) only when that
-        phase runs the fused piece scan (:meth:`_fp1_fused_plens`); ``peq``
-        only when the bit-parallel band can represent the table."""
+        ``pthr``, ``owner`` and ``stride`` only when the scan runs conv
+        phase 1 (the routes' ``fp1``, which only ``engine="auto"`` takes);
+        ``pieces_km``, ``pieces_thr`` and ``pieces_owner64`` (``apm``'s
+        ``_fp1_fused_tables``) only when that phase runs the fused piece
+        scan; ``peq`` only when the bit-parallel band can represent the
+        table."""
         from ..ops.corr_fused import M_MAX_FUSED
 
         out = {
@@ -339,14 +374,13 @@ class Scanner:
         if self.m_max <= M_MAX_FUSED:
             km, thr = self._corr_fused_tables()
             out["km"], out["thr"] = km, thr
-        plens = self._fp1_plens()
-        if plens is not None:
-            kern, thr, owner, stride = self._fp1_kernel(plens)
+        fp1 = self._routing.fp1
+        if fp1 is not None:
+            kern, thr, owner, stride = self._fp1_kernel(self._plens_filter())
             out["pkern"], out["pthr"], out["owner"] = kern, thr, owner
             out["stride"] = np.asarray(stride, dtype=np.int64)
-        plens = self._fp1_fused_plens()
-        if plens is not None:
-            km, thr, owner64 = self._fp1_fused_tables(plens)
+        if fp1 == "fused":
+            km, thr, owner64 = self._fp1_fused_tables(self._plens_filter())
             out["pieces_km"], out["pieces_thr"], out["pieces_owner64"] = km, thr, owner64
         if self._myers_table_ok():
             out["peq"] = self._peq()
@@ -366,6 +400,7 @@ class Scanner:
         fit this pattern set raises.
         """
         own = self.tables()
+        fp1 = self._routing.fp1
 
         def take(name, like=None):
             a = np.asarray(arrays[name])
@@ -387,21 +422,20 @@ class Scanner:
                 km = km.astype(np.float32)
             thr = np.asarray(arrays["thr"])
             fused = (np.ascontiguousarray(km), np.ascontiguousarray(thr))
-        fp1 = None
+        fp1_tables = None
         if "pkern" in arrays:
-            plens = self._fp1_plens()
-            if plens is None:
+            if fp1 is None:
                 raise ValueError("piece tables given, but no conv phase 1 runs")
             kern = np.ascontiguousarray(np.asarray(arrays["pkern"]), dtype=np.float32)
             if kern.shape != own["pkern"].shape:
                 raise ValueError(
                     f"table 'pkern': shape {kern.shape}, expected {own['pkern'].shape}"
                 )
-            fp1 = (plens, (kern, take("pthr"), take("owner"), take("stride").item()))
+            fp1_tables = (self._plens_filter(),
+                          (kern, take("pthr"), take("owner"), take("stride").item()))
         fp1_fused = None
         if "pieces_km" in arrays:
-            plens = self._fp1_fused_plens()
-            if plens is None:
+            if fp1 != "fused":
                 raise ValueError("fused piece tables given, but no fused phase 1 runs")
             km = np.asarray(arrays["pieces_km"])
             if km.dtype != np.int8:
@@ -417,13 +451,13 @@ class Scanner:
                     f"{own['pieces_owner64'].shape}"
                 )
             thr = np.ascontiguousarray(np.asarray(arrays["pieces_thr"]))
-            fp1_fused = (plens, (np.ascontiguousarray(km), thr, owner64))
+            fp1_fused = (self._plens_filter(), (np.ascontiguousarray(km), thr, owner64))
         peq = take("peq") if "peq" in arrays else None
         self._pat, self._plen, self._pat_raw, self._alph = pat, plen, pat_raw, alph
         self._plens_static = tuple(int(x) for x in plen)
-        self._fused_np, self._fp1_np, self._peq_np = fused, fp1, peq
+        self._fused_np, self._fp1_np, self._peq_np = fused, fp1_tables, peq
         self._fp1_fused_np, self._corr_kern_np = fp1_fused, None
-        self._dev_tables = {}
+        self._dev_tables, self._routes = {}, None
         self._device_tables(fused_needed=fused is not None)
 
     def _device_tables(self, fused_needed: bool) -> Dict[str, object]:
@@ -532,77 +566,27 @@ class Scanner:
             self.k,
         )
 
-    def _routes(self, plan):
-        """Which kernel runs each part of a scan: ``(corr, fp1)``.
-
-        Decided once per scan from apm's plan, as apm's ``_count_pallas``
-        decides. ``corr`` is the route of the k = 0 correlation set
-        ``plan.plens_corr`` (:meth:`_corr_route`; None without one).
-        ``fp1`` is the route of filtration phase 1 when the plan runs it as
-        a correlation (``plan.fp1_conv``): "fused", the fused piece scan
-        (kernel #7), under ``corr_impl="fused"`` where apm's gate
-        ``fused_pieces_ok`` holds, else "conv", the piece conv, as apm's
-        ``_fp1_call`` (None otherwise: kernel D runs phase 1).
-        ``plan.plens_dp`` goes to the banded DP. Routes, not fallbacks on
-        failure: a kernel that fails to build or launch raises.
-        """
-        from ..ops.corr_fused import fused_pieces_ok
-
-        corr = self._corr_route(plan.wf, plan.halo) if plan.use_corr else None
-        fp1 = None
-        if plan.fp1_conv:
-            fused = self.config.corr_impl == "fused" and fused_pieces_ok(
-                self.m_max, plan.wf, plan.halo
-            )
-            fp1 = "fused" if fused else "conv"
-        return corr, fp1
-
-    def _corr_route(self, wf: int, halo: int) -> str:
-        """Route of a k = 0 correlation set (``count`` and ``count_batch``),
-        ``apm``'s ``_use_fused_corr``: "fused" (kernel B, or its batch mode)
-        where ``apm``'s fused gate holds, unless ``corr_impl="conv"``; else
-        "conv" (``apm``'s XLA conv: ``scan_corr_mxu`` or
-        ``scan_corr_batch``, here ``conv1d``), or a ``ValueError`` under
-        ``corr_impl="fused"``, as in ``apm``."""
-        from ..ops.corr_fused import fused_eligible
-
-        impl = self.config.corr_impl
-        if impl == "conv":
-            return "conv"
-        if fused_eligible(self.m_max, wf, halo):
-            return "fused"
-        if impl == "fused":
-            raise ValueError(
-                "corr_impl='fused' requires m_max <= 97 and 128-aligned "
-                "staging (apm_torch.ops.corr_fused.fused_eligible)"
-            )
-        return "conv"
-
-    def _peq_for(self, plens: tuple) -> Optional[torch.Tensor]:
-        """The device PEQ table when a DP scan of ``plens`` runs in Myers
-        mode, else None."""
-        from ..ops.dp_kernel import _myers_mode
-
-        on = _myers_mode(
-            self.k, self._dp_alphabet(), "int32", self.config.dp_impl,
-            len(plens), self.m_max,
+    def _dp_kw(self, routes, wf: int, halo: int) -> dict:
+        """Keyword arguments of the banded-DP calls over staged rows of
+        ``wf + halo`` bytes. The device PEQ table goes with them exactly
+        where ``routes.dp_mode`` is "myers": without it the dispatch would
+        build one through a copy from the device to the host."""
+        return dict(
+            k=self.k, m_max=self.m_max, wf=wf, halo=halo, alphabet=self._dp_alphabet(),
+            dp_impl=self.config.dp_impl, plain=self.backend == "torch",
+            peq=self._device_peq() if routes.dp_mode == "myers" else None,
         )
-        return self._device_peq() if on else None
 
-    def _scan_dp(
-        self, rows: torch.Tensor, bound, start: int, plens: tuple, *, wf: int, halo: int
-    ) -> torch.Tensor:
-        """``(p_pad,)`` int32 banded-DP counts of ``plens`` over staged
-        rows: kernel C (Myers mode) or kernel A as ``apm``'s mode dispatch
-        decides, or their plain versions under ``backend="torch"``."""
+    def _scan_dp(self, plan, rows: torch.Tensor, bound, start: int, plens: tuple) -> torch.Tensor:
+        """``(p_pad,)`` int32 banded-DP counts of ``plens`` over rows staged
+        in ``plan``'s layout: kernel C (Myers mode) or kernel A as
+        ``plan.routes.dp_mode`` says, or their plain versions under
+        ``backend="torch"``."""
         from ..ops import dp_kernel
 
         return dp_kernel.scan_folded_dp(
             rows, self._device_tables(fused_needed=False)["pat"], bound, start,
-            k=self.k, m_max=self.m_max, wf=wf, halo=halo,
-            plens=plens, alphabet=self._dp_alphabet(),
-            dp_impl=self.config.dp_impl, peq=self._peq_for(plens),
-            plain=self.backend == "torch",
+            plens=plens, **self._dp_kw(plan.routes, plan.wf, plan.halo),
         )
 
     def _stage(
@@ -756,50 +740,68 @@ class Scanner:
         return rows
 
     def _count_setup(self, plan, chunk_win: Optional[int] = None,
-                     max_hot: Optional[int] = None) -> dict:
-        """What every chunk of a ``count`` scan of ``plan`` shares: the
-        routes (:meth:`_routes`), the chunk's rows, the device tables and
-        the keyword arguments of the filtration calls. The sharded scans
-        pass their own ``chunk_win`` (a multiple of ``plan.w``) and
-        hot-row bucket ``max_hot``."""
-        from ..ops import fused
-        from ..ops.corr_engine import _group_rows
+                     max_hot: Optional[int] = None) -> CountSetup:
+        """What every chunk of a ``count`` scan of ``plan`` shares
+        (:class:`CountSetup`): the chunk's rows, the hot-row bucket, and
+        the kernels of ``plan.routes`` with their device tables bound. The
+        sharded scans pass their own ``chunk_win`` (a multiple of
+        ``plan.w``) and hot-row bucket ``max_hot``."""
+        from ..ops import corr_engine, corr_fused, filter_kernel, fused
         from ..ops.filter_kernel import tier_of
+        from .pipeline import chunking
 
-        corr, fp1 = self._routes(plan)
         if chunk_win is None:
-            chunk_win = max(
-                plan.w,
-                round_up(min(self.config.chunk_bytes, plan.dev_bound), plan.w),
-            )
-        n_rows = chunk_win // plan.wf
+            chunk_win, n_rows = chunking(plan.w, plan.wf, plan.dev_bound, self.config.chunk_bytes)
+        else:
+            n_rows = chunk_win // plan.wf
         if max_hot is None:
             max_hot = fused.pick_max_hot(n_rows, plan.wf, plan.plens_filter, self.k)
-        plain = self.backend == "torch"
-        common = dict(
-            k=self.k, m_max=self.m_max, wf=plan.wf, halo=plan.halo,
-            plens=plan.plens_filter, max_hot=max_hot,
-            alphabet=self._dp_alphabet(), dp_impl=self.config.dp_impl, plain=plain,
-        )
-        if plan.any_filter and self.k >= 1:
-            common["peq"] = self._peq_for(plan.plens_filter)
-        # kernel D's pieces (all, banded tier), for its counters
+        plain, wf, halo, routes = self.backend == "torch", plan.wf, plan.halo, plan.routes
+        tabs = self._device_tables(fused_needed=routes.corr == "fused")
+        g_rows = corr_engine._group_rows(wf + halo, len(self._alph), n_rows)
+        corr = phase1 = None
+        if routes.corr == "fused":
+            corr = partial(
+                corr_fused.scan_corr_fused_ref if plain else corr_fused.scan_corr_fused,
+                tables=tabs["fused"], wf=wf, halo=halo, n_rows=n_rows, p_out=self._pat.shape[0],
+            )
+        elif routes.corr == "conv":
+            kern, thr, stride = self._device_corr_conv()
+            corr = partial(
+                corr_engine.scan_corr_mxu, kern=kern, thr=thr, alph=tabs["alph"], wf=wf,
+                m_max=self.m_max, n_rows=n_rows, g_rows=g_rows, stride=stride,
+                p_out=self._pat.shape[0],
+            )
+        if routes.fp1 == "fused":
+            phase1 = partial(
+                corr_fused.scan_pieces_fused, tables=self._device_fp1_fused(plan.plens_filter),
+                wf=wf, halo=halo, n_rows=n_rows, plain=plain,
+            )
+        elif routes.fp1 == "conv":
+            kern, thr, owner, stride = self._device_fp1(plan.plens_filter)
+            phase1 = partial(
+                corr_engine.scan_pieces_conv, kern=kern, thr=thr, owner=owner,
+                alph=tabs["alph"], wf=wf, w_kern=kern.shape[0], n_rows=n_rows,
+                g_rows=g_rows, stride=stride,
+            )
+        elif plan.any_filter:
+            phase1 = partial(
+                filter_kernel.scan_filter, pat_raw=tabs["pat_raw"], k=self.k,
+                m_max=self.m_max, wf=wf, halo=halo, plens=plan.plens_filter, plain=plain,
+            )
         tiers = [tier_of(m, self.k) for m in plan.plens_filter if m]
-        pieces = (sum(j for j, _ in tiers), sum(j for j, kp in tiers if kp))
-        return dict(
-            plan=plan, corr=corr, fp1=fp1, chunk_win=chunk_win, n_rows=n_rows, pieces=pieces,
-            g_rows=_group_rows(plan.wf + plan.halo, len(self._alph), n_rows),
-            max_hot=max_hot, plain=plain, common=common,
-            tabs=self._device_tables(fused_needed=corr == "fused"),
-            conv=self._device_corr_conv() if corr == "conv" else None,
+        return CountSetup(
+            plan=plan, chunk_win=chunk_win, n_rows=n_rows, max_hot=max_hot,
+            pieces=(sum(j for j, _ in tiers), sum(j for j, kp in tiers if kp)),
+            dp=self._dp_kw(routes, wf, halo), pat=tabs["pat"], corr=corr, phase1=phase1,
         )
 
-    def _launch_chunk(self, st: dict, drows: torch.Tensor, c0: int, spans=OFF,
+    def _launch_chunk(self, st: CountSetup, drows: torch.Tensor, c0: int, spans=OFF,
                       bound: Optional[int] = None):
         """Launch every kernel of one staged chunk without synchronising
         (the loop body of ``apm``'s ``_count_pallas``). Returns ``(handles,
-        raw)``: the ``(p_pad,)`` device counts, and for a k >= 1
-        filtration chunk ``(c0, packed, rowmap, drows)``, else None.
+        launch)``: the ``(p_pad,)`` device counts, and for a k >= 1
+        filtration chunk its :class:`FilterLaunch`, else None.
         ``bound`` (default ``plan.dev_bound``) is the exclusive bound of the
         window starts the chunk owns: a shard's chunks stop at its end.
         Where kernel D runs phase 1, ``spans`` counts ``piece windows`` and
@@ -809,85 +811,52 @@ class Scanner:
         and ``filter item rows``, the rows of an item of each of D's
         launches (:func:`~apm_torch.ops.filter_kernel.item_rows`, for this
         device's shared memory)."""
-        from ..ops import corr_engine, corr_fused, filter_kernel, fused
+        from ..ops import filter_kernel, fused
 
-        plan, k, tabs, common = st["plan"], self.k, st["tabs"], st["common"]
-        wf, halo = plan.wf, plan.halo
+        plan = st.plan
         dev_bound = plan.dev_bound if bound is None else bound
-        p_pad, n_rows = self._pat.shape[0], st["n_rows"]
         handles = []
-        if st["corr"] == "fused":
-            corr_fn = corr_fused.scan_corr_fused_ref if st["plain"] else corr_fused.scan_corr_fused
+        if st.corr is not None:
             with spans.device("corr"):
-                handles.append(corr_fn(
-                    drows, tabs["fused"], dev_bound, c0,
-                    wf=wf, halo=halo, n_rows=n_rows, p_out=p_pad,
-                ))
-        elif st["corr"] == "conv":
-            ckern, cthr, cstride = st["conv"]
-            with spans.device("corr"):
-                handles.append(corr_engine.scan_corr_mxu(
-                    drows, ckern, cthr, tabs["alph"], dev_bound, c0,
-                    wf=wf, m_max=self.m_max, n_rows=n_rows, g_rows=st["g_rows"],
-                    stride=cstride, p_out=p_pad,
-                ))
+                handles.append(st.corr(drows, bound=dev_bound, start=c0))
         if plan.any_dp:
             with spans.device("dp"):
-                handles.append(
-                    self._scan_dp(drows, dev_bound, c0, plan.plens_dp, wf=wf, halo=halo)
-                )
+                handles.append(self._scan_dp(plan, drows, dev_bound, c0, plan.plens_dp))
         if not plan.any_filter:
             return handles, None
-        if k == 0 or st["fp1"] is None:
-            owned = min(st["chunk_win"], dev_bound - c0)
-            spans.count("piece windows", owned * st["pieces"][0])
-            spans.count("banded piece windows", owned * st["pieces"][1])
+        if plan.routes.fp1 is None:
+            owned = min(st.chunk_win, dev_bound - c0)
+            spans.count("piece windows", owned * st.pieces[0])
+            spans.count("banded piece windows", owned * st.pieces[1])
             if spans.enabled:
                 smem = filter_kernel.smem_optin(drows.device)
-                for _, items in filter_kernel.launch_items(plan.plens_filter, k, wf, halo, smem):
+                for _, items in filter_kernel.launch_items(
+                    plan.plens_filter, self.k, plan.wf, plan.halo, smem
+                ):
                     spans.count("filter item rows", items.rows)
-        if k == 0:  # candidates are exact matches
+        if self.k == 0:  # candidates are exact matches
             with spans.device("phase 1"):
-                fcnt, _ = filter_kernel.scan_filter(
-                    drows, tabs["pat_raw"], dev_bound, c0, k=0, m_max=self.m_max,
-                    wf=wf, halo=halo, plens=plan.plens_filter, plain=st["plain"],
-                )
-            handles.append(fcnt)
+                handles.append(st.phase1(drows, bound=dev_bound, start=c0)[0])
             return handles, None
-        if st["fp1"] == "fused":
-            packed, rowmap = fused.filter_verify_chunk_fused(
-                drows, self._device_fp1_fused(plan.plens_filter), tabs["pat"],
-                dev_bound, c0, n_rows=n_rows, spans=spans, **common,
-            )
-        elif st["fp1"] == "conv":
-            pkern, pthr, owner, stride = self._device_fp1(plan.plens_filter)
-            packed, rowmap = fused.filter_verify_chunk_conv(
-                drows, pkern, pthr, owner, tabs["alph"], tabs["pat"],
-                dev_bound, c0, w_kern=pkern.shape[0], n_rows=n_rows,
-                g_rows=st["g_rows"], fp1_stride=stride, spans=spans, **common,
-            )
-        else:
-            packed, rowmap = fused.filter_verify_chunk(
-                drows, tabs["pat_raw"], tabs["pat"], dev_bound, c0,
-                spans=spans, **common,
-            )
-        return handles, (c0, packed, rowmap, drows)
+        packed, rowmap = fused.filter_verify_chunk(
+            drows, st.phase1, st.pat, dev_bound, c0, plens=plan.plens_filter,
+            max_hot=st.max_hot, spans=spans, **st.dp,
+        )
+        hot = fused.pattern_hot_rows(rowmap, dev_bound, c0, plan.wf)
+        return handles, FilterLaunch(c0, packed, rowmap, drows, hot)
 
-    def _count_hot_batch(self, st: dict, drows, rowmap, c0: int, b: int, plens=None):
+    def _count_hot_batch(self, st: CountSetup, drows, rowmap, c0: int, b: int, plens=None):
         """Batch ``b`` of one chunk's full hot rows verified on the device
         (:func:`apm_torch.ops.fused.count_hot_batch`): every filtration
         pattern over every hot row (the overflow recovery), or with
         ``plens`` those lengths over the rows hot in their columns."""
         from ..ops import fused
 
-        common = {key: v for key, v in st["common"].items() if key != "max_hot"}
-        cols = None
-        if plens is not None:
-            common["plens"] = plens
-            cols = fused.slot_mask(plens, drows.device)
+        cols = None if plens is None else fused.slot_mask(plens, drows.device)
         return fused.count_hot_batch(
-            drows, rowmap, st["tabs"]["pat"], st["plan"].dev_bound, c0, b,
-            n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, cols=cols, **common,
+            drows, rowmap, st.pat, st.plan.dev_bound, c0, b,
+            plens=st.plan.plens_filter if plens is None else plens,
+            n_batch=fused.OVERFLOW_BATCH, cap=fused.OVERFLOW_CAP, cols=cols, **st.dp,
         )
 
     def _count_device(self, buf: np.ndarray, n: int, fp=_UNSET, spans=OFF) -> np.ndarray:
@@ -900,11 +869,11 @@ class Scanner:
         (:meth:`_staged_rows`, keyed by :meth:`_corpus_fp`), or are folded
         and copied on a miss. Per chunk, every kernel is launched without
         synchronising (:meth:`_launch_chunk`): the k = 0 correlation
-        (``plan.use_corr``: kernel B or the conv), the banded DP
+        (``plan.routes.corr``: kernel B or the conv), the banded DP
         (``plan.plens_dp``) and filtration (``plan.plens_filter``: kernel
         D's exact counts at k = 0; at k >= 1 phase 1 through the fused
-        piece scan or the piece conv (``plan.fp1_conv``) or kernel D, then
-        phase 2 on the device; :meth:`_routes`). All per-chunk vectors come
+        piece scan or the piece conv (``plan.routes.fp1``) or kernel D, then
+        phase 2 on the device). All per-chunk vectors come
         back in one fetch; then the filtration decision tree
         (:func:`apm_torch.models.pipeline.finalize_filtration`) and the EOF
         tail run on the host. The fetch also brings each chunk's full and
@@ -937,7 +906,7 @@ class Scanner:
 
         with spans.host("plan"):
             plan = make_plan(self, n)
-        wf, halo, dev_bound = plan.wf, plan.halo, plan.dev_bound
+        wf, dev_bound = plan.wf, plan.dev_bound
         self.last_filtration = None
         p_pad = self._pat.shape[0]
         counts = np.zeros((p_pad,), dtype=np.int64)
@@ -949,26 +918,22 @@ class Scanner:
 
         with spans.host("plan"):
             st = self._count_setup(plan)
-        chunk_win = st["chunk_win"]
         if fp is _UNSET:
             with spans.host("fingerprint"):
                 fp = self._corpus_fp(buf)
         handles = []  # (p_pad,) int32 device counts, fetched after the loop
-        # (c0, packed, rowmap, rows, hot rows per pattern) of filtration chunks
-        raw_chunks = []
-        for c0 in range(0, dev_bound, chunk_win):
-            drows = self._staged_rows(buf, fp, c0, st["n_rows"], wf, halo, spans)
+        launched: List[FilterLaunch] = []  # the k >= 1 filtration chunks
+        for c0 in range(0, dev_bound, st.chunk_win):
+            drows = self._staged_rows(buf, fp, c0, st.n_rows, wf, plan.halo, spans)
             with spans.host("launch"):
-                got, raw = self._launch_chunk(st, drows, c0, spans)
-                if raw is not None:
-                    raw += (fused.pattern_hot_rows(raw[2], dev_bound, c0, wf),)
-            spans.count("windows", min(chunk_win, dev_bound - c0))
+                got, fl = self._launch_chunk(st, drows, c0, spans)
+            spans.count("windows", min(st.chunk_win, dev_bound - c0))
             handles += got
-            if raw is not None:
-                raw_chunks.append(raw)
+            if fl is not None:
+                launched.append(fl)
 
         # ONE device-to-host fetch for all per-chunk vectors.
-        small = handles + [t for _, pk, _, _, hot in raw_chunks for t in (pk, hot)]
+        small = handles + [t for fl in launched for t in (fl.packed, fl.hot)]
         with spans.host("fetch"):
             fetched = np.zeros((0,), np.int64)
             if small:
@@ -981,7 +946,7 @@ class Scanner:
             counts += fetched[off : off + p_pad]
             off += p_pad
 
-        def make_verify_dev(drows, rowmap, c0):
+        def make_verify_dev(fl: FilterLaunch):
             """One chunk's full hot rows verified on the device: handles of
             count_hot_batch over at most ``n_hot`` of them (of every
             filtration pattern, or of ``plens`` over the rows hot in their
@@ -996,36 +961,37 @@ class Scanner:
                     spans.count("verify cells", n_hot * wf * sum(live))
                 with spans.device("count_hot_batch"):
                     return [
-                        self._count_hot_batch(st, drows, rowmap, c0, b, plens)
+                        self._count_hot_batch(st, fl.rows, fl.rowmap, fl.c0, b, plens)
                         for b in range(-(-n_hot // fused.OVERFLOW_BATCH))
                     ]
 
             return verify
 
         fchunks = []
-        for c0, pk, rowmap, drows, hot in raw_chunks:
-            fcnt, vcnt, n_hot, clip = fused.unpack_chunk(fetched[off : off + pk.numel()], p_pad)
-            off += pk.numel()
-            pattern_hot = fetched[off : off + hot.numel()].reshape(tuple(hot.shape))
-            off += hot.numel()
+        for fl in launched:
+            fcnt, vcnt, n_hot, clip = fused.unpack_chunk(
+                fetched[off : off + fl.packed.numel()], p_pad
+            )
+            off += fl.packed.numel()
+            pattern_hot = fetched[off : off + fl.hot.numel()].reshape(tuple(fl.hot.shape))
+            off += fl.hot.numel()
             fchunks.append(
-                FilterChunk(c0, fcnt, vcnt, n_hot, clip, rowmap,
-                            verify_dev=make_verify_dev(drows, rowmap, c0),
-                            pattern_hot=pattern_hot)
+                FilterChunk(fl.c0, fcnt, vcnt, n_hot, clip, fl.rowmap,
+                            verify_dev=make_verify_dev(fl), pattern_hot=pattern_hot)
             )
 
         if fchunks:
 
             def rescan_some(plens) -> List[torch.Tensor]:
-                # every chunk of a k >= 1 filtration scan is in raw_chunks,
-                # its rows still on the device: nothing is staged again
+                # every chunk of a k >= 1 filtration scan was launched, its
+                # rows still on the device: nothing is staged again
                 parts = []
                 n_pat = sum(1 for m in plens if m)
                 spans.count("rescan patterns", n_pat)
-                for c0, _, _, drows, _ in raw_chunks:
+                for fl in launched:
                     with spans.device("rescan dp"):
-                        parts.append(self._scan_dp(drows, dev_bound, c0, plens, wf=wf, halo=halo))
-                    owned = min(chunk_win, dev_bound - c0)
+                        parts.append(self._scan_dp(plan, fl.rows, dev_bound, fl.c0, plens))
+                    owned = min(st.chunk_win, dev_bound - fl.c0)
                     spans.count("rescan windows", owned * n_pat)
                     spans.count("rescan cells", owned * sum(plens))
                 return parts
@@ -1037,13 +1003,20 @@ class Scanner:
                 return stacked.numpy().astype(np.int64).sum(axis=0)
 
             with spans.host("finalize"):
-                counts += finalize_filtration(
-                    self, buf_reader(buf), plan, n, fchunks, rescan, max_hot=st["max_hot"],
-                    spans=spans, rescan_some=rescan_some,
+                got, self.last_filtration = finalize_filtration(
+                    buf_reader(buf), plan, n, fchunks, rescan, max_hot=st.max_hot,
+                    spans=spans, rescan_some=rescan_some, **self._host_verify(plan),
                 )
+                counts += got
         with spans.host("EOF tail"):
             counts[:n_scan] += self.tail_counts(buf, dev_bound)
         return counts
+
+    def _host_verify(self, plan) -> dict:
+        """What :func:`~apm_torch.models.pipeline.finalize_filtration`'s
+        host branches read of this scanner, for a scan of ``plan``."""
+        return dict(k=self.k, patterns=self.scan_patterns.raw, device=self.device,
+                    scan_dp=partial(self._scan_dp, plan))
 
     # -- distribution (apm's count dispatch and its sub-scanners) ------------
 
@@ -1127,12 +1100,10 @@ class Scanner:
         if strategy != "auto":
             return strategy
         from ..parallel.plan import choose_strategy
-        from .pipeline import make_plan
 
-        flat_p = self.k == 0 and make_plan(self, n).use_corr
         return choose_strategy(
             n, self.m_max, self.scan_patterns.num_patterns, self.k, n_dev,
-            flat_p_engine=flat_p,
+            flat_p_engine=self._routing.corr is not None,
         )
 
     # -- tracing --------------------------------------------------------------
@@ -1284,7 +1255,7 @@ class Scanner:
         staging copy and one launch: at k = 0 the batch mode of the fused
         correlation kernel (per-row limits) where ``apm``'s fused gate
         takes the set, or the batched conv (``apm``'s ``scan_corr_batch``)
-        where ``apm`` runs it (:meth:`_corr_route`), else the batch mode of
+        where ``apm`` runs it (the routes' ``corr``), else the batch mode of
         the banded DP (kernel A or C). Every group is dispatched, then the
         EOF tails are counted on the host by the native verifier while the
         device works, then all per-block counts come back in one fetch.
@@ -1305,8 +1276,7 @@ class Scanner:
 
     def _count_batch(self, corpora: Sequence[Bytes], spans: Spans) -> np.ndarray:
         from ..ops import corr_engine, corr_fused, dp_kernel
-        from ..ops.corr_engine import ALPHABET_MAX, M_MAX_CORR, _group_rows, corr_eligible
-        from .pipeline import _FOLD, check_dp_dtype
+        from .pipeline import _FOLD, check_dp_dtype, staging
 
         t0 = time.perf_counter()
         bufs = [as_u8(c) for c in corpora]
@@ -1315,10 +1285,9 @@ class Scanner:
         if n_batch == 0:
             return out
         check_dp_dtype(self.config.dp_dtype)
-        k, fold, engine = self.k, _FOLD, self.config.engine
-        w = round_up(self.block_windows_for(max(len(b) for b in bufs)), fold * 128)
-        wf = w // fold
-        halo = round_up(self.m_max + 2 * k, 128)
+        routes, fold = self._routing, _FOLD
+        routes.check(self.config)
+        w, wf, halo = staging(self, max(len(b) for b in bufs))
         p_pad = self._pat.shape[0]
         n_scan = self.scan_patterns.num_patterns
 
@@ -1329,34 +1298,20 @@ class Scanner:
             bounds.append(db)
             items.extend((b, blk, db) for blk in range(-(-db // w) if db > 0 else 0))
 
-        use_corr = (
-            k == 0
-            and engine in ("auto", "corr")
-            and corr_eligible(
-                self._plens_static, len(self._corr_alphabet()), self.m_max, 0,
-                auto=engine == "auto",
-            )
-        )
-        if engine == "corr" and not use_corr:
-            raise ValueError(
-                "engine='corr' requires k == 0, a pattern alphabet of <= "
-                f"{ALPHABET_MAX} distinct bytes, and m_max <= {M_MAX_CORR}"
-            )
         uniq = np.zeros((n_batch, p_pad), dtype=np.int64)
         if items:
-            corr = self._corr_route(wf, halo) if use_corr else None
+            corr = routes.corr
             gmax = max(8, min(
                 len(items), self.config.batch_blocks or 128,
                 self.config.chunk_bytes // (fold * (wf + halo)),
             ))
             # a power of two, rounded down: never past either cap
             gmax = max(8, 1 << (gmax.bit_length() - 1))
-            plain = self.backend == "torch"
             tabs = self._device_tables(fused_needed=corr == "fused")
-            peq = None if corr else self._peq_for(self._plens_static)
+            dp = self._dp_kw(routes, wf, halo)
             if corr == "conv":
                 ckern, cthr, cstride = self._device_corr_conv()
-                g_rows = _group_rows(wf + halo, len(self._alph), gmax * fold)
+                g_rows = corr_engine._group_rows(wf + halo, len(self._alph), gmax * fold)
             row_in_blk = np.arange(fold, dtype=np.int64) * wf
             handles = []  # (group, (gmax, p_pad) device counts)
             for g0 in range(0, len(items), gmax):
@@ -1380,7 +1335,8 @@ class Scanner:
                     with spans.device("corr batch"):
                         cnts = corr_fused.scan_corr_batch_fused(
                             drows, tabs["fused"], dlim,
-                            wf=wf, halo=halo, fold=fold, p_out=p_pad, plain=plain,
+                            wf=wf, halo=halo, fold=fold, p_out=p_pad,
+                            plain=self.backend == "torch",
                         )
                 elif corr == "conv":
                     with spans.device("conv batch"):
@@ -1391,10 +1347,7 @@ class Scanner:
                 else:
                     with spans.device("dp batch"):
                         cnts = dp_kernel.scan_folded_dp_batch(
-                            drows, tabs["pat"], dlim,
-                            k=k, m_max=self.m_max, wf=wf, halo=halo,
-                            plens=self._plens_static, alphabet=self._dp_alphabet(),
-                            dp_impl=self.config.dp_impl, peq=peq, plain=plain,
+                            drows, tabs["pat"], dlim, plens=self._plens_static, **dp
                         )
                 handles.append((group, cnts[:, :p_pad]))
 
@@ -1513,19 +1466,15 @@ class Scanner:
         ``fused.FIND_BATCH`` and ``fused.POS_CAP`` are read per call.
         """
         from ..ops import fused
+        from .pipeline import chunking, staging
 
         find_batch, pos_cap = fused.FIND_BATCH, fused.POS_CAP
-        k = self.k
         p_all = self.scan_patterns.num_patterns
-        wf, halo, chunk_win, n_rows = self._find_shape(n, dev_bound)
+        w, wf, halo = staging(self, n)
+        chunk_win, n_rows = chunking(w, wf, dev_bound, self.config.chunk_bytes)
         tabs = self._device_tables(fused_needed=False)
         dpat_raw, dpat = tabs["pat_raw"], tabs["pat"]
-        kw_common = dict(
-            k=k, m_max=self.m_max, wf=wf, halo=halo, p_real=p_all,
-            alphabet=self._dp_alphabet(), dp_impl=self.config.dp_impl,
-            peq=self._peq_for(self._plens_static), plain=self.backend == "torch",
-            pos_cap=pos_cap,
-        )
+        kw_common = dict(self._dp_kw(self._routing, wf, halo), p_real=p_all, pos_cap=pos_cap)
         paths = []
         if any(plens_filter):
             paths.append(("filter", plens_filter, fmask))
@@ -1674,15 +1623,6 @@ class Scanner:
                 del pending[:half]
         flush(pending)
 
-    def _find_shape(self, n: int, dev_bound: int) -> tuple:
-        """``(wf, halo, chunk_win, n_rows)`` of :meth:`find`'s staging."""
-        from ..ops.filter_kernel import FOLD
-
-        w = round_up(self.block_windows_for(n), FOLD * 128)
-        wf = w // FOLD
-        chunk_win = max(w, round_up(min(self.config.chunk_bytes, dev_bound), w))
-        return wf, round_up(self.m_max + 2 * self.k, 128), chunk_win, chunk_win // wf
-
     # -- warmup ----------------------------------------------------------------
 
     def warmup(
@@ -1736,13 +1676,10 @@ class Scanner:
         if plan.dev_bound <= 0:
             return
         st = self._count_setup(plan)
-        rows = torch.zeros(
-            (st["n_rows"], plan.wf + plan.halo), dtype=torch.uint8, device=self.device
-        )
-        handles, raw = self._launch_chunk(st, rows, 0)
-        if raw is not None:  # k >= 1 filtration: the overflow recovery too
-            _, packed, rowmap, _ = raw
-            handles += [packed, self._count_hot_batch(st, rows, rowmap, 0, 0)]
+        rows = torch.zeros((st.n_rows, plan.wf + plan.halo), dtype=torch.uint8, device=self.device)
+        handles, fl = self._launch_chunk(st, rows, 0)
+        if fl is not None:  # k >= 1 filtration: the overflow recovery too
+            handles += [fl.packed, self._count_hot_batch(st, rows, fl.rowmap, 0, 0)]
         if handles:
             torch.cat([h.reshape(-1).to(torch.int64) for h in handles]).cpu()
 
@@ -1787,22 +1724,22 @@ class Scanner:
         it."""
         from ..ops import fused
         from ..ops.filter_kernel import partition_plens
+        from .pipeline import chunking, staging
 
         dev_bound = self.device_window_bound(n)
         if dev_bound <= 0:
             return
-        wf, halo, _, n_rows = self._find_shape(n, dev_bound)
+        w, wf, halo = staging(self, n)
+        n_rows = chunking(w, wf, dev_bound, self.config.chunk_bytes)[1]
         rows = torch.zeros((n_rows, wf + halo), dtype=torch.uint8, device=self.device)
         idx = torch.full((fused.FIND_BATCH,), n_rows, dtype=torch.int64, device=self.device)
         dpat = self._device_tables(fused_needed=False)["pat"]
         _, plens_filter, plens_dp = partition_plens(self._plens_static, self.k, "filter")
+        kw = self._dp_kw(self._routing, wf, halo)
         metas = [
             fused.gather_mask_rows(
-                rows, idx, dpat, fused.FIND_BATCH,
-                k=self.k, m_max=self.m_max, wf=wf, halo=halo, plens=plens,
-                p_real=self.scan_patterns.num_patterns, pos_cap=fused.POS_CAP,
-                alphabet=self._dp_alphabet(), dp_impl=self.config.dp_impl,
-                peq=self._peq_for(self._plens_static), plain=self.backend == "torch",
+                rows, idx, dpat, fused.FIND_BATCH, plens=plens,
+                p_real=self.scan_patterns.num_patterns, pos_cap=fused.POS_CAP, **kw,
             )[0]
             for plens in (plens_filter, plens_dp) if any(plens)
         ]

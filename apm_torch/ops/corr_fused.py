@@ -89,22 +89,18 @@ def pick_s(m_max: int) -> int:
     return 64 if m_max <= 65 else 32
 
 
-def fused_eligible(m_max: int, wf: int, halo: int) -> bool:
-    """``apm``'s gate of the fused count kernel: m <= 97, lane-tiled
-    staging rows and a >= 128-byte halo."""
-    return (
-        0 < m_max <= M_MAX_FUSED
-        and wf % 128 == 0
-        and halo % 128 == 0
-        and halo >= 128
-    )
+def fused_eligible(m_max: int) -> bool:
+    """``apm``'s gate of the fused count kernel: m <= 97. Its staging
+    checks (lane-tiled rows, a >= 128-byte halo) hold for every plan
+    (:func:`apm_torch.models.pipeline.staging`)."""
+    return 0 < m_max <= M_MAX_FUSED
 
 
-def fused_pieces_ok(m_max: int, wf: int, halo: int) -> bool:
+def fused_pieces_ok(m_max: int) -> bool:
     """``apm``'s gate of its fused piece scan (:func:`scan_pieces_fused`),
     which ``corr_impl="fused"`` selects for conv phase 1: the count gate and
     m_max <= 65, which the piece coverage bound ``wf + 64`` needs."""
-    return fused_eligible(m_max, wf, halo) and m_max <= M_MAX_PIECES
+    return fused_eligible(m_max) and m_max <= M_MAX_PIECES
 
 
 def build_fused_tables(pat_raw: np.ndarray, plens, alphabet: np.ndarray):

@@ -1,12 +1,12 @@
 """Filtration phase 2 on the device (port of ``apm/ops/fused.py``).
 
-Per chunk, phase 1 (kernel D, :func:`apm_torch.ops.filter_kernel.scan_filter`,
-the piece conv, :func:`apm_torch.ops.corr_engine.scan_pieces_conv`, or
-the fused piece scan, :func:`apm_torch.ops.corr_fused.scan_pieces_fused`)
-gives candidate totals and a per-row candidate map on the device. Phase 2
-compacts the hot rows out of the staged chunk, which is already on the
-device, and verifies them with the banded DP (kernel A, or kernel C in
-Myers mode). The host gets one small packed vector per chunk,
+Per chunk (:func:`filter_verify_chunk`), phase 1 (kernel D,
+:func:`apm_torch.ops.filter_kernel.scan_filter`, the piece conv,
+:func:`apm_torch.ops.corr_engine.scan_pieces_conv`, or the fused piece
+scan, :func:`apm_torch.ops.corr_fused.scan_pieces_fused`) gives candidate
+totals and a per-row candidate map on the device. Phase 2 compacts the
+hot rows out of the staged chunk, which is already on the device, and
+verifies them with the banded DP (kernel A, or kernel C in Myers mode). The host gets one small packed vector per chunk,
 ``[fcnt (P) | vcnt (P) | n_hot (1) | clip_starts (MAX_CLIP)]``, fetched
 together with every other chunk's after the chunk loop; overflow and
 density are decided from it by
@@ -163,73 +163,25 @@ def _verify_phase2(
 
 
 def filter_verify_chunk(
-    rows, pat_raw, pat, bound, start, *, k, m_max, wf, halo, plens,
+    rows, phase1, pat, bound, start, *, k, m_max, wf, halo, plens,
     max_hot=MAX_HOT, alphabet=(), dp_impl="auto", peq=None, plain=False,
     spans=OFF,
 ):
-    """Phase 1 through kernel D, then phase 2, for one staged chunk
-    (k >= 1). Returns ``(packed, rowmap)``: the packed vector (module
-    doc) and the ``(R, P)`` row map, both left on the device."""
+    """Phase 1, then phase 2, for one staged chunk (k >= 1). ``phase1(rows,
+    bound=, start=)`` returns ``(fcnt, rowmap)``: kernel D
+    (:func:`apm_torch.ops.filter_kernel.scan_filter`), or, where the plan
+    runs it as a correlation, the piece conv
+    (:func:`apm_torch.ops.corr_engine.scan_pieces_conv`, plain PyTorch as
+    ``apm`` leaves it to XLA) or the fused piece scan (kernel #7,
+    :func:`apm_torch.ops.corr_fused.scan_pieces_fused`), with their tables
+    bound (``functools.partial``). The two correlations' row maps are
+    row-any supersets of kernel D's; phase 2 is shared, so the counts are
+    the same. Returns ``(packed, rowmap)``: the packed vector (module doc)
+    and the ``(R, P)`` row map, both left on the device."""
     if k < 1:
         raise ValueError("k = 0 candidates are exact; call scan_filter")
     with spans.device("phase 1"):
-        fcnt, rowmap = filter_kernel.scan_filter(
-            rows, pat_raw, bound, start, k=k, m_max=m_max, wf=wf, halo=halo,
-            plens=plens, plain=plain,
-        )
-    with spans.device("phase 2"):
-        return _verify_phase2(
-            rows, fcnt, rowmap, pat, bound, start, k=k, m_max=m_max, wf=wf,
-            halo=halo, plens=plens, max_hot=max_hot, alphabet=alphabet,
-            dp_impl=dp_impl, peq=peq, plain=plain,
-        )
-
-
-def filter_verify_chunk_conv(
-    rows, pkern, pthr, owner, alph, pat, bound, start, *, k, m_max, wf,
-    halo, plens, w_kern, n_rows, g_rows, fp1_stride=1, max_hot=MAX_HOT,
-    alphabet=(), dp_impl="auto", peq=None, plain=False, spans=OFF,
-):
-    """:func:`filter_verify_chunk` with the piece conv as phase 1
-    (:func:`apm_torch.ops.corr_engine.scan_pieces_conv`, plain PyTorch as
-    ``apm`` leaves it to XLA). Its row map is a row-any superset of kernel
-    D's; phase 2 is shared, so the counts are the same."""
-    from .corr_engine import scan_pieces_conv
-
-    if k < 1:
-        raise ValueError("conv phase 1 needs k >= 1")
-    with spans.device("phase 1"):
-        fcnt, rowmap = scan_pieces_conv(
-            rows, pkern, pthr, owner, alph, bound, start, wf=wf, w_kern=w_kern,
-            n_rows=n_rows, g_rows=g_rows, stride=fp1_stride,
-        )
-    with spans.device("phase 2"):
-        return _verify_phase2(
-            rows, fcnt, rowmap, pat, bound, start, k=k, m_max=m_max, wf=wf,
-            halo=halo, plens=plens, max_hot=max_hot, alphabet=alphabet,
-            dp_impl=dp_impl, peq=peq, plain=plain,
-        )
-
-
-def filter_verify_chunk_fused(
-    rows, ptabs, pat, bound, start, *, k, m_max, wf, halo, plens, n_rows,
-    max_hot=MAX_HOT, alphabet=(), dp_impl="auto", peq=None, plain=False,
-    spans=OFF,
-):
-    """:func:`filter_verify_chunk` with the fused piece scan as phase 1
-    (kernel #7, :func:`apm_torch.ops.corr_fused.scan_pieces_fused`, over the
-    :class:`~apm_torch.ops.corr_fused.PieceTables` ``ptabs``): ``apm``'s
-    ``filter_verify_chunk_fused``, which ``corr_impl="fused"`` selects for
-    conv phase 1. Its row map is another row-any superset of kernel D's;
-    phase 2 is shared, so the counts are the same."""
-    from .corr_fused import scan_pieces_fused
-
-    if k < 1:
-        raise ValueError("fused phase 1 needs k >= 1")
-    with spans.device("phase 1"):
-        fcnt, rowmap = scan_pieces_fused(
-            rows, ptabs, bound, start, wf=wf, halo=halo, n_rows=n_rows, plain=plain,
-        )
+        fcnt, rowmap = phase1(rows, bound=bound, start=start)
     with spans.device("phase 2"):
         return _verify_phase2(
             rows, fcnt, rowmap, pat, bound, start, k=k, m_max=m_max, wf=wf,

@@ -42,7 +42,7 @@ from ..ops.common import round_up
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..models.pipeline import ScanPlan
-    from ..models.scanner import Scanner
+    from ..models.scanner import CountSetup, Scanner
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -78,8 +78,10 @@ class ShardLayout:
 def shard_layout(plan: "ScanPlan", n_dev: int, chunk_bytes: int) -> ShardLayout:
     """``apm``'s shard width over ``plan.dev_bound``, and the chunks a shard
     is staged in (one unless the shard is wider than ``chunk_bytes``)."""
+    from ..models.pipeline import chunking
+
     s = max(round_up(_cdiv(plan.dev_bound, n_dev), plan.w), plan.w)
-    chunk_win = max(plan.w, round_up(min(chunk_bytes, s), plan.w))
+    chunk_win = chunking(plan.w, plan.wf, s, chunk_bytes)[0]
     return ShardLayout(n_dev, s, chunk_win, _cdiv(s, chunk_win))
 
 
@@ -192,8 +194,7 @@ def sharded_filter_chunks(
         for unit in units:
             with _device_guard(unit.drows.device):
                 parts.append(unit.rep._scan_dp(
-                    unit.drows, unit.bound, unit.c0, plan.plens_filter,
-                    wf=plan.wf, halo=plan.halo,
+                    plan, unit.drows, unit.bound, unit.c0, plan.plens_filter
                 ))
         local = np.sum(_fetch(parts), axis=0) if parts else np.zeros((p_pad,), np.int64)
         return comm.reduce(local)
@@ -207,7 +208,8 @@ def _count_shards(
     *, single_proc: bool,
 ) -> np.ndarray:
     """The device-owned counts of a database-sharded scan: ``(p_pad,)``
-    int64, the EOF tail excluded. ``shards`` are this process's ``(global
+    int64, the EOF tail excluded; ``scanner.last_filtration`` is set where
+    phase 2 ran. ``shards`` are this process's ``(global
     shard index, scanner on the shard's device)``; ``stage(rep, c0,
     n_rows)`` returns a chunk's staged rows on ``rep``'s device. Every
     unit's kernels are launched first, then the counts come back in one
@@ -216,7 +218,7 @@ def _count_shards(
     from ..ops import fused
 
     p_pad = scanner._pat.shape[0]
-    setups: Dict[int, dict] = {}
+    setups: Dict[int, "CountSetup"] = {}
     units: List[_Unit] = []
     handles: List[torch.Tensor] = []
     packs: List[torch.Tensor] = []
@@ -230,14 +232,14 @@ def _count_shards(
         for i in range(layout.per_shard):
             u = gi * layout.per_shard + i
             c0 = layout.unit(u)[1]
-            drows = stage(rep, c0, st["n_rows"])
+            drows = stage(rep, c0, st.n_rows)
             with _device_guard(drows.device):
-                got, raw = rep._launch_chunk(st, drows, c0, bound=bound)
+                got, fl = rep._launch_chunk(st, drows, c0, bound=bound)
             handles += got
             unit = _Unit(u, c0, bound, rep, drows)
-            if raw is not None:
-                packs.append(raw[1])
-                unit.rowmap = raw[2]
+            if fl is not None:
+                packs.append(fl.packed)
+                unit.rowmap = fl.rowmap
             units.append(unit)
 
     fetched = _fetch(handles + packs)
@@ -250,9 +252,11 @@ def _count_shards(
         fchunks, rescan = sharded_filter_chunks(
             scanner, plan, layout, units, packed, comm, single_proc=single_proc
         )
-        counts = counts + pipeline.finalize_filtration(
-            scanner, reader, plan, n, fchunks, rescan, max_hot=fused.MAX_HOT
+        got, scanner.last_filtration = pipeline.finalize_filtration(
+            reader, plan, n, fchunks, rescan, max_hot=fused.MAX_HOT,
+            **scanner._host_verify(plan),
         )
+        counts = counts + got
     return counts
 
 

@@ -253,7 +253,7 @@ def filter_shiftor_model(plens: Sequence[int], k: int) -> OpsModel:
 
 def model_for_scanner(scanner, n: int) -> Optional[OpsModel]:
     """Ops model of the routes a Scanner takes for an ``n``-byte ``count``
-    (``make_plan``, then ``Scanner._routes``), summed over its engines:
+    (``make_plan`` and its ``routes``), summed over its engines:
     the k = 0 correlation set (kernel B or the conv), filtration phase 1
     (kernel D at k = 0 or without a conv phase 1; else kernel #7 where the
     routes chose it, or the piece conv) and the banded DP (kernel C in
@@ -269,17 +269,16 @@ def model_for_scanner(scanner, n: int) -> Optional[OpsModel]:
     ``S_FUSED`` (``:200``, ``:213``); here patterns and pieces are
     counted directly."""
     from ..models.pipeline import make_plan
-    from ..ops.dp_kernel import resolve_dp_mode
     from ..ops.filter_kernel import pieces_of_j, tier_of
 
     plan = make_plan(scanner, n)
     if plan.dev_bound <= 0:
         return None
-    corr, fp1 = scanner._routes(plan)
+    corr, fp1 = plan.routes.corr, plan.routes.fp1
     c = len(scanner._corr_alphabet())
     k = scanner.k
     parts = []
-    if plan.use_corr:
+    if corr:
         n_live = sum(1 for m in plan.plens_corr if m > 0)
         parts.append(fused_corr_model(n_live) if corr == "fused"
                      else corr_model(n_live, scanner.m_max, c))
@@ -292,11 +291,7 @@ def model_for_scanner(scanner, n: int) -> Optional[OpsModel]:
             parts.append(fused_corr_model(len(pieces)) if fp1 == "fused"
                          else corr_model(len(pieces), max(pieces), c))
     if plan.any_dp:
-        _, impl = resolve_dp_mode(
-            k, scanner._dp_alphabet(), scanner.config.dp_dtype,
-            scanner.config.dp_impl, len(plan.plens_dp), scanner.m_max,
-        )
-        parts.append(myers_model(plan.plens_dp, k) if impl == "myers"
+        parts.append(myers_model(plan.plens_dp, k) if plan.routes.dp_mode == "myers"
                      else band_model(plan.plens_dp, k))
     int_instr = sum(p.int_instr for p in parts)
     tc = sum(p.tc_flops for p in parts)

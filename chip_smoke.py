@@ -1060,7 +1060,7 @@ def phase_pieces(rec, dev, n_rows: int = 4096, main_rows: int = 32768) -> None:
     for k in (1, 2, 4):
         sc = apm_torch.Scanner(ref_set, k, apm_torch.ApmConfig(device=str(dev), corr_impl="fused"))
         plan = make_plan(sc, len(corpus))
-        need((plan.wf, plan.halo) == (wf, halo) and sc._routes(plan)[1] == "fused",
+        need((plan.wf, plan.halo) == (wf, halo) and plan.routes.fp1 == "fused",
              f"kernel #7 k={k}: the plan does not run the fused piece scan")
         tabs = sc._device_fp1_fused(plan.plens_filter)
         pkern, pthr, owner, stride = sc._device_fp1(plan.plens_filter)
@@ -1374,7 +1374,7 @@ def phase_e2e_k0(main, dev, mb: int = 256, conv: bool = False):
     p120 = syn[4096 : 4096 + 120].tobytes()  # a planted 50-mer and the 70 bytes after it
     pats120 = [p32.tobytes(), p120]
     sc120 = apm_torch.Scanner(pats120, 0, cfg())
-    need(sc120._routes(make_plan(sc120, len(syn)))[0] == "conv", "m_max 120: auto does not take the conv")
+    need(make_plan(sc120, len(syn)).routes.corr == "conv", "m_max 120: auto does not take the conv")
     got = main.run(f"{mb} MB k=0 m_max=120 auto (conv)", [], lambda: sc120.count(syn))
     bound120 = sc120.device_window_bound(len(syn))
     tail = count_matches(syn[bound120:], pats120, 0)

@@ -155,7 +155,7 @@ def test_count_clipped_hot_row():
     assert want[1] >= 1 and tsc.last_filtration["route"] == "device-verify"
 
 
-def _apm_routes(jsc, n):
+def _apm_kernels(jsc, n):
     """apm's kernel for each pattern slot, from its plan and dispatch."""
     from apm.models.pipeline import make_plan
     from apm.ops.pallas_kernel import resolve_dp_mode
@@ -178,15 +178,12 @@ def _apm_routes(jsc, n):
     return out
 
 
-def _port_routes(tsc, n):
+def _port_kernels(tsc, n):
     from apm_torch.models.pipeline import make_plan
-    from apm_torch.ops.dp_kernel import _is_myers
 
     plan = make_plan(tsc, n)
-    corr, fp1 = tsc._routes(plan)
-    mode = lambda plens: "dp_myers" if _is_myers(
-        tsc.k, tsc.m_max, plens, tsc._dp_alphabet(), tsc.config.dp_impl
-    ) else "dp_band"
+    corr, fp1 = plan.routes.corr, plan.routes.fp1
+    mode = lambda plens: "dp_" + plan.routes.dp_mode
     out = []
     for i in range(len(plan.fmask)):
         if corr and plan.plens_corr[i]:
@@ -212,9 +209,9 @@ def test_routes_name_apms_kernels():
                     cfg = dict(engine=engine, dp_impl=dp_impl)
                     jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True, **cfg))
                     tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", **cfg))
-                    want = _apm_routes(jsc, 1 << 22)
+                    want = _apm_kernels(jsc, 1 << 22)
                     seen.update(want)
-                    assert _port_routes(tsc, 1 << 22) == want, (lengths, k, cfg)
+                    assert _port_kernels(tsc, 1 << 22) == want, (lengths, k, cfg)
     assert {"corr_fused", "corr_conv", "dp_band", "dp_myers", "filter_pieces",
             "piece_conv+dp_band", "piece_conv+dp_myers",
             "filter_pieces+dp_band", "filter_pieces+dp_myers"} <= seen
@@ -282,9 +279,9 @@ def test_count_split_rescan(monkeypatch, case, k, lengths, dense_every, sparse_e
     host_rows = []  # the slots each clipped row is verified for on the host
     verify_clipped = pipeline._verify_clipped_row
 
-    def spy(scanner, reader, plan, n, j0, fcnt):
+    def spy(reader, plan, n, j0, fcnt, **kw):
         host_rows.append(np.flatnonzero(np.asarray(plan.fmask) & (fcnt > 0)).tolist())
-        return verify_clipped(scanner, reader, plan, n, j0, fcnt)
+        return verify_clipped(reader, plan, n, j0, fcnt, **kw)
 
     monkeypatch.setattr(pipeline, "_verify_clipped_row", spy)
     if case == "past the cap":
@@ -299,9 +296,9 @@ def test_count_split_rescan(monkeypatch, case, k, lengths, dense_every, sparse_e
     info = tsc.last_filtration
     assert info["route"] == route and info.get("sparse") == sparse
     plan = make_plan(tsc, len(c))
-    assert tsc._routes(plan)[1] == fp1
+    assert plan.routes.fp1 == fp1
     if case == "chunks":
-        assert tsc._count_setup(plan)["chunk_win"] < plan.dev_bound
+        assert tsc._count_setup(plan).chunk_win < plan.dev_bound
     if route == "split-rescan":
         # only the sparse patterns with a candidate in the clipped row
         assert all(0 < len(r) and set(r) <= set(sparse) for r in host_rows), host_rows

@@ -1,18 +1,21 @@
 """Filtration phase 2 and conv phase 1 of the port against apm's.
 
 On the same staged rows and tables, the port's ``scan_pieces_conv`` must
-give apm's ``(fcnt, rowmap)``, and ``filter_verify_chunk``,
-``filter_verify_chunk_conv`` and ``count_hot_batch`` (plain versions, as the
-CPU runs them) must give apm's packed vectors and counts, field by field
+give apm's ``(fcnt, rowmap)``, and ``filter_verify_chunk`` (with kernel D's
+phase 1 and with the piece conv's, against apm's ``filter_verify_chunk``
+and ``filter_verify_chunk_conv``) and ``count_hot_batch`` (plain versions,
+as the CPU runs them) must give apm's packed vectors and counts, field by field
 through ``unpack_chunk`` — apm's Pallas kernels in interpret mode. Every
 output is an integer: tolerance 0.
 """
+
+from functools import partial
 
 import numpy as np
 import pytest
 import torch
 
-from apm_torch.ops import corr_engine, fused
+from apm_torch.ops import corr_engine, filter_kernel, fused
 from apm_torch.ops.common import fold_corpus, round_up
 from apm_torch.utils.corpus import plant
 from apm_torch.utils.io import PatternSet
@@ -116,9 +119,10 @@ def test_filter_verify_chunk_matches_apm(k, lengths):
               alphabet=tuple(int(b) for b in alph), dp_impl="auto")
     jp, jr = filter_verify_chunk(_j(rows), _j(raw), _j(pat), _j(bound, np.int32),
                                  _j(0, np.int32), interpret=True, **kw)
+    phase1 = partial(filter_kernel.scan_filter, pat_raw=torch.from_numpy(raw), k=k,
+                     m_max=m_max, wf=WF, halo=halo, plens=plens, plain=True)
     tp, tr = fused.filter_verify_chunk(
-        torch.from_numpy(rows), torch.from_numpy(raw), torch.from_numpy(pat), bound, 0,
-        plain=True, **kw)
+        torch.from_numpy(rows), phase1, torch.from_numpy(pat), bound, 0, plain=True, **kw)
     fcnt, vcnt, n_hot, clips = _same_packed(tp, jp, 8)
     assert np.array_equal(tr.numpy(), np.asarray(jr))
     assert n_hot > max_hot and vcnt.sum() > 0 and (clips >= 0).sum() == 1
@@ -133,16 +137,17 @@ def test_filter_verify_chunk_conv_matches_apm(k):
     stride = corr_engine.pick_stride(len(lengths) * (k + 1))
     (kern, thr, owner), (jkern, jthr, jowner) = _piece_tables(raw, plens, k, alph, stride)
     bound = (N_ROWS - 1) * WF + 3
-    kw = dict(k=k, m_max=m_max, wf=WF, halo=halo, plens=plens, w_kern=kern.shape[0],
-              n_rows=N_ROWS, g_rows=16, fp1_stride=stride, max_hot=16,
+    conv = dict(w_kern=kern.shape[0], n_rows=N_ROWS, g_rows=16)
+    kw = dict(k=k, m_max=m_max, wf=WF, halo=halo, plens=plens, max_hot=16,
               alphabet=tuple(int(b) for b in alph), dp_impl="auto")
     jp, jr = filter_verify_chunk_conv(
         _j(rows), jkern, _j(jthr), _j(jowner), _j(alph), _j(pat),
-        _j(bound, np.int32), _j(0, np.int32), interpret=True, **kw)
-    tp, tr = fused.filter_verify_chunk_conv(
-        torch.from_numpy(rows), torch.from_numpy(kern), torch.from_numpy(thr),
-        torch.from_numpy(owner), torch.from_numpy(alph), torch.from_numpy(pat),
-        bound, 0, plain=True, **kw)
+        _j(bound, np.int32), _j(0, np.int32), interpret=True, fp1_stride=stride, **conv, **kw)
+    phase1 = partial(corr_engine.scan_pieces_conv, kern=torch.from_numpy(kern),
+                     thr=torch.from_numpy(thr), owner=torch.from_numpy(owner),
+                     alph=torch.from_numpy(alph), wf=WF, stride=stride, **conv)
+    tp, tr = fused.filter_verify_chunk(
+        torch.from_numpy(rows), phase1, torch.from_numpy(pat), bound, 0, plain=True, **kw)
     _, vcnt, n_hot, _ = _same_packed(tp, jp, 8)
     assert np.array_equal(tr.numpy(), np.asarray(jr))
     assert n_hot > 0 and vcnt.sum() > 0

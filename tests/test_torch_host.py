@@ -290,6 +290,9 @@ def test_decode_fused_tables_rejects_inconsistent_tables():
 def _plan_fields(plan):
     d = dataclasses.asdict(plan)
     d.pop("backend")
+    if "routes" in d:  # the port's plan: apm's two route flags, from its routes
+        d.pop("routes")
+        d.update(use_corr=plan.use_corr, fp1_conv=plan.fp1_conv)
     return d
 
 

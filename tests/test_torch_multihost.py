@@ -39,12 +39,12 @@ def _worker(argv) -> None:
     rescans = {"n": 0}
     finalize = pipeline.finalize_filtration
 
-    def spy(scanner, reader, plan, n, chunks, rescan, **kw):
+    def spy(reader, plan, n, chunks, rescan, **kw):
         def counted():
             rescans["n"] += 1
             return rescan()
 
-        return finalize(scanner, reader, plan, n, chunks, counted, **kw)
+        return finalize(reader, plan, n, chunks, counted, **kw)
 
     pipeline.finalize_filtration = spy
     multihost.initialize(f"localhost:{port}", int(world), int(rank), backend="gloo", timeout=120)

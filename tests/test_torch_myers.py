@@ -182,3 +182,40 @@ def test_scan_folded_dp_plain_takes_the_same_mode(dp_impl, monkeypatch):
     on = dp_kernel._myers_mode(4, alph, "int32", dp_impl, len(plens), m_max)
     assert calls == ["myers" if on else "band"]
     assert torch.equal(got, band(r, p, bound, 0, **kw))
+
+
+@pytest.mark.parametrize("dp_impl", ["auto", "band", "myers"])
+@pytest.mark.parametrize("k", range(1, 15))
+def test_plan_dp_mode_is_the_dispatched_branch(monkeypatch, k, dp_impl):
+    """The plan's ``routes.dp_mode`` is the branch ``dp_kernel._dispatch``
+    takes for the Scanner's banded-DP calls, and the Scanner passes its PEQ
+    table exactly in Myers mode: alphabets of 4 and 9 bytes (past
+    ``MYERS_CMAX``), P x m under and over the 64 KiB PEQ budget."""
+    import apm_torch
+    from apm_torch import ApmConfig
+    from apm_torch.models.pipeline import make_plan
+
+    taken, peqs = [], []
+    zeros = lambda *a, **kw: torch.zeros((8,), dtype=torch.int32)
+    monkeypatch.setattr(dp_kernel, "scan_folded_myers_ref",
+                        lambda *a, **kw: taken.append("myers") or zeros())
+    monkeypatch.setattr(dp_kernel, "scan_folded_dp_ref",
+                        lambda *a, **kw: taken.append("band") or zeros())
+    scan = dp_kernel.scan_folded_dp
+    monkeypatch.setattr(dp_kernel, "scan_folded_dp",
+                        lambda *a, peq=None, **kw: peqs.append(peq is not None)
+                        or scan(*a, peq=peq, **kw))
+    rng = np.random.default_rng(k)
+    for alphabet in (b"ACGT", b"ACGTNRYKM"):
+        a = np.frombuffer(alphabet, np.uint8)
+        for m in (40, 520):  # 8 slots x m x C x 4 bytes: 5 / 66 KiB at C = 4
+            assert (8 * m * 4 * 4 > dp_kernel.MYERS_SMEM_MAX) == (m == 520)
+            pats = [np.concatenate([a, a[rng.integers(0, len(a), m - len(a))]]).tobytes()
+                    for _ in range(3)]
+            sc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", dp_impl=dp_impl))
+            plan = make_plan(sc, 4096)
+            rows = torch.zeros((8, plan.wf + plan.halo), dtype=torch.uint8)
+            taken.clear(), peqs.clear()
+            sc._scan_dp(plan, rows, plan.dev_bound, 0, sc._plens_static)
+            assert taken == [plan.routes.dp_mode], (alphabet, m)
+            assert peqs == [plan.routes.dp_mode == "myers"], (alphabet, m)

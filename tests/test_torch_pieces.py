@@ -239,7 +239,8 @@ def test_scanner_fused_phase1_matches_apm_and_oracle(k):
     plant(c, np.frombuffer(p50, np.uint8), [1000, 20_000, 41_000], k=k, seed=k)
     plant(c, np.frombuffer(p32, np.uint8), [7000], k=min(k, 1), seed=k)
     tsc, want = _three_way(c, [p32, p50, p50], k, corr_impl="fused")
-    assert tsc._routes(make_plan(tsc, len(c))) == (None, "fused")
+    routes = make_plan(tsc, len(c)).routes
+    assert (routes.corr, routes.fp1) == (None, "fused")
     assert want[1] >= 3 and tsc.last_filtration["route"] == "device-verify"
 
 
@@ -247,9 +248,14 @@ def test_fused_phase1_only_when_pinned(monkeypatch):
     # apm's tripwire test (tests/test_corr_fused.py): auto runs the piece
     # conv and never the fused piece scan; corr_impl="fused" runs it
     calls = []
-    real = fused.filter_verify_chunk_fused
-    monkeypatch.setattr(fused, "filter_verify_chunk_fused",
-                        lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    real = fused.filter_verify_chunk
+
+    def spy(rows, phase1, *a, **kw):  # counts the chunks whose phase 1 is kernel #7
+        if phase1.func is corr_fused.scan_pieces_fused:
+            calls.append(1)
+        return real(rows, phase1, *a, **kw)
+
+    monkeypatch.setattr(fused, "filter_verify_chunk", spy)
     c = _corpus(120_000, 20, b"ACGT\n")
     pats = [bytes(c[500:550]), bytes(c[60_000:60_050])]
     want = count_matches(c, pats, 4)
@@ -267,20 +273,23 @@ def test_fused_phase1_gate_falls_back_to_conv():
     c = _corpus(30_000, 21, b"ACGT\n")
     pats = [bytes(c[300:380]), bytes(c[9000:9050])]
     tsc, _ = _three_way(c, pats, 1, corr_impl="fused")
-    assert tsc._routes(make_plan(tsc, len(c))) == (None, "conv")
+    routes = make_plan(tsc, len(c)).routes
+    assert (routes.corr, routes.fp1) == (None, "conv")
     assert "pieces_km" not in tsc.tables()
 
 
 def test_load_tables_carries_the_fused_piece_tables():
     # an apm.Scanner's fused piece tables drive the port's piece scan: with
     # every piece blanked to a sentinel no row is a candidate
+    from apm_torch.models.pipeline import make_plan
+
     k = 2
     pats = [bytes(_corpus(50, 95 + i)) for i in range(3)]
     c = _corpus(30_000, 98, b"ACGT")
     c[700:750] = np.frombuffer(pats[0], np.uint8)
     jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True, corr_impl="fused"))
     tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024, corr_impl="fused"))
-    km, thr, owner64 = jsc._fp1_fused_tables(tsc._fp1_plens())
+    km, thr, owner64 = jsc._fp1_fused_tables(make_plan(tsc, len(c)).plens_filter)
     own = tsc.tables()
     assert np.array_equal(own["pieces_km"].astype(np.float32), np.asarray(km, np.float32))
     assert np.array_equal(own["pieces_thr"], thr) and np.array_equal(own["pieces_owner64"], owner64)
@@ -320,13 +329,16 @@ def test_piece_prefix_words_of_every_piece_length(length):
 def test_piece_tables_from_apm_carry_prefix_words():
     # an apm.Scanner's fused piece tables, loaded into the port, give kernel
     # #7 the prefix words of the pieces they hold
+    from apm_torch.models.pipeline import make_plan
+
     k = 1
     pats = [bytes(_corpus(32, 910)), bytes(_corpus(50, 911))]
     jsc = apm.Scanner(pats, k, JaxConfig(backend="pallas", interpret=True, corr_impl="fused"))
     tsc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", corr_impl="fused"))
-    km, thr, owner64 = jsc._fp1_fused_tables(tsc._fp1_plens())
+    plens = make_plan(tsc, 1 << 20).plens_filter
+    km, thr, owner64 = jsc._fp1_fused_tables(plens)
     tsc.load_tables({**tsc.tables(), "pieces_km": np.asarray(km, np.float32)})
-    tabs = tsc._device_fp1_fused(tsc._fp1_plens())
+    tabs = tsc._device_fp1_fused(plens)
     words = tabs.prefix.numpy().view(np.uint64)
     got = [(int(o), tuple(int(x) for x in w)) for o, w in zip(tabs.owner.tolist(), words)]
     from apm_torch.ops.filter_kernel import pieces_of_j

@@ -137,8 +137,8 @@ def test_model_for_scanner_engine_split_matches_apm(pats, k, corr_impl):
     tm = roof.model_for_scanner(tsc, N)
     jm = jroof.model_for_scanner(jsc, N)
     assert (tm is None) == (jm is None)
-    corr, fp1 = tsc._routes(make_plan(tsc, N))
-    routes = {corr, fp1} - {None}
+    plan_routes = make_plan(tsc, N).routes
+    routes = {plan_routes.corr, plan_routes.fp1} - {None}
     assert (tm.int_instr > 0) == (jm.vpu_ops > 0)
     assert (tm.tc_flops > 0) == ("conv" in routes)
     assert (jm.mxu_flops > 0) == bool(routes)
@@ -180,7 +180,7 @@ def test_model_for_scanner_leaves_out_apms_fused_piece_defect():
         jroof.model_for_scanner(jsc, N)
     for corr_impl in ("auto", "fused"):
         tsc = apm_torch.Scanner(pats, 1, ApmConfig(device="cpu", corr_impl=corr_impl))
-        assert tsc._routes(make_plan(tsc, N))[1] == "conv"
+        assert make_plan(tsc, N).routes.fp1 == "conv"
         assert roof.model_for_scanner(tsc, N) == roof.corr_model(4, 40, 4)
 
 

@@ -77,7 +77,7 @@ def test_scanner_corr_route_at_k0():
     tsc = _three_way(c, pats, 0)
     plan = make_plan(tsc, len(c))
     assert plan.use_corr
-    assert tsc._routes(plan) == ("fused", None)
+    assert (plan.routes.corr, plan.routes.fp1) == ("fused", None)
 
 
 def test_scanner_long_patterns_k0_route_to_conv():
@@ -90,7 +90,7 @@ def test_scanner_long_patterns_k0_route_to_conv():
     tsc = _three_way(c, pats, 0)
     plan = make_plan(tsc, len(c))
     assert plan.use_corr
-    assert tsc._routes(plan) == ("conv", None)
+    assert (plan.routes.corr, plan.routes.fp1) == ("conv", None)
 
 
 @pytest.mark.parametrize("k", [0, 1])
@@ -106,7 +106,8 @@ def test_scanner_corr_impl_three_way(corr_impl, k):
     plant(c, np.frombuffer(p50, np.uint8), [2000, 19_000, 30_001], k=k, seed=503)
     plant(c, np.frombuffer(p32, np.uint8), [9000], k=0)
     tsc = _three_way(c, [p32, p50], k, corr_impl=corr_impl)
-    corr, fp1 = tsc._routes(make_plan(tsc, len(c)))
+    routes = make_plan(tsc, len(c)).routes
+    corr, fp1 = routes.corr, routes.fp1
     if k == 0:
         assert (corr, fp1) == ("conv" if corr_impl == "conv" else "fused", None)
     else:
@@ -253,3 +254,60 @@ def test_scanner_spans_name_each_phase(k, engine, names):
     assert sc.count(c).tolist() == off
     assert set(sc.meter.last_spans) == names - {"#cache hit"}
     assert all(ms >= 0 for ms in sc.meter.last_spans.values())
+
+
+@pytest.mark.parametrize(
+    "k,lengths,block_windows",
+    [(0, [12, 50], None), (1, [50, 50], 1024), (3, [32, 50], None), (5, [9, 60], 3072)],
+)
+def test_count_count_batch_and_find_stage_one_layout(monkeypatch, k, lengths, block_windows):
+    """``count``, ``count_batch`` and ``find`` of one corpus stage rows of
+    the same ``(wf, halo)``, the plan's, and count as the oracle does."""
+    from apm_torch.models import scanner as scanner_mod
+    from apm_torch.models.pipeline import make_plan
+
+    layouts = []
+    fold = scanner_mod.fold_corpus
+
+    def spy(buf, c0, n_rows, wf, halo, out):
+        layouts.append((wf, halo))
+        return fold(buf, c0, n_rows, wf, halo, out=out)
+
+    monkeypatch.setattr(scanner_mod, "fold_corpus", spy)
+    c = _corpus(20_000, 700 + k, b"ACGT")
+    pats = [bytes(c[1000 + 3000 * i : 1000 + 3000 * i + m]) for i, m in enumerate(lengths)]
+    sc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", cache_corpus=False,
+                                              block_windows=block_windows))
+    plan = make_plan(sc, len(c))
+    want = count_matches(c, pats, k)
+    got = {}
+    for name, call in (("count", sc.count), ("count_batch", lambda c: sc.count_batch([c])[0]),
+                       ("find", lambda c: [len(p) for p in sc.find(c)])):
+        layouts.clear()
+        assert list(call(c)) == want, name
+        got[name] = set(layouts)
+    assert got == dict.fromkeys(got, {(plan.wf, plan.halo)}), got
+
+
+@pytest.mark.parametrize("block_windows", [None, 128, 384, 1024, 1152, 8192])
+def test_every_plan_stages_lane_aligned_rows(block_windows):
+    """Every plan stages rows of a multiple of 128 windows with a 128-aligned
+    halo of at least 128 bytes (and at least ``m_max + 2k``). So ``apm``'s
+    staging checks of its fused kernels hold for every plan, and the routes,
+    which read no layout, gate on m_max alone as ``apm`` gates on the
+    plan's staging."""
+    from apm.ops.corr_fused import fused_eligible as apm_fused_eligible
+
+    from apm_torch.models.pipeline import make_plan, staging
+    from apm_torch.ops.corr_fused import fused_eligible
+
+    for k, lengths in ((0, [1]), (0, [97]), (0, [98, 3]), (1, [8, 65]), (3, [32, 50]),
+                       (12, [120]), (40, [200])):
+        pats = [bytes(_corpus(m, 710 + m, b"ACGT")) for m in lengths]
+        sc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=block_windows))
+        for n in (1, 700, 70_000, 1 << 22, 1 << 28):
+            plan = make_plan(sc, n)
+            assert (plan.w, plan.wf, plan.halo) == staging(sc, n)
+            assert plan.w == 8 * plan.wf and plan.wf % 128 == 0, (k, lengths, n)
+            assert plan.halo % 128 == 0 and plan.halo >= max(128, sc.m_max + 2 * k)
+            assert fused_eligible(sc.m_max) == apm_fused_eligible(sc.m_max, plan.wf, plan.halo)
