@@ -227,6 +227,25 @@ int32_t apmio_banded_count(const uint8_t* text, int64_t text_len,
     return 0;
 }
 
+// apmio_banded_count for a whole pattern set over one text, in one call
+// (one thread): pattern i is pats[offsets[i], offsets[i + 1]), its count
+// goes to out[i]. The EOF tail of a scan (Scanner.suffix_counts) runs here
+// on a host worker while the card scans: one call, so the worker takes the
+// GIL once to enter and once to return, not once per pattern.
+int32_t apmio_banded_count_set(const uint8_t* text, int64_t text_len,
+                               const uint8_t* pats, const int64_t* offsets,
+                               int64_t n_pats, int64_t k, int64_t n_windows,
+                               int64_t truncate_at, int64_t* out) {
+    if (n_pats < 0) return -1;
+    for (int64_t i = 0; i < n_pats; ++i) {
+        const int32_t rc = apmio_banded_count(text, text_len, pats + offsets[i],
+                                              offsets[i + 1] - offsets[i], k,
+                                              n_windows, truncate_at, out + i);
+        if (rc != 0) return rc;
+    }
+    return 0;
+}
+
 // 64-bit content hash (MurmurHash64A mixing) for the device-corpus cache
 // key. A *full* read of the buffer, so any in-place mutation changes the
 // key (a sampled fingerprint could miss localized edits).

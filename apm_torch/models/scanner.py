@@ -30,6 +30,7 @@ import itertools
 import threading
 import time
 import weakref
+from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass
 from functools import partial
 from typing import Callable, Dict, List, NamedTuple, Optional, Sequence
@@ -38,7 +39,7 @@ import numpy as np
 import torch
 
 from ..ops.common import fold_corpus, round_up
-from ..utils import profiling
+from ..utils import native, profiling
 from ..utils.config import ApmConfig
 from ..utils.io import PatternSet
 from ..utils.oracle import Bytes, as_u8
@@ -47,6 +48,27 @@ from .pipeline import ScanPlan
 
 # An argument left out (``_count_device``'s ``fp``): None is a valid key.
 _UNSET = object()
+
+# The host worker that counts a scan's EOF tail while the card runs the
+# scan's chunks (``Scanner._count_device``): one thread, made at first use
+# and shared by every Scanner, its sub-scanners and its prewarm thread. A
+# tail task waits on nothing, so one queued behind another cannot deadlock.
+_TAIL_WORKER: Optional[ThreadPoolExecutor] = None
+_TAIL_WORKER_LOCK = threading.Lock()
+# Band cells (window bytes x (2k + 1), summed) of a tail below which it is
+# counted in line, after the device work: handing a tail to the worker cost
+# a host-bound call 1.1-1.5 ms on an H100's host, a no-op task as much as a
+# real one, while the host's DP takes about 3 ns a cell. So a tail of under
+# about half a million cells costs more to hand off than to count.
+TAIL_WORKER_CELLS = 1 << 19
+
+
+def _tail_worker() -> ThreadPoolExecutor:
+    global _TAIL_WORKER
+    with _TAIL_WORKER_LOCK:
+        if _TAIL_WORKER is None:
+            _TAIL_WORKER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="apm-tail")
+        return _TAIL_WORKER
 
 
 @dataclass(frozen=True)
@@ -128,6 +150,9 @@ class Scanner:
             uniq = raw
             self._inverse = np.arange(len(raw), dtype=np.int64)
         self.scan_patterns = PatternSet.from_patterns(uniq)
+        # the scan patterns back to back, as the EOF tail's one native call
+        # takes them (suffix_counts)
+        self._tail_set = native.pattern_set(self.scan_patterns.raw)
 
         from ..ops.corr_engine import build_alphabet
 
@@ -542,16 +567,10 @@ class Scanner:
     def suffix_counts(self, suffix: np.ndarray) -> np.ndarray:
         """Per scan pattern, the windows of a corpus's suffix, EOF truncation
         at the suffix's end (the part of :meth:`tail_counts` that reads no
-        more than the suffix: ``count_multihost`` reads it from the file)."""
-        from ..utils import native
-
-        out = np.zeros((self.scan_patterns.num_patterns,), dtype=np.int64)
+        more than the suffix: ``count_multihost`` reads it from the file).
+        Every pattern in one native call (``native.banded_count_set``)."""
         nw = max(0, len(suffix) - self.k)
-        for i, raw in enumerate(self.scan_patterns.raw):
-            out[i] = native.banded_count(
-                suffix, np.frombuffer(raw, np.uint8), self.k, nw, len(suffix)
-            )
-        return out
+        return native.banded_count_set(suffix, *self._tail_set, self.k, nw, len(suffix))
 
     def block_windows_for(self, n: int) -> int:
         """Kernel block width: explicit config or the planner's choice."""
@@ -696,8 +715,6 @@ class Scanner:
         """``(length, 64-bit hash of every byte)``: the native parallel
         MurmurHash64A pass (:func:`apm_torch.utils.native.hash_bytes`), so
         any change of content, a single byte included, changes the key."""
-        from ..utils import native
-
         return (len(buf), native.hash_bytes(buf))
 
     def _cache_byte_budget(self) -> int:
@@ -875,12 +892,15 @@ class Scanner:
         piece scan or the piece conv (``plan.routes.fp1``) or kernel D, then
         phase 2 on the device). All per-chunk vectors come
         back in one fetch; then the filtration decision tree
-        (:func:`apm_torch.models.pipeline.finalize_filtration`) and the EOF
-        tail run on the host. The fetch also brings each chunk's full and
-        clipped hot rows per pattern, by which a dense set rescans only its dense
-        patterns and verifies the rest on their hot rows ("split-rescan").
-        The density rescan reads the rows the first pass staged: no chunk
-        is staged twice in one call.
+        (:func:`apm_torch.models.pipeline.finalize_filtration`) runs on the
+        host. A large EOF tail is handed to the host worker right after the
+        plan (:meth:`_submit_tail`), so the host counts it while the card
+        scans, and is joined last; a small one is counted in line there.
+        The fetch also brings each chunk's full and clipped hot rows per
+        pattern, by which a dense set rescans only its dense patterns and
+        verifies the rest on their hot rows ("split-rescan"). The density
+        rescan reads the rows the first pass staged: no chunk is staged
+        twice in one call.
 
         ``spans`` (the call's :class:`Spans`, from :meth:`count`) records
         host ``plan`` (the plan and the shared set-up), ``fingerprint``,
@@ -888,12 +908,15 @@ class Scanner:
         around each chunk's enqueue, holding the device ``corr``, ``dp``,
         ``phase 1`` and ``phase 2``, host ``fetch``, ``finalize`` (which
         holds the device ``count_hot_batch`` and the ``rescan dp``) and
-        ``EOF tail``, and host ``wait`` around each blocking read of device
-        results. Its counters: ``cache hit`` and ``cache miss`` per chunk
-        looked up, ``windows`` (each chunk's owned windows), ``rescan
-        patterns`` (the patterns handed to the rescan, once a call),
-        ``rescan windows`` and ``rescan cells`` (window x pattern pairs of
-        those patterns and their pattern bytes, per ``rescan dp`` launch),
+        ``EOF tail`` (the join of the worker's tail, what of it the device
+        work did not hide, or the tail counted in line), and host ``wait``
+        around each blocking read of device results. Its counters: ``tail
+        windows`` (scan patterns x truncated windows handed to the worker),
+        ``cache hit`` and ``cache miss`` per chunk looked up, ``windows``
+        (each chunk's owned windows), ``rescan patterns`` (the patterns
+        handed to the rescan, once a call), ``rescan windows`` and
+        ``rescan cells`` (window x pattern pairs of those patterns and
+        their pattern bytes, per ``rescan dp`` launch),
         ``verify windows`` and ``verify cells`` (the same of the overflow
         recovery: every filtration pattern over a chunk's full hot rows,
         per chunk handed to ``count_hot_batch``), ``piece windows`` and
@@ -901,21 +924,60 @@ class Scanner:
         :func:`~apm_torch.models.pipeline.finalize_filtration`, ``hot
         windows`` and ``candidates <slot>``.
         """
-        from ..ops import fused
-        from .pipeline import FilterChunk, buf_reader, finalize_filtration, make_plan
+        from .pipeline import make_plan
 
         with spans.host("plan"):
             plan = make_plan(self, n)
-        wf, dev_bound = plan.wf, plan.dev_bound
         self.last_filtration = None
-        p_pad = self._pat.shape[0]
-        counts = np.zeros((p_pad,), dtype=np.int64)
         n_scan = self.scan_patterns.num_patterns
-        if dev_bound <= 0:
+        if plan.dev_bound <= 0:  # no device work to hide the tail behind
+            counts = np.zeros((self._pat.shape[0],), dtype=np.int64)
             with spans.host("EOF tail"):
-                counts[:n_scan] += self.tail_counts(buf, dev_bound)
+                counts[:n_scan] += self.tail_counts(buf, plan.dev_bound)
             return counts
 
+        tail = self._submit_tail(buf, plan.dev_bound, spans)
+        try:
+            counts = self._count_chunks(buf, n, plan, fp, spans)
+        except BaseException:
+            if tail is not None and not tail.cancel():
+                # the worker reads buf: it is done with it before the call
+                # returns, and the call's own error is the one raised
+                tail.exception()
+            raise
+        with spans.host("EOF tail"):
+            if tail is None:
+                counts[:n_scan] += self.tail_counts(buf, plan.dev_bound)
+            else:
+                counts[:n_scan] += tail.result()
+        return counts
+
+    def _submit_tail(self, buf: np.ndarray, dev_bound: int, spans=OFF) -> Optional[Future]:
+        """The EOF tail's counts (:meth:`tail_counts`) as a future of the
+        host worker, counted beside the call's device work; None, for the
+        caller to count the tail in line, where the plan leaves no
+        truncated window (``dev_bound >= n - k``) or its band cells are
+        fewer than :data:`TAIL_WORKER_CELLS`."""
+        n_tail = len(buf) - self.k - dev_bound
+        if n_tail <= 0:
+            return None
+        # window j in [dev_bound, n - k) reads min(m, n - j) bytes
+        sizes = np.arange(self.k + 1, self.k + 1 + n_tail)
+        plens = np.array([len(p) for p in self.scan_patterns.raw])
+        if (2 * self.k + 1) * int(np.minimum.outer(plens, sizes).sum()) < TAIL_WORKER_CELLS:
+            return None
+        spans.count("tail windows", len(plens) * n_tail)
+        return _tail_worker().submit(self.tail_counts, buf, dev_bound)
+
+    def _count_chunks(self, buf: np.ndarray, n: int, plan: ScanPlan, fp, spans) -> np.ndarray:
+        """:meth:`_count_device`'s device scan of ``plan`` (``dev_bound >
+        0``), EOF tail excluded: ``(p_pad,)`` int64 counts."""
+        from ..ops import fused
+        from .pipeline import FilterChunk, buf_reader, finalize_filtration
+
+        wf, dev_bound = plan.wf, plan.dev_bound
+        p_pad = self._pat.shape[0]
+        counts = np.zeros((p_pad,), dtype=np.int64)
         with spans.host("plan"):
             st = self._count_setup(plan)
         if fp is _UNSET:
@@ -1008,8 +1070,6 @@ class Scanner:
                     spans=spans, rescan_some=rescan_some, **self._host_verify(plan),
                 )
                 counts += got
-        with spans.host("EOF tail"):
-            counts[:n_scan] += self.tail_counts(buf, dev_bound)
         return counts
 
     def _host_verify(self, plan) -> dict:

@@ -293,6 +293,9 @@ def host_library() -> ctypes.CDLL:
     # text, text_len, pat, m, k, n_windows, truncate_at, out_count
     lib.apmio_banded_count.argtypes = [p, i64, p, i64, i64, i64, i64, p]
     lib.apmio_banded_count.restype = i32
+    # text, text_len, pats, offsets, n_pats, k, n_windows, truncate_at, out
+    lib.apmio_banded_count_set.argtypes = [p, i64, p, p, i64, i64, i64, i64, p]
+    lib.apmio_banded_count_set.restype = i32
     lib.apmio_hash.argtypes = [p, i64]
     lib.apmio_hash.restype = ctypes.c_uint64
     lib.apmio_hash_par.argtypes = [p, i64, i32]  # buf, n, threads

@@ -13,7 +13,7 @@ from __future__ import annotations
 import ctypes
 import errno
 import os
-from typing import Optional
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -137,6 +137,48 @@ def banded_count(
     if rc != 0:
         raise ValueError(f"apmio_banded_count failed ({rc})")
     return int(count.value)
+
+
+def pattern_set(patterns: Sequence[bytes]) -> Tuple[np.ndarray, np.ndarray]:
+    """``patterns`` as :func:`banded_count_set` takes them: their bytes
+    back to back (uint8) and ``len(patterns) + 1`` int64 offsets."""
+    offsets = np.zeros((len(patterns) + 1,), dtype=np.int64)
+    np.cumsum([len(p) for p in patterns], out=offsets[1:])
+    return np.frombuffer(b"".join(patterns), np.uint8), offsets
+
+
+def banded_count_set(
+    text: np.ndarray, pats: np.ndarray, offsets: np.ndarray, k: int, n_windows: int,
+    truncate_at: int = -1,
+) -> np.ndarray:
+    """:func:`banded_count` of every pattern of a set, in one native call
+    (``apmio_banded_count_set``): pattern ``i`` is ``pats[offsets[i] :
+    offsets[i + 1]]`` (:func:`pattern_set`). Returns ``(len(offsets) - 1,)``
+    int64 counts."""
+    text = np.ascontiguousarray(_u8_1d(text, "text"))
+    pats = np.ascontiguousarray(_u8_1d(pats, "pats"))
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    if (
+        offsets.ndim != 1 or len(offsets) == 0 or offsets[0] != 0
+        or offsets[-1] != len(pats) or (np.diff(offsets) <= 0).any()
+    ):
+        raise ValueError(
+            f"banded_count_set needs offsets from 0 to len(pats) = {len(pats)}, each "
+            f"pattern non-empty; got {offsets.tolist()}"
+        )
+    if k < 0 or n_windows < 0:
+        raise ValueError(
+            f"banded_count_set needs k >= 0, n_windows >= 0; got k = {k}, "
+            f"n_windows = {n_windows}"
+        )
+    out = np.zeros((len(offsets) - 1,), dtype=np.int64)
+    rc = _lib().apmio_banded_count_set(
+        text.ctypes.data, len(text), pats.ctypes.data, offsets.ctypes.data,
+        len(out), k, n_windows, truncate_at, out.ctypes.data,
+    )
+    if rc != 0:
+        raise ValueError(f"apmio_banded_count_set failed ({rc})")
+    return out
 
 
 def hash_bytes(buf: np.ndarray) -> int:

@@ -355,6 +355,51 @@ def test_scanner_filtration_on_card_matches_oracle(dev, k):
     assert filter_kernel.LAUNCHES > before[0] and dp_kernel.MYERS_LAUNCHES > before[1]
 
 
+def test_scanner_capture_tail_on_the_worker_matches_reference_and_plain(dev, monkeypatch):
+    """The capture panel's shape: 16 probes of 120 bytes at k = 12 over a
+    1 MB line, near copies planted in the text, and the first eight probes
+    beginning with its last 119 - 7 i bytes, so the EOF-truncated windows
+    count. The tail runs on the host worker while kernel D's banded tier
+    runs on the card; the counts equal ``benchmark/reference_long.py``'s and
+    the plain versions' (``backend="torch"`` on the card)."""
+    import threading
+
+    import apm_torch
+    from apm_torch import ApmConfig
+    from apm_torch.ops import filter_kernel
+    from apm_torch.utils import native
+    from apm_torch.utils.corpus import plant
+    from benchmark import reference_long
+
+    k, n = 12, 1 << 20
+    c = _corpus(n, 140)
+    probes = [c[n - 119 + 7 * i :].tobytes() + _corpus(1 + 7 * i, 150 + i).tobytes()
+              for i in range(8)] + [bytes(_corpus(120, 160 + i)) for i in range(8)]
+    for i, p in enumerate(probes):
+        plant(c, np.frombuffer(p, np.uint8), range(500 + 4001 * i, n - 2000, 250_007),
+              k=4, seed=i)
+    real, threads = native.banded_count_set, []
+
+    def spy(*a, **kw):
+        threads.append(threading.get_ident())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(native, "banded_count_set", spy)
+    before = filter_kernel.LAUNCHES
+    sc = apm_torch.Scanner(probes, k)
+    sc.meter.trace = True
+    got = sc.count(c)
+    assert filter_kernel.LAUNCHES > before
+    assert len(threads) == 1 and threads[0] != threading.get_ident()
+    assert sc.meter.last_spans["#tail windows"] == len(probes) * (119 - k)
+    want = reference_long.count_many([c], probes, k, dev)[0]
+    assert got.tolist() == want.tolist()
+    no_eof = reference_long.count_many([c], probes, k, dev, eof=False)[0]
+    assert (want[:8] > no_eof[:8]).all()  # the truncated windows count
+    plain = apm_torch.Scanner(probes, k, ApmConfig(backend="torch"))
+    assert plain.count(c).tolist() == got.tolist()
+
+
 @pytest.mark.parametrize("chunk_bytes", [None, 1 << 20])
 def test_scanner_split_rescan_on_card_matches_plain(dev, chunk_bytes):
     """A 4 MB text at k = 3 with a 32-mer whose 8-byte pieces make most rows

@@ -147,6 +147,110 @@ def test_banded_count_eof_suffix_as_tail_counts_calls_it():
         native.banded_count(c, pat, -1, 10)
 
 
+def _set_counts_each(text, pats, k, nw, truncate_at):
+    """banded_count_set's counts, pattern by pattern through banded_count."""
+    return [native.banded_count(text, np.frombuffer(p, np.uint8), k, nw, truncate_at)
+            for p in pats]
+
+
+@pytest.mark.parametrize("eof", [True, False])
+@pytest.mark.parametrize("k", [0, 1, 3, 12])
+def test_banded_count_set_equals_each_pattern_and_the_oracle(k, eof):
+    """One native call over a set of mixed lengths (near copies planted in
+    the text and at its end) gives each pattern's banded_count and the
+    oracle's count, with EOF truncation (every window of the text, as
+    tail_counts asks) and without (the windows every pattern fits)."""
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(3000, 40 + k, b"ACGT")
+    pats = [bytes(c[100:105]), bytes(c[700:713]), bytes(c[1200:1250]), b"ACGTTGCA" * 8,
+            bytes(c[2000:2120]), bytes(c[-37:]) + b"TTTT"]
+    for i, p in enumerate(pats[:5]):
+        plant(c, np.frombuffer(p, np.uint8), [1500 + 211 * i], k=min(k, 2), seed=i)
+    flat, offsets = native.pattern_set(pats)
+    assert offsets.tolist() == [0, 5, 18, 68, 132, 252, 293]
+    m_max = max(len(p) for p in pats)
+    nw, trunc = (len(c) - k, len(c)) if eof else (len(c) - m_max + 1, -1)
+    got = native.banded_count_set(c, flat, offsets, k, nw, trunc)
+    assert got.dtype == np.int64 and got.shape == (len(pats),)
+    want = [int((banded_distances(c, p, k)[:nw] <= k).sum()) for p in pats]
+    assert got.tolist() == _set_counts_each(c, pats, k, nw, trunc) == want
+    assert (got[:5] > 0).all()
+    if eof:
+        assert got[5] > 0  # the last pattern's prefix ends the text
+
+
+@pytest.mark.parametrize("k", [0, 1, 3, 12])
+def test_banded_count_set_on_short_and_empty_suffixes(k):
+    """A suffix shorter than every pattern, an empty suffix, one pattern,
+    and the capture panel's tail: 64 probes of 120 bytes over the last 119
+    bytes of a text (107 windows at k = 12), prefixes of a third of them
+    written over its end."""
+    c = _corpus(4000, 60 + k, b"ACGT")
+    probes = [bytes(_corpus(120, 70 + i, b"ACGT")) for i in range(64)]
+    for i in range(0, 64, 3):  # probe i's prefix ends the text
+        cut = 119 - 2 * (i % 50)
+        c[len(c) - cut :] = np.frombuffer(probes[i][:cut], np.uint8)
+    for text, pats in (
+        (c[-40:], probes[:4] + [b"ACGTACGTACGTACGTACGTACGTACGTACGTACGTACGTACGTACGT"]),
+        (c[:0], probes[:3]),
+        (c[-300:], probes[5:6]),
+        (c[-119:], probes),
+    ):
+        flat, offsets = native.pattern_set(pats)
+        nw = max(0, len(text) - k)
+        got = native.banded_count_set(text, flat, offsets, k, nw, len(text))
+        want = [int((banded_distances(text, p, k) <= k).sum()) for p in pats]
+        assert got.tolist() == _set_counts_each(text, pats, k, nw, len(text)) == want
+    assert want[63] > 0  # the last probe written ends the text: counted there
+
+
+def test_banded_count_set_checks_its_arguments():
+    c = _corpus(500, 3, b"ACGT")
+    flat, offsets = native.pattern_set([b"ACGT", b"GGTTA"])
+    assert native.banded_count_set(c, flat, offsets, 1, 400).shape == (2,)
+    empty, none = native.pattern_set([])
+    assert native.banded_count_set(c, empty, none, 1, 400).shape == (0,)
+    for bad in ([1, 4, 9], [0, 4, 8], [0, 4, 4, 9], [0, 5, 4, 9], [[0, 4, 9]], []):
+        with pytest.raises(ValueError, match="offsets"):
+            native.banded_count_set(c, flat, np.asarray(bad, np.int64), 1, 400)
+    with pytest.raises(ValueError, match="k >= 0"):
+        native.banded_count_set(c, flat, offsets, -1, 400)
+    with pytest.raises(ValueError, match="n_windows >= 0"):
+        native.banded_count_set(c, flat, offsets, 1, -1)
+    with pytest.raises(ValueError, match="uint8"):
+        native.banded_count_set(c.astype(np.int32), flat, offsets, 1, 400)
+    with pytest.raises(ValueError, match="uint8"):
+        native.banded_count_set(c, flat.astype(np.int16), offsets, 1, 400)
+
+
+def test_banded_count_set_from_two_threads_at_once():
+    """Two threads in the native call at once (it holds no shared state)
+    give what one thread alone gives."""
+    import threading
+
+    c = _corpus(20_000, 5, b"ACGT")
+    pats = [bytes(c[i : i + 120]) for i in range(19_000, 19_880, 55)]
+    flat, offsets = native.pattern_set(pats)
+    want = native.banded_count_set(c[-2000:], flat, offsets, 12, 1988, 2000)
+    assert (want > 0).all()
+    start = threading.Barrier(2)
+    got = [None, None]
+
+    def run(i):
+        start.wait(timeout=60)
+        got[i] = [native.banded_count_set(c[-2000:], flat, offsets, 12, 1988, 2000).tolist()
+                  for _ in range(3)]
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    assert not any(t.is_alive() for t in threads)
+    assert got == [[want.tolist()] * 3] * 2
+
+
 @pytest.mark.parametrize(
     "n", [0, 7, 8, 1000, (8 << 20) - 1, (8 << 20) + 13, (20 << 20) + 5]
 )

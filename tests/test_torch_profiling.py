@@ -250,6 +250,40 @@ def test_short_corpus_leaves_no_stale_spans():
     assert set(sc.meter.last_spans) == {"call", "plan", "EOF tail"}
 
 
+@pytest.mark.parametrize("k", [1, 3])
+def test_tail_windows_count_the_work_handed_to_the_worker(monkeypatch, k):
+    """Traced, ``#tail windows`` is the scan patterns (a duplicate scanned
+    once) x the EOF-truncated windows ``[dev_bound, n - k)`` handed to the
+    host worker; untraced, for a tail counted in line (under
+    ``TAIL_WORKER_CELLS`` band cells, or with no device window), or with no
+    truncated window, it is absent and ``EOF tail`` is the whole tail."""
+    from apm_torch.models import scanner as scanner_mod
+
+    c, pats = _sparse()
+    pats = pats + [pats[0], b"ACGTACGTAC"]
+    sc = apm_torch.Scanner(pats, k, ApmConfig(**CPU))
+    want = count_matches(c, pats, k)
+    assert sc.count(c).tolist() == want
+    assert sc.meter.last_spans == {}
+    sc.meter.trace = True
+    assert sc.count(c).tolist() == want  # 3 x (49 - k) windows: in line
+    assert "EOF tail" in sc.meter.last_spans and "#tail windows" not in sc.meter.last_spans
+    monkeypatch.setattr(scanner_mod, "TAIL_WORKER_CELLS", 1)
+    assert sc.count(c).tolist() == want
+    dev_bound = sc.device_window_bound(len(c))
+    assert dev_bound == len(c) - 50 + 1
+    assert sc.meter.last_spans["#tail windows"] == 3 * (len(c) - k - dev_bound) == 3 * (49 - k)
+    assert sc.count(c[:40]).tolist() == count_matches(c[:40], pats, k)
+    assert "#tail windows" not in sc.meter.last_spans
+    # patterns of at most k + 1 bytes: the device owns every window
+    short = [b"ACGT"[: k + 1], b"TTGA"[: k]]
+    sc = apm_torch.Scanner(short, k, ApmConfig(**CPU))
+    sc.meter.trace = True
+    assert sc.device_window_bound(len(c)) == len(c) - k
+    assert sc.count(c).tolist() == count_matches(c, short, k)
+    assert "EOF tail" in sc.meter.last_spans and "#tail windows" not in sc.meter.last_spans
+
+
 def test_verbose_prints_the_scan_line(capsys):
     c, pats = _sparse()
     apm_torch.Scanner(pats, 1, ApmConfig(verbose=True, **CPU)).count(c)

@@ -256,6 +256,134 @@ def test_scanner_spans_name_each_phase(k, engine, names):
     assert all(ms >= 0 for ms in sc.meter.last_spans.values())
 
 
+def _tail_corpus(n, k, lengths, seed):
+    """``n`` bytes and patterns of ``lengths`` whose prefixes end the text:
+    pattern ``i`` begins with the text's last ``m_min - 1 - 3 i`` bytes, so
+    the EOF-truncated window there matches it exactly (a window of more
+    than ``k`` bytes, past every device-owned start)."""
+    c = _corpus(n, seed, b"ACGT")
+    tail = c[n - min(lengths) + 1 :]
+    pats = [tail[3 * i :].tobytes() + _corpus(m - len(tail) + 3 * i, seed + 1 + i, b"ACGT").tobytes()
+            for i, m in enumerate(lengths)]
+    assert [len(p) for p in pats] == lengths
+    return c, pats
+
+
+@pytest.mark.parametrize(
+    "k,lengths,n,cells,worker",
+    [(0, [12, 50], 30_000, None, False), (1, [32, 50, 50], 30_000, None, False),
+     (3, [32, 50], 30_000, None, False), (3, [32, 50], 30_000, 1, True),
+     (12, [120] * 8, 12_000, None, True), (2, [40, 60], 50, 1, False)],
+)
+def test_count_counts_the_tail_on_the_host_worker(monkeypatch, k, lengths, n, cells, worker):
+    """Planted matches in the EOF-truncated windows are counted as the
+    oracle counts them: on the host worker where the device owns windows
+    and the tail holds ``TAIL_WORKER_CELLS`` band cells or more (eight
+    120-byte probes at k = 12: 1.4 M; any tail with the bar lowered to 1);
+    on the calling thread for a smaller tail (the chrom256 sets' 50-170 K)
+    and where the device owns no window (a text shorter than ``m_max``)."""
+    import threading
+
+    from apm_torch.models import scanner as scanner_mod
+    from apm_torch.utils import native
+
+    if cells is not None:
+        monkeypatch.setattr(scanner_mod, "TAIL_WORKER_CELLS", cells)
+    c, pats = _tail_corpus(n, k, lengths, 940 + k)
+    sc = apm_torch.Scanner(pats, k, ApmConfig(device="cpu", block_windows=1024))
+    real, threads = native.banded_count_set, []
+
+    def spy(*a, **kw):
+        threads.append(threading.get_ident())
+        return real(*a, **kw)
+
+    monkeypatch.setattr(native, "banded_count_set", spy)
+    want = count_matches(c, pats, k)
+    assert sc.count(c).tolist() == want
+    assert all(w > 0 for w in want)
+    assert (sc.device_window_bound(n) > 0) == (n > max(lengths))
+    assert len(threads) == 1 and (threads[0] != threading.get_ident()) == worker
+
+
+def test_a_failing_tail_fails_the_call_and_the_next_call_counts(monkeypatch):
+    """A tail that raises on the worker raises from ``count``; a call that
+    raises before the join raises its own error, with the tail cancelled
+    or finished, never left running; the Scanner's next call counts."""
+    import time
+
+    from apm_torch.models.scanner import Scanner
+    from apm_torch.utils import native
+
+    from apm_torch.models import scanner as scanner_mod
+
+    c, pats = _tail_corpus(30_000, 1, [32, 50], 960)
+    sc = apm_torch.Scanner(pats, 1, ApmConfig(device="cpu", block_windows=1024))
+    want = count_matches(c, pats, 1)
+    real, state = native.banded_count_set, []
+    monkeypatch.setattr(scanner_mod, "TAIL_WORKER_CELLS", 1)  # this small tail too
+
+    def boom(*a, **kw):
+        raise OSError("the tail failed")
+
+    def slow(*a, **kw):
+        state.append("start")
+        time.sleep(0.2)
+        out = real(*a, **kw)
+        state.append("end")
+        return out
+
+    def bad_launch(self, *a, **kw):
+        raise RuntimeError("the launch failed")
+
+    monkeypatch.setattr(native, "banded_count_set", boom)
+    with pytest.raises(OSError, match="the tail failed"):
+        sc.count(c)
+    monkeypatch.setattr(Scanner, "_launch_chunk", bad_launch)
+    with pytest.raises(RuntimeError, match="the launch failed"):
+        sc.count(c)
+    monkeypatch.setattr(native, "banded_count_set", slow)
+    with pytest.raises(RuntimeError, match="the launch failed"):
+        sc.count(c)
+    at_raise = list(state)
+    time.sleep(0.5)  # a tail left running would start or end meanwhile
+    assert state == at_raise and at_raise in ([], ["start", "end"])
+    monkeypatch.undo()
+    monkeypatch.setattr(scanner_mod, "TAIL_WORKER_CELLS", 1)
+    assert sc.count(c).tolist() == want
+
+
+@pytest.mark.parametrize("chunk_bytes", [256 << 20, 8 << 10])  # one chunk, several
+def test_the_tail_is_submitted_before_the_first_launch(monkeypatch, chunk_bytes):
+    """The worker starts the tail before the first chunk's launch: the
+    launch waits for the tail's start, which the old order (the tail after
+    ``finalize``) would never give it."""
+    import threading
+
+    from apm_torch.models import scanner as scanner_mod
+    from apm_torch.models.scanner import Scanner
+    from apm_torch.utils import native
+
+    monkeypatch.setattr(scanner_mod, "TAIL_WORKER_CELLS", 1)  # this small tail too
+    c, pats = _tail_corpus(30_000, 3, [32, 50], 970)
+    sc = apm_torch.Scanner(pats, 3, ApmConfig(device="cpu", block_windows=1024,
+                                              chunk_bytes=chunk_bytes))
+    started, waited = threading.Event(), []
+    real_tail, real_launch = native.banded_count_set, Scanner._launch_chunk
+
+    def tail(*a, **kw):
+        started.set()
+        return real_tail(*a, **kw)
+
+    def launch(self, *a, **kw):
+        waited.append(started.wait(timeout=60))
+        return real_launch(self, *a, **kw)
+
+    monkeypatch.setattr(native, "banded_count_set", tail)
+    monkeypatch.setattr(Scanner, "_launch_chunk", launch)
+    assert sc.count(c).tolist() == count_matches(c, pats, 3)
+    assert waited == [True] * (1 if chunk_bytes > len(c) else 4)
+
+
 @pytest.mark.parametrize(
     "k,lengths,block_windows",
     [(0, [12, 50], None), (1, [50, 50], 1024), (3, [32, 50], None), (5, [9, 60], 3072)],
