@@ -489,9 +489,10 @@ class Scanner:
         """Device copies of the tables (made once each)."""
         t = self._dev_tables
         if "pat" not in t:
-            t["pat"] = torch.from_numpy(self._pat).to(self.device)
+            # "pat" last: a prewarm thread that finds it finds the others
             t["pat_raw"] = torch.from_numpy(self._pat_raw).to(self.device)
             t["alph"] = torch.from_numpy(self._alph).to(self.device)
+            t["pat"] = torch.from_numpy(self._pat).to(self.device)
         if fused_needed and "fused" not in t:
             from ..ops.corr_fused import FusedTables, pick_s
 
@@ -913,7 +914,8 @@ class Scanner:
         around each blocking read of device results. Its counters: ``tail
         windows`` (scan patterns x truncated windows handed to the worker),
         ``cache hit`` and ``cache miss`` per chunk looked up, ``windows``
-        (each chunk's owned windows), ``rescan patterns`` (the patterns
+        (each chunk's owned windows), ``chunks`` (the chunks launched, which
+        put a call's times per chunk), ``rescan patterns`` (the patterns
         handed to the rescan, once a call), ``rescan windows`` and
         ``rescan cells`` (window x pattern pairs of those patterns and
         their pattern bytes, per ``rescan dp`` launch),
@@ -990,6 +992,7 @@ class Scanner:
             with spans.host("launch"):
                 got, fl = self._launch_chunk(st, drows, c0, spans)
             spans.count("windows", min(st.chunk_win, dev_bound - c0))
+            spans.count("chunks", 1)
             handles += got
             if fl is not None:
                 launched.append(fl)
@@ -1384,7 +1387,10 @@ class Scanner:
                     for slot, (b, blk, db) in enumerate(group):
                         sl = slice(slot * fold, (slot + 1) * fold)
                         fold_corpus(bufs[b], blk * w, fold, wf, halo, out=rows_np[sl])
-                        meta[slot] = (db, blk * w)  # bound, start (per-corpus space)
+                        # bound and start from the block's first window: the
+                        # kernels read int32 and own lanes by their difference,
+                        # so a corpus past 2^31 windows cannot wrap them
+                        meta[slot] = (min(db - blk * w, w), 0)
                         limits[sl] = np.clip(db - blk * w - row_in_blk, 0, wf)
                     rows_np[len(group) * fold :] = 0  # padding blocks, bound 0
                 with spans.device("copy"):

@@ -223,6 +223,15 @@ def piece_layout(plens: tuple, k: int):
     return table, pstart
 
 
+@functools.lru_cache(maxsize=64)
+def _device_layout(plens: tuple, k: int, dev: torch.device):
+    """:func:`piece_layout`'s ``(table, pstart)`` on ``dev``, copied once
+    per ``(plens, k, device)``: a launch sends no host-to-device copy of
+    its own, which would hold the host until the stream drained."""
+    table, pstart = piece_layout(plens, k)
+    return torch.tensor(table, device=dev), torch.tensor(pstart, device=dev)
+
+
 def launch_groups(pstart: np.ndarray) -> tuple:
     """Kernel D's launch groups ``(p0, p1)``: consecutive patterns, at most
     ``_PAT_GROUP`` of them and ``_PIECE_GROUP`` pieces, each holding a
@@ -390,9 +399,8 @@ def _launch(rows, pat_raw, bound, start, k, wf, halo, plens):
     pad = sentinel_pad(plens, k)
     pchar = pchar_table(pat_raw, pad).contiguous()
     # the kernel builds the words from pchar: no device-to-host read here
-    layout, pstart_np = piece_layout(plens, k)
-    table = torch.tensor(layout, device=dev)
-    pstart = torch.tensor(pstart_np, device=dev)
+    pstart_np = piece_layout(plens, k)[1]
+    table, pstart = _device_layout(plens, k, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     for (p0, p1), items in launch_items(plens, k, wf, halo, smem_optin(dev)):
         q0, q1 = int(pstart_np[p0]), int(pstart_np[p1])

@@ -7,7 +7,8 @@ scan, :func:`apm_torch.ops.corr_fused.scan_pieces_fused`) gives candidate
 totals and a per-row candidate map on the device. Phase 2 compacts the
 hot rows out of the staged chunk, which is already on the device, and
 verifies them with the banded DP (kernel A, or kernel C in Myers mode). The host gets one small packed vector per chunk,
-``[fcnt (P) | vcnt (P) | n_hot (1) | clip_starts (MAX_CLIP)]``, fetched
+``[fcnt (P) | vcnt (P) | n_hot (1) | clip_starts (MAX_CLIP)]``, int64 (a
+clipped row's global start passes 2^31 in a genome's later chunks), fetched
 together with every other chunk's after the chunk loop; overflow and
 density are decided from it by
 :func:`apm_torch.models.pipeline.finalize_filtration`.
@@ -79,7 +80,8 @@ def _compact(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     slot = torch.where(mask & (pos < size), pos, torch.full_like(pos, size))
     out = torch.full((size + 1,), fill, dtype=torch.int64, device=mask.device)
     out.scatter_(0, slot, torch.arange(n, dtype=torch.int64, device=mask.device))
-    out[size] = fill
+    # no store into the spill slot: a host scalar written to the card
+    # would hold the host until the stream drained
     return out[:size]
 
 
@@ -153,12 +155,7 @@ def _verify_phase2(
     )
     clip_idx = _compact(hot & ~full, MAX_CLIP, -1)
     clip_starts = torch.where(clip_idx >= 0, start + clip_idx * wf, -1)
-    packed = torch.cat([
-        fcnt.to(torch.int32),
-        vcnt.to(torch.int32),
-        n_hot.reshape(1).to(torch.int32),
-        clip_starts.to(torch.int32),
-    ])
+    packed = torch.cat([fcnt, vcnt, n_hot.reshape(1), clip_starts]).to(torch.int64)
     return packed, rowmap
 
 

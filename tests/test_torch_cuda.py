@@ -432,6 +432,37 @@ def test_scanner_split_rescan_on_card_matches_plain(dev, chunk_bytes):
     assert min(got) > 0
 
 
+def test_warm_chunk_launches_never_wait_for_the_card(dev, monkeypatch):
+    """A warm call at k = 3 over four chunks launches each chunk (kernel D,
+    phase 2's compaction and verify) without a host sync: CUDA's sync debug
+    mode, set to raise around every launch, lets all four run, and the
+    counts are the first call's."""
+    import apm_torch
+    from apm_torch import ApmConfig
+    from apm_torch.utils.corpus import plant
+
+    c = _corpus(4 << 20, 92, b"ACGT\n")
+    pats = [bytes(_corpus(m, 93 + i)) for i, m in enumerate([32, 50, 50])]
+    for i, p in enumerate(pats):
+        plant(c, np.frombuffer(p, np.uint8), range(700 + 300 * i, len(c) - 200, 40_000),
+              k=3, seed=i)
+    sc = apm_torch.Scanner(pats, 3, ApmConfig(chunk_bytes=1 << 20))
+    want = sc.count(c).tolist()
+    launch, launched = sc._launch_chunk, []
+
+    def strict(*args, **kwargs):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return launch(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+            launched.append(args[2])
+
+    monkeypatch.setattr(sc, "_launch_chunk", strict)
+    assert sc.count(c).tolist() == want
+    assert len(launched) == 4 and min(want) > 0
+
+
 def _batch_rows(corpora, w, wf, halo, n_slots, bound_of):
     """count_batch's staging of a batch: rows, per-block meta, row limits."""
     from apm_torch.ops.common import fold_corpus

@@ -220,7 +220,7 @@ def test_scanner_correlation_routes(cfg, exc):
 
 
 CALL = {"call", "plan", "fingerprint", "fold", "copy", "launch", "fetch", "wait", "EOF tail",
-        "#cache hit", "#cache miss", "#windows"}
+        "#cache hit", "#cache miss", "#windows", "#chunks"}
 
 
 @pytest.mark.parametrize(
